@@ -1,0 +1,35 @@
+"""Rigid-body collision: sphere vs. moving plane (torch port of
+``pingpong_tpu/env/physics.py``).
+
+Branchless, elementwise over any batch shape. Restitution bounce on the
+normal component, tangential friction impulse (sticking vs. Coulomb
+sliding) and the induced spin change, for a solid sphere
+(``I = 2/5 m R^2``). The physical constants ``e, mu, m, R`` are Python
+floats, as the JAX kernels bake them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def collide_sphere_with_moving_plane(vn, vt, u, omega, e, mu, m, R):
+    """Resolve a sphere/moving-plane impact. Returns
+    ``(vn_post, vt_post, omega_post)``."""
+    vn_post = -e * vn
+    Jn = m * (1.0 + e) * torch.abs(vn)
+    I = 0.4 * m * R * R
+    Jt_star = (2.0 * m / 7.0) * (u + R * omega - vt)
+    max_friction_impulse = mu * Jn
+
+    vrel = (vt - u) - R * omega
+    # math.copysign(1, vrel) in the reference: +1 at vrel == +0.0
+    sign_vrel = torch.where(vrel >= 0.0, 1.0, -1.0)
+    Jt = torch.where(
+        torch.abs(Jt_star) <= max_friction_impulse,
+        Jt_star,
+        -max_friction_impulse * sign_vrel,
+    )
+    vt_post = vt + Jt / m
+    omega_post = omega - (R * Jt) / I
+    return vn_post, vt_post, omega_post

@@ -1,0 +1,36 @@
+"""Batched action selection (port of the QNet part of
+``pingpong_tpu/models/policy.py``): ``obs (B, 7) -> actions (B,)``."""
+
+from __future__ import annotations
+
+import torch
+
+from pingpong_tpu_torch.models.qnet import (
+    QNet,
+    argmax3,
+    qnet_apply,
+    qnet_sample_noise,
+)
+
+
+def epsilon_greedy(generator, q_values, epsilon: float, n_actions: int = 3):
+    """Per-row epsilon-greedy over ``(B, n_actions)`` Q-values; the
+    uniforms come from ``generator`` on the CPU."""
+    batch = q_values.shape[:-1]
+    explore = torch.rand(batch, generator=generator) < epsilon
+    random_a = torch.randint(0, n_actions, batch, generator=generator,
+                             dtype=torch.int32)
+    greedy_a = argmax3(q_values)
+    dev = q_values.device
+    return torch.where(explore.to(dev), random_a.to(dev), greedy_a)
+
+
+def qnet_act_train(generator, params: QNet, obs, epsilon: float):
+    """Learner actor: a fresh head-noise draw, then epsilon-greedy."""
+    noise = qnet_sample_noise(generator, params)
+    return epsilon_greedy(generator, qnet_apply(params, obs, noise), epsilon)
+
+
+def qnet_act_greedy(params: QNet, obs):
+    """Eval mode: mu weights, no epsilon."""
+    return argmax3(qnet_apply(params, obs))

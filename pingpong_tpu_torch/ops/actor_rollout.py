@@ -1,0 +1,425 @@
+"""Fused DQN actor rollout: a whole rollout chunk in one CUDA launch.
+
+Port of ``pingpong_tpu/ops/actor_rollout.py::pallas_actor_rollout``. Per
+env and step: the bound opponent's greedy action (mu weights; player A's
+mirrored view folded into the first layer by :func:`pack_qnet`), the
+learner's NoisyNet + epsilon-greedy action from the advantage head only
+(``argmax(V + A - mean A) == argmax(A)``), the env step, auto-reset with a
+counter-hash serve, the ``max_episode_steps`` cap, transition emission and
+the per-env statistics ``[games/wins vs A, games/wins vs pool, return sum,
+ended, draws]``.
+
+Two versions compute the same function:
+
+* :func:`actor_rollout_plain`, step by step in PyTorch. It runs for
+  tensors on the CPU (the tests, which hold it against the JAX kernel in
+  interpret mode), and ``chip_smoke.py`` holds the kernel against it on
+  the card;
+* the CUDA kernel ``csrc/actor_rollout.cu``, launched for tensors on the
+  card. There is no fallback between the two.
+
+Random draws are the JAX interpreter's counter hash
+(``ops/pong_kernel.py::_hash_uniform``), so all three agree bit for bit on
+every draw: the learner's head noise is one factorized draw per (tile of
+``tile_rows`` envs, step) from an ``(8, 128)`` hash grid, exploration and
+serves are per env (row 0, column = lane in the tile).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import NamedTuple, Sequence, Union
+
+import numpy as np
+import torch
+
+from pingpong_tpu_torch.env.pong import (
+    EnvParams,
+    EnvState,
+    serve_from_uniforms,
+    step,
+)
+from pingpong_tpu_torch.models.qnet import QNet, argmax3
+from pingpong_tpu_torch.ops.build import (
+    CudaKernel,
+    check_cuda,
+    ptr,
+    stream_ptr,
+)
+
+NEG_BIG = -1e30
+HIDDEN = 64
+NET = 5776            # floats per packed net (see csrc/actor_rollout.cu)
+CUDA_BLOCK = 128      # envs per CUDA block; tile_rows must be a multiple
+
+# obs_a = _MIRROR @ obs_b (+ e_y): x, 1-y, vx, -vy, top, bottom, spin
+_MIRROR = np.zeros((8, 8), np.float32)
+for _i, _j, _v in [(0, 0, 1), (1, 1, -1), (2, 2, 1), (3, 3, -1),
+                   (4, 5, 1), (5, 4, 1), (6, 6, 1)]:
+    _MIRROR[_i, _j] = _v
+
+
+class PackedQNet(NamedTuple):
+    """Transposed, padded advantage-path weights, the JAX package's layout
+    (optionally with a leading slot axis). Rows 3-7 of the advantage head
+    are padding; the padding rows of ``bat_mu`` hold -1e30."""
+
+    w1t: torch.Tensor       # (..., 64, 8)
+    b1t: torch.Tensor       # (..., 64, 1)
+    w2t: torch.Tensor       # (..., 64, 64)
+    b2t: torch.Tensor       # (..., 64, 1)
+    wat_mu: torch.Tensor    # (..., 8, 64)
+    bat_mu: torch.Tensor    # (..., 8, 1)
+    wat_sigma: torch.Tensor
+    bat_sigma: torch.Tensor
+
+
+def pack_qnet(params: Union[QNet, Sequence[QNet]],
+              mirror: bool = False) -> PackedQNet:
+    """Pad and transpose one QNet, or stack a sequence of them along a new
+    leading slot axis. ``mirror=True`` folds player A's view into the
+    first layer, so the net consumes player B's observation directly."""
+    if not isinstance(params, QNet):
+        packs = [pack_qnet(p, mirror) for p in params]
+        return PackedQNet(*(torch.stack(f) for f in zip(*packs)))
+
+    def pad_rows(x, rows, fill=0.0):
+        out = torch.full((rows,) + tuple(x.shape[1:]), fill,
+                         dtype=torch.float32, device=x.device)
+        out[:x.shape[0]] = x
+        return out
+
+    w1 = params.feat1.w.detach()
+    w1t = pad_rows(w1, 8).T.contiguous()              # (64, 8)
+    b1t = params.feat1.b.detach()[:, None].clone()    # (64, 1)
+    if mirror:
+        # w1t @ obs_a == (w1t @ M) @ obs_b + w1t[:, y]
+        b1t = b1t + w1t[:, 1:2]
+        w1t = w1t @ torch.as_tensor(_MIRROR, device=w1t.device)
+    fa = params.fc_a
+    return PackedQNet(
+        w1t=w1t,
+        b1t=b1t,
+        w2t=params.feat2.w.detach().T.contiguous(),
+        b2t=params.feat2.b.detach()[:, None].clone(),
+        wat_mu=pad_rows(fa.w_mu.detach().T, 8),
+        bat_mu=pad_rows(fa.b_mu.detach()[:, None], 8, fill=NEG_BIG),
+        wat_sigma=pad_rows(fa.w_sigma.detach().T, 8),
+        bat_sigma=pad_rows(fa.b_sigma.detach()[:, None], 8),
+    )
+
+
+def packed_flat(p: PackedQNet) -> torch.Tensor:
+    """``(..., NET)`` contiguous vector per net, in the CUDA kernel's
+    layout (fields in :class:`PackedQNet` order)."""
+    lead = p.w1t.shape[:-2]
+    flat = torch.cat([f.reshape(lead + (-1,)) for f in p], dim=-1)
+    if flat.shape[-1] != NET:
+        raise ValueError(f"packed net has {flat.shape[-1]} floats, the "
+                         f"kernel takes hidden={HIDDEN} ({NET} floats)")
+    return flat.contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Counter-hash RNG (pingpong_tpu/ops/pong_kernel.py::_hash_uniform)
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def hash_u01(seed_mix, ctr, k, row, col) -> torch.Tensor:
+    """U[0,1) float32 from the xorshift counter hash. Arguments broadcast;
+    uint32 arithmetic is carried in int64 with ``& 0xFFFFFFFF`` (CPU
+    torch lacks most uint32 ops)."""
+    x = (torch.as_tensor(seed_mix, dtype=torch.int64)
+         + ctr * 2654435761 + k * 0x9E3779B9
+         + torch.as_tensor(row, dtype=torch.int64) * 40503
+         + torch.as_tensor(col, dtype=torch.int64) * 69069) & _M32
+    for _ in range(2):
+        x = x ^ ((x << 13) & _M32)
+        x = x ^ (x >> 17)
+        x = x ^ ((x << 5) & _M32)
+    return x.to(torch.float32) * (1.0 / 4294967296.0)
+
+
+def tile_seed_mix(seed: int, n_tiles: int, device) -> torch.Tensor:
+    """``seed ^ (tile * 747796405)`` per tile, as uint32 in int64."""
+    tiles = torch.arange(n_tiles, dtype=torch.int64, device=device)
+    return (seed & _M32) ^ ((tiles * 747796405) & _M32)
+
+
+def epsilon_to_int(epsilon: float) -> int:
+    """The kernel's epsilon argument: ``int32(float32(eps) * 1e6)``."""
+    return int(np.float32(epsilon) * np.float32(1e6))
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version
+# ---------------------------------------------------------------------------
+
+def _trunk(w1t, b1t, w2t, b2t, obs7):
+    """(B, 7) -> (B, 64) second hidden layer, one net."""
+    h = torch.relu(obs7 @ w1t[:, :7].T + b1t[:, 0])
+    return torch.relu(h @ w2t.T + b2t[:, 0])
+
+
+def _opponent_adv(opp: PackedQNet, obs7, opp_idx, shared_trunk):
+    """Advantages of each env's bound member, ``(B, 3)``: every slot's
+    forward over the whole batch, then a per-env select."""
+    if shared_trunk:
+        h2 = _trunk(opp.w1t[0], opp.b1t[0], opp.w2t[0], opp.b2t[0], obs7)
+        adv = torch.einsum("bh,kah->kba", h2, opp.wat_mu[:, :3])
+    else:
+        h1 = torch.relu(torch.einsum("bi,kji->kbj", obs7, opp.w1t[..., :7])
+                        + opp.b1t[:, None, :, 0])
+        h2 = torch.relu(torch.einsum("kbi,kji->kbj", h1, opp.w2t)
+                        + opp.b2t[:, None, :, 0])
+        adv = torch.einsum("kbh,kah->kba", h2, opp.wat_mu[:, :3])
+    adv = adv + opp.bat_mu[:, None, :3, 0]
+    env = torch.arange(obs7.shape[0], device=obs7.device)
+    return adv[opp_idx.long(), env]
+
+
+def _noise_grid(device):
+    """The (row, col) hash coordinates of eps_in (row 0, cols 0-63) and
+    eps_out[0:3] (rows 0-2, col 64) in the TPU kernel's (8, 128) draw."""
+    rows = torch.tensor([0] * HIDDEN + [0, 1, 2], device=device)
+    cols = torch.tensor(list(range(HIDDEN)) + [HIDDEN] * 3, device=device)
+    return rows, cols
+
+
+def _scale_noise(x):
+    return torch.sign(x) * torch.sqrt(torch.abs(x))
+
+
+def actor_rollout_plain(env_params: EnvParams, state: EnvState, opp_idx,
+                        ep_return, learner: PackedQNet, opponents: PackedQNet,
+                        *, seed: int, eps_i: int, steps: int,
+                        max_episode_steps: int, tile_rows: int,
+                        emit_transitions: bool, shared_trunk: bool):
+    """Step-by-step version of the kernel. Returns ``(state, ep_return,
+    transitions or None, stats (8, B))`` with transitions as five
+    ``(T, B[, 7])`` tensors ``obs, action, reward, next_obs, done``."""
+    dev = state.ball_x.device
+    B = state.ball_x.shape[0]
+    env = torch.arange(B, device=dev)
+    gtile = env // tile_rows
+    lane = env % tile_rows
+    mix_tiles = tile_seed_mix(seed, B // tile_rows, dev)
+    mix_env = mix_tiles[gtile]
+    eps = float(np.float32(eps_i) * np.float32(1e-6))
+    rows, cols = _noise_grid(dev)
+    pool_f = (opp_idx > 0).to(torch.float32)
+    lw = learner
+
+    st = state
+    ret = ep_return
+    stats = torch.zeros((8, B), dtype=torch.float32, device=dev)
+    tr = {k: [] for k in ("obs", "action", "reward", "next_obs", "done")}
+    for s in range(steps):
+        ctr = s * 16
+        # learner head noise: one factorized draw per (tile, step)
+        u1 = 1e-7 + hash_u01(mix_tiles[:, None], ctr, 1, rows, cols) * (
+            1.0 - 1e-7)
+        u2 = hash_u01(mix_tiles[:, None], ctr, 2, rows, cols)
+        nrm = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * math.pi * u2)
+        sn = _scale_noise(nrm)
+        ein, eout = sn[:, :HIDDEN], sn[:, HIDDEN:]
+        wa = lw.wat_mu[:3] + lw.wat_sigma[:3] * (eout[:, :, None]
+                                                 * ein[:, None, :])
+        ba = lw.bat_mu[:3, 0] + lw.bat_sigma[:3, 0] * eout
+
+        obs7 = torch.stack([st.ball_x, st.ball_y, st.ball_vx, st.ball_vy,
+                            st.bottom_paddle_x, st.top_paddle_x, st.spin], -1)
+        act_a = argmax3(_opponent_adv(opponents, obs7, opp_idx, shared_trunk))
+        h2 = _trunk(lw.w1t, lw.b1t, lw.w2t, lw.b2t, obs7)
+        greedy_b = argmax3(torch.einsum("bh,bah->ba", h2, wa[gtile])
+                           + ba[gtile])
+        u_expl = hash_u01(mix_env, ctr, 5, 0, lane)
+        rand_a = torch.clamp((hash_u01(mix_env, ctr, 6, 0, lane) * 3.0)
+                             .to(torch.int32), 0, 2)
+        act_b = torch.where(u_expl < eps, rand_a, greedy_b)
+
+        new, out = step(env_params, st, act_a, act_b)
+        done = out.done
+        if max_episode_steps:
+            done = done | (new.t >= max_episode_steps)
+
+        if emit_transitions:
+            tr["obs"].append(obs7)
+            tr["next_obs"].append(out.obs_b)
+            tr["action"].append(act_b)
+            tr["reward"].append(out.reward_b)
+            tr["done"].append(done)
+
+        ep_ret = ret + out.reward_b
+        d_f = done.to(torch.float32)
+        w_f = (done & (ep_ret > 0.0)).to(torch.float32)
+        stats += torch.stack([
+            d_f * (1 - pool_f), w_f * (1 - pool_f), d_f * pool_f,
+            w_f * pool_f, torch.where(done, ep_ret, 0.0), d_f,
+            (done & (ep_ret == 0.0)).to(torch.float32),
+            torch.zeros_like(d_f)])
+
+        u = [hash_u01(mix_env, ctr + 8, k, 0, lane) for k in (1, 2, 3, 4)]
+        svx, svy, ssp = serve_from_uniforms(env_params, *u)
+        zi = torch.zeros_like(new.t)
+        st = EnvState(
+            ball_x=torch.where(done, 0.5, new.ball_x),
+            ball_y=torch.where(done, 0.5, new.ball_y),
+            ball_vx=torch.where(done, svx, new.ball_vx),
+            ball_vy=torch.where(done, svy, new.ball_vy),
+            spin=torch.where(done, ssp, new.spin),
+            top_paddle_x=torch.where(done, 0.5, new.top_paddle_x),
+            bottom_paddle_x=torch.where(done, 0.5, new.bottom_paddle_x),
+            score_a=torch.where(done, zi, new.score_a),
+            score_b=torch.where(done, zi, new.score_b),
+            bounce_count=torch.where(done, zi, new.bounce_count),
+            t=torch.where(done, zi, new.t),
+            done=torch.zeros_like(done),
+        )
+        ret = torch.where(done, 0.0, ep_ret)
+    trans = ({k: torch.stack(v) for k, v in tr.items()}
+             if emit_transitions else None)
+    return st, ret, trans, stats
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel
+# ---------------------------------------------------------------------------
+
+class EnvConsts(ctypes.Structure):
+    """The kernel's ``EnvP``: each constant is evaluated in double from the
+    float32-rounded env params and rounded to float32 once, as the JAX
+    kernels' Python-float constants are."""
+
+    _fields_ = [(n, ctypes.c_float) for n in (
+        "ps", "mf_spin", "half_w", "e", "mu", "m", "R", "m1e", "inertia",
+        "c27", "scale_up", "spd_lo", "spd_rng", "lo0", "rng0", "lo1", "rng1",
+        "deg2rad", "spin_lo", "spin_rng", "u1_lo", "u1_rng", "two_pi")] + [
+        (n, ctypes.c_int) for n in (
+            "max_score", "speed_scale_every", "max_episode_steps")]
+
+    @classmethod
+    def build(cls, p: EnvParams, max_episode_steps: int) -> "EnvConsts":
+        (lo0, hi0), (lo1, hi1) = p.angle_intervals
+        m, e, R = p.ball_mass, p.restitution, p.ball_radius
+        return cls(
+            ps=p.paddle_speed, mf_spin=p.enable_spin * p.magnus_factor,
+            half_w=p.paddle_width * 0.5, e=e, mu=p.friction, m=m, R=R,
+            m1e=m * (1.0 + e), inertia=0.4 * m * R * R, c27=2.0 * m / 7.0,
+            scale_up=1.0 + p.speed_increment,
+            spd_lo=p.speed_min, spd_rng=p.speed_max - p.speed_min,
+            lo0=lo0, rng0=hi0 - lo0, lo1=lo1, rng1=hi1 - lo1,
+            deg2rad=math.pi / 180.0, spin_lo=p.spin_min,
+            spin_rng=p.spin_max - p.spin_min,
+            u1_lo=1e-7, u1_rng=1.0 - 1e-7, two_pi=2.0 * math.pi,
+            max_score=p.max_score, speed_scale_every=p.speed_scale_every,
+            max_episode_steps=max_episode_steps,
+        )
+
+
+_vp, _i = ctypes.c_void_p, ctypes.c_int
+KERNEL = CudaKernel(
+    "actor_rollout", "actor_rollout_launch",
+    [ctypes.POINTER(EnvConsts), _vp, _vp, _vp, _vp, _i, _vp, _vp,
+     _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, ctypes.c_uint, _i, _vp],
+)
+
+
+def actor_rollout_cuda(env_params: EnvParams, state: EnvState, opp_idx,
+                       ep_return, learner: PackedQNet, opponents: PackedQNet,
+                       *, seed: int, eps_i: int, steps: int,
+                       max_episode_steps: int, tile_rows: int,
+                       emit_transitions: bool, shared_trunk: bool):
+    """Launch the CUDA kernel; same contract as :func:`actor_rollout_plain`
+    (``opp_idx`` is returned unchanged by both)."""
+    dev = state.ball_x.device
+    B = state.ball_x.shape[0]
+    if tile_rows % CUDA_BLOCK:
+        raise ValueError(f"tile_rows {tile_rows} must be a multiple of "
+                         f"{CUDA_BLOCK} on the card")
+    lw = packed_flat(learner)
+    ow = packed_flat(opponents)
+    n_slots = ow.shape[0]
+    check_cuda("learner", lw, torch.float32, (NET,))
+    check_cuda("opponents", ow, torch.float32, (n_slots, NET))
+    check_cuda("opp_idx", opp_idx, torch.int32, (B,))
+    lo, hi = torch.aminmax(opp_idx)
+    if int(lo) < 0 or int(hi) >= n_slots:
+        raise ValueError(f"opp_idx outside [0, {n_slots})")
+    f_in = torch.stack([state.ball_x, state.ball_y, state.ball_vx,
+                        state.ball_vy, state.bottom_paddle_x,
+                        state.top_paddle_x, state.spin, ep_return])
+    i_in = torch.stack([state.score_a, state.score_b, state.bounce_count,
+                        state.t, opp_idx])
+    check_cuda("f_in", f_in, torch.float32, (8, B))
+    check_cuda("i_in", i_in, torch.int32, (5, B))
+    f_out = torch.empty_like(f_in)
+    i_out = torch.empty_like(i_in)
+    stats = torch.empty((8, B), dtype=torch.float32, device=dev)
+    if emit_transitions:
+        obs = torch.empty((steps, B, 7), dtype=torch.float32, device=dev)
+        nxt = torch.empty_like(obs)
+        act = torch.empty((steps, B), dtype=torch.int32, device=dev)
+        rew = torch.empty((steps, B), dtype=torch.float32, device=dev)
+        dn = torch.empty((steps, B), dtype=torch.int32, device=dev)
+        tr_ptrs = [ptr(t) for t in (obs, nxt, act, rew, dn)]
+    else:
+        tr_ptrs = [None] * 5
+    consts = EnvConsts.build(env_params, max_episode_steps)
+    KERNEL.launch(ctypes.byref(consts), ptr(f_in), ptr(i_in), ptr(lw),
+                  ptr(ow), int(shared_trunk), ptr(f_out), ptr(i_out),
+                  *tr_ptrs, ptr(stats), B, steps, tile_rows,
+                  seed & _M32, eps_i, stream_ptr(dev))
+    new_state = EnvState(
+        ball_x=f_out[0], ball_y=f_out[1], ball_vx=f_out[2], ball_vy=f_out[3],
+        bottom_paddle_x=f_out[4], top_paddle_x=f_out[5], spin=f_out[6],
+        score_a=i_out[0], score_b=i_out[1], bounce_count=i_out[2],
+        t=i_out[3], done=torch.zeros((B,), dtype=torch.bool, device=dev),
+    )
+    trans = None
+    if emit_transitions:
+        trans = {"obs": obs, "action": act, "reward": rew, "next_obs": nxt,
+                 "done": dn.bool()}
+    return new_state, f_out[7], trans, stats
+
+
+def actor_rollout(env_params: EnvParams, state: EnvState, opp_idx,
+                  ep_return, learner: PackedQNet, opponents: PackedQNet, *,
+                  seed: int, epsilon: float, steps: int,
+                  max_episode_steps: int = 0, tile_rows: int = 512,
+                  emit_transitions: bool = True,
+                  member_shared_trunk: bool = False):
+    """One rollout chunk. ``state`` is batched ``(B,)``, ``opp_idx (B,)``
+    i32 binds each env to a slot of the stacked ``opponents`` (fixed for
+    the chunk; callers sort or bucket envs by slot), ``learner`` is one
+    unmirrored net, ``opponents`` mirror-folded. ``member_shared_trunk``
+    promises that every slot has slot 0's feature trunk (checked by the
+    caller, ``train/dqn.py::DQNLearner.prepare_opponents``).
+
+    Runs the CUDA kernel for CUDA tensors and the plain version for CPU
+    tensors. Returns ``(state, opp_idx, ep_return, transitions,
+    stat_counts, ret_sum, ended)`` as the JAX function does: transitions
+    a dict of ``(T, B[, 7])`` tensors (None when ``emit_transitions`` is
+    False), ``stat_counts`` i32 ``[games_vs_a, wins_vs_a, games_vs_pool,
+    wins_vs_pool, draws]``, ``ended (B,)`` bool = finished at least one
+    episode in the chunk."""
+    B = state.ball_x.shape[0]
+    if B % tile_rows:
+        raise ValueError(f"batch {B} must be a multiple of {tile_rows}")
+    kw = dict(seed=int(seed), eps_i=epsilon_to_int(epsilon), steps=steps,
+              max_episode_steps=int(max_episode_steps), tile_rows=tile_rows,
+              emit_transitions=emit_transitions,
+              shared_trunk=bool(member_shared_trunk))
+    if state.ball_x.is_cuda:
+        new_state, ret, trans, stats = actor_rollout_cuda(
+            env_params, state, opp_idx, ep_return, learner, opponents, **kw)
+    else:
+        new_state, ret, trans, stats = actor_rollout_plain(
+            env_params, state, opp_idx, ep_return, learner, opponents, **kw)
+    totals = stats.sum(dim=1)
+    stat_counts = totals[[0, 1, 2, 3, 6]].to(torch.int32)
+    return (new_state, opp_idx, ret, trans, stat_counts, totals[4],
+            stats[5] > 0.0)

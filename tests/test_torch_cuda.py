@@ -1,0 +1,177 @@
+"""PyTorch port on the card: each CUDA kernel vs its plain PyTorch version
+on the same inputs, the wrappers' argument checks, and one learner
+iteration through both kernels. Every test needs an NVIDIA card and skips
+without one. This file imports no JAX, so it also runs on a machine that
+has only the port's dependencies:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(``--noconftest``: the suite's conftest configures JAX.) Tolerances are
+those of ``chip_smoke.py``: the kernels contract float products into FMAs
+where the CPU rounds twice, which can flip a rare compare."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from pingpong_tpu_torch.config import load_config
+from pingpong_tpu_torch.env.pong import env_params_from_config, reset
+from pingpong_tpu_torch.models.qnet import (
+    qnet_init,
+    qnet_sample_noise,
+    qnet_to_flat,
+)
+from pingpong_tpu_torch.ops import actor_rollout as tar
+from pingpong_tpu_torch.ops import dqn_update as tdu
+from pingpong_tpu_torch.replay.per import Transition, per_init, per_push
+from pingpong_tpu_torch.train.dqn import DQNLearner
+
+CONFIG = "configs/qnet.yaml"
+B, TILE, T = 512, 128, 16
+CAP, BS, K = 16384, 128, 3
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (python -m pytest --noconftest "
+                    "-m cuda tests/test_torch_cuda.py there)")
+    return torch.device("cuda")
+
+
+def actor_args(n_slots, shared, eval_mode, dev, seed=3):
+    cfg = load_config(CONFIG)
+    gen = torch.Generator().manual_seed(seed)
+    learner = qnet_init(gen)
+    if eval_mode:
+        learner.fc_a.w_sigma.data.zero_()
+        learner.fc_a.b_sigma.data.zero_()
+    members = [qnet_init(gen) for _ in range(n_slots)]
+    if shared:
+        for p in members[1:]:
+            p.feat1.load_state_dict(members[0].feat1.state_dict())
+            p.feat2.load_state_dict(members[0].feat2.state_dict())
+    rng = np.random.default_rng(seed)
+    opp = np.sort(rng.integers(0, n_slots, B)).astype(np.int32)
+    env_params = env_params_from_config(cfg.env)
+    args = (env_params, reset(env_params, B, gen, dev),
+            torch.from_numpy(opp).to(dev), torch.zeros(B, device=dev),
+            tar.pack_qnet(learner.to(dev)),
+            tar.pack_qnet([m.to(dev) for m in members], mirror=True))
+    kw = dict(seed=1234567, eps_i=0 if eval_mode else 300000, steps=T,
+              max_episode_steps=0 if eval_mode else 40, tile_rows=TILE,
+              emit_transitions=not eval_mode, shared_trunk=shared)
+    return args, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_slots,shared,eval_mode", [
+    (1, False, False), (3, True, False), (3, False, False), (1, False, True)])
+def test_actor_kernel_matches_plain(cuda, n_slots, shared, eval_mode):
+    args, kw = actor_args(n_slots, shared, eval_mode, cuda)
+    before = tar.KERNEL.launches
+    sk, rk, tk, stk = tar.actor_rollout_cuda(*args, **kw)
+    sp, rp, tp, stp = tar.actor_rollout_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert tar.KERNEL.launches == before + 1
+    ok = torch.ones(B, dtype=torch.bool, device=cuda)
+    if not eval_mode:
+        eq = ((tk["action"] == tp["action"]) & (tk["reward"] == tp["reward"])
+              & (tk["done"] == tp["done"]))
+        assert float(eq.float().mean()) >= 0.999
+        ok = eq.all(dim=0)
+        for k in ("obs", "next_obs"):
+            torch.testing.assert_close(tk[k][:, ok], tp[k][:, ok], rtol=0,
+                                       atol=1e-5)
+    for f in ("score_a", "score_b", "bounce_count", "t"):
+        assert float((getattr(sk, f) == getattr(sp, f)).float().mean()) \
+            >= 0.999
+    for f in ("ball_x", "ball_y", "ball_vx", "ball_vy", "spin"):
+        torch.testing.assert_close(getattr(sk, f)[ok], getattr(sp, f)[ok],
+                                   rtol=0, atol=1e-5)
+    torch.testing.assert_close(stk[:7].sum(1), stp[:7].sum(1), rtol=0.01,
+                               atol=1.0)
+
+
+def update_kwargs(dev, heads_only, tau, interval, seed=2):
+    rng = np.random.default_rng(seed)
+    buf = per_init(CAP, device=dev)
+    m = 2048
+    batch = (rng.uniform(-1, 1, (m, 7)).astype(np.float32),
+             rng.integers(0, 3, m).astype(np.int32),
+             rng.normal(size=m).astype(np.float32),
+             rng.uniform(-1, 1, (m, 7)).astype(np.float32),
+             rng.random(m) < 0.2)
+    per_push(buf, Transition(*(torch.from_numpy(x).to(dev) for x in batch)),
+             0.6)
+    pr = np.zeros(CAP, np.float32)
+    pr[:m] = rng.uniform(0.1, 2.0, m)
+    pa = torch.from_numpy(pr ** np.float32(0.6)).to(dev)
+    gen = torch.Generator().manual_seed(seed)
+    params = qnet_to_flat(qnet_init(gen)).to(dev)
+    noise = tdu.pack_dqn_noise(qnet_sample_noise(gen, qnet_init(gen),
+                                                 batch=(K,))).to(dev)
+    return dict(ts0=1, count0=0, frame0=7, size=m,
+                u01=torch.from_numpy(rng.random((K, BS)).astype(np.float32))
+                .to(dev), noise=noise, p_alpha=pa,
+                chunk_sums=pa.view(-1, 128).sum(dim=1), params=params,
+                target=params.clone(), m=torch.zeros_like(params),
+                v=torch.zeros_like(params), data=buf.data, K=K, bs=BS,
+                lr=2.5e-4, gamma=0.99, interval=interval, tau=tau, alpha=0.6,
+                per_eps=1e-6, beta_start=0.4, beta_frames=1000,
+                heads_only=heads_only)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads_only,tau,interval", [
+    (True, 0.0, 2), (False, 0.0, 10_000), (True, 0.05, 10_000)])
+def test_update_kernel_matches_plain(cuda, heads_only, tau, interval):
+    kk = update_kwargs(cuda, heads_only, tau, interval)
+    kp = {k: (v.clone() if isinstance(v, torch.Tensor) else v)
+          for k, v in kk.items()}
+    before = tdu.KERNEL.launches
+    nk, ik, lk = tdu.dqn_update_cuda(**kk)
+    np_, ip, lp = tdu.dqn_update_plain(**kp)
+    torch.cuda.synchronize()
+    assert tdu.KERNEL.launches == before + 1
+    assert torch.equal(ik[0], ip[0])
+    assert float((ik == ip).float().mean()) >= 0.99
+    torch.testing.assert_close(lk, lp, rtol=1e-4, atol=1e-6)
+    for key, atol in (("params", 1e-6), ("target", 1e-6), ("m", 1e-7),
+                      ("v", 1e-9), ("chunk_sums", 1e-5)):
+        torch.testing.assert_close(kk[key], kp[key], rtol=1e-4, atol=atol)
+
+
+@pytest.mark.cuda
+def test_wrappers_check_their_arguments(cuda):
+    args, kw = actor_args(1, False, False, cuda)
+    with pytest.raises(ValueError, match="tile_rows"):
+        tar.actor_rollout_cuda(*args, **{**kw, "tile_rows": 64})
+    bad_idx = args[2].to(torch.int64)
+    with pytest.raises(ValueError, match="opp_idx"):
+        tar.actor_rollout_cuda(*args[:2], bad_idx, *args[3:], **kw)
+    kk = update_kwargs(cuda, True, 0.0, 2)
+    with pytest.raises(ValueError, match="u01"):
+        tdu.dqn_update_cuda(**{**kk, "u01": kk["u01"].double()})
+    with pytest.raises(ValueError, match="params"):
+        tdu.dqn_update_cuda(**{**kk, "params": kk["params"].cpu()})
+
+
+@pytest.mark.cuda
+def test_learner_iteration_runs_both_kernels(cuda):
+    cfg = load_config(CONFIG)
+    dq = dataclasses.replace(cfg.dqn, num_envs=B, rollout_length=T,
+                             updates_per_iteration=K, batch_size=BS,
+                             memory_size=CAP, pallas_tile_rows=TILE)
+    learner = DQNLearner(cfg.env, dq)
+    state = learner.init_state(0)
+    opp = learner.prepare_opponents([learner.params_b(state)] * 2)
+    assert opp.shared_trunk
+    a0, u0 = tar.KERNEL.launches, tdu.KERNEL.launches
+    state, m = learner.train_iteration(state, opp, 1)
+    torch.cuda.synchronize()
+    assert (tar.KERNEL.launches, tdu.KERNEL.launches) == (a0 + 1, u0 + 1)
+    assert m.updates_run == K and np.isfinite(m.mean_loss)
+    assert state.buffer.size == B * T and state.params.is_cuda
