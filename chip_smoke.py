@@ -2,17 +2,19 @@
 
     python3 chip_smoke.py
 
-1. builds both CUDA kernels from ``pingpong_tpu_torch/csrc`` (one ``nvcc``
-   per source, started together) and prints ptxas' register/smem lines;
-2. holds each kernel against its plain PyTorch version on the card, at the
-   main path's shapes, with the stated tolerances;
-3. drives the main path, ``cli train`` at ``configs/qnet.yaml``'s widths and
-   batch, twice in one workdir (the second run loads the first run's
-   checkpoint into the pool), with the kernels' launch counters reset just
-   before and read just after;
-4. times each kernel (CUDA events, warm) beside its plain version, and a
-   train iteration end to end, and profiles where an iteration's device
-   time goes (``torch.profiler``);
+1. builds every CUDA kernel from ``pingpong_tpu_torch/csrc`` (one ``nvcc``
+   per source, all started together) and prints ptxas' register/smem
+   lines;
+2. holds each kernel against its plain PyTorch version on the card, at its
+   path's shapes, with the stated tolerances;
+3. drives both training paths, each with the kernels' launch counters set
+   to 0 just before it and read just after: ``cli train`` at
+   ``configs/qnet.yaml``'s widths and batch, and ``cli train-rnn`` at
+   ``configs/rnn.yaml``'s, each twice in one workdir (the second run loads
+   the first run's promoted checkpoint into its pool);
+4. times each kernel (CUDA events, warm) beside its plain version and its
+   bound, and a train iteration of each path end to end, and profiles
+   where an iteration's device time goes (``torch.profiler``);
 5. prints the ``kernels`` JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.
 
@@ -34,8 +36,9 @@ import torch
 ROOT = Path(__file__).resolve().parent
 F32_PEAK = 67e12        # H100 SXM float32 (non-tensor-core) FLOP/s
 HBM_RATE = 3.35e12      # H100 SXM HBM3 bytes/s
-# set in main() from the card and configs/qnet.yaml
+# set in main() from the card, configs/qnet.yaml and configs/rnn.yaml
 CARD = ENV_PARAMS = TILE = MAX_EP_STEPS = None
+RNN_ENV = RNN_CFG = None
 
 
 class SmokeFailure(RuntimeError):
@@ -266,7 +269,228 @@ def update_bound_ms(bs, K, nc, heads_only, idx):
 # main path
 # ---------------------------------------------------------------------------
 
-def profile_iterations(learner, state, opp, n):
+# ---------------------------------------------------------------------------
+# kernel 3: recurrent rollout
+# ---------------------------------------------------------------------------
+
+def rnn_nets(gen, n, dev):
+    from pingpong_tpu_torch.models.qnet_rnn import qnet_rnn_init
+
+    c = RNN_CFG
+    return [qnet_rnn_init(gen, feature_dim=c.feature_dim,
+                          lstm_hidden_dim=c.lstm_hidden_dim,
+                          head_hidden_dim=c.head_hidden_dim).to(dev)
+            for _ in range(n)]
+
+
+def rnn_inputs(seed, n_slots, eval_mode, dev):
+    from pingpong_tpu_torch.env.pong import reset
+    from pingpong_tpu_torch.evaluation.fast_eval import _zero_rnn_sigma
+    from pingpong_tpu_torch.ops import recurrent_rollout as rr
+    from pingpong_tpu_torch.train.dqn import bucket_opp_idx
+
+    B, H = RNN_CFG.num_envs, RNN_CFG.lstm_hidden_dim
+    gen = torch.Generator().manual_seed(seed)
+    learner, *members = rnn_nets(gen, 1 + n_slots, dev)
+    if eval_mode:
+        learner = _zero_rnn_sigma(learner)
+    hid = torch.zeros((4 * H, B), device=dev)
+    if not eval_mode:
+        hid.uniform_(-0.5, 0.5, generator=torch.Generator(dev).manual_seed(seed))
+    return dict(
+        state0=reset(RNN_ENV, B, gen, dev),
+        opp_idx=bucket_opp_idx(B, RNN_CFG.selfplay.opponent_pool_ratio,
+                               n_slots - 1, device=dev),
+        ep_return=torch.zeros(B, device=dev), hid=hid,
+        learner=rr.pack_qnet_rnn(learner), sigma=rr.pack_rnn_sigma(learner),
+        opponents=rr.pack_qnet_rnn(members, mirror=True), eval_mode=eval_mode)
+
+
+def run_rnn(fn, inp, steps, seed=11):
+    return fn(RNN_ENV, inp["state0"], inp["opp_idx"], inp["ep_return"],
+              inp["hid"], inp["learner"], inp["sigma"], inp["opponents"],
+              seed=seed, eps_i=0 if inp["eval_mode"] else 300000,
+              steps=steps, max_episode_steps=RNN_CFG.max_episode_steps,
+              tile_rows=min(RNN_CFG.pallas_tile_rows, RNN_CFG.num_envs),
+              emit_transitions=not inp["eval_mode"])
+
+
+def compare_rnn(name, inp):
+    """16-step chunk: discrete streams equal on >= 99.9 % of (env, step);
+    on matching envs, env floats within 1e-5 and the LSTM streams within
+    1e-4 (the gate sums of 256 products run in another order, with FMAs,
+    and 16 recurrent steps carry the difference); 128-step games and wins
+    within 1 %."""
+    from pingpong_tpu_torch.ops.recurrent_rollout import (
+        recurrent_rollout_cuda,
+        recurrent_rollout_plain,
+    )
+
+    sk, rk, hk, tk, stk = run_rnn(recurrent_rollout_cuda, inp, 16)
+    sp, rp, hp, tp, stp = run_rnn(recurrent_rollout_plain, inp, 16)
+    torch.cuda.synchronize()
+    if tk is not None:
+        eq = ((tk["action"] == tp["action"]) & (tk["reward"] == tp["reward"])
+              & (tk["done"] == tp["done"]))
+        frac = float(eq.float().mean())
+        ok_env = eq.all(dim=0)
+        f32_err = float((tk["obs"] - tp["obs"]).abs()[:, ok_env].max())
+    else:
+        ok_env = torch.stack([sk.score_a == sp.score_a,
+                              sk.score_b == sp.score_b, sk.t == sp.t,
+                              sk.bounce_count == sp.bounce_count,
+                              stk[5] == stp[5]]).all(dim=0)
+        frac = float(ok_env.float().mean())
+        f32_err = 0.0
+    for f in ("ball_x", "ball_y", "ball_vx", "ball_vy", "spin",
+              "top_paddle_x", "bottom_paddle_x"):
+        f32_err = max(f32_err, float(
+            (getattr(sk, f) - getattr(sp, f)).abs()[ok_env].max()))
+    f32_err = max(f32_err, float((rk - rp).abs()[ok_env].max()))
+    hid_err = float((hk - hp).abs()[:, ok_env].max())
+    _, _, _, _, stk128 = run_rnn(recurrent_rollout_cuda, inp, 128)
+    _, _, _, _, stp128 = run_rnn(recurrent_rollout_plain, inp, 128)
+    gk, gp = float(stk128[0].sum() + stk128[2].sum()), float(
+        stp128[0].sum() + stp128[2].sum())
+    wk, wp = float(stk128[1].sum() + stk128[3].sum()), float(
+        stp128[1].sum() + stp128[3].sum())
+    print(f"[rnn:{name}] discrete match {frac:.6f} env f32 max err "
+          f"{f32_err:.3g} hidden max err {hid_err:.3g} | 128 steps games "
+          f"{gk:.0f}/{gp:.0f} wins {wk:.0f}/{wp:.0f} | {CARD}", flush=True)
+    check(frac >= 0.999, f"rnn {name}: discrete match {frac} < 0.999")
+    check(f32_err <= 1e-5, f"rnn {name}: env f32 error {f32_err} > 1e-5")
+    check(hid_err <= 1e-4, f"rnn {name}: hidden error {hid_err} > 1e-4")
+    check(abs(gk - gp) <= 0.01 * max(gp, 1.0), f"rnn {name}: games")
+    check(abs(wk - wp) <= 0.01 * max(wp, 1.0), f"rnn {name}: wins")
+    return max(f32_err, hid_err)
+
+
+def rnn_bound_ms(B, T, n_slots, tiles, emit=True):
+    """Kernel 3's least time: two recurrent forwards per env-step (the
+    learner's and the bound opponent's), each the feature MLP, the packed
+    gates product, the cell and the shared and A heads, plus the tile's
+    noisy head weights once per step; bytes: state and both LSTM streams
+    in and out, every net once, the transitions."""
+    F1, F, H, HH = (RNN_CFG.feature_dim // 2, RNN_CFG.feature_dim,
+                    RNN_CFG.lstm_hidden_dim, RNN_CFG.head_hidden_dim)
+    per_net = (2 * (7 * F1 + F1 * F + (F + H) * 4 * H + H * HH + HH * 3)
+               + 10 * H)
+    flops = 2 * per_net * B * T + 3 * (H * HH + 3 * HH) * tiles * T
+    net = F1 * 9 + F1 * F + F + (F + H) * 4 * H + 4 * H + H * HH + HH \
+        + 3 * HH + 3
+    nbytes = (2 * (13 + 4 * H) * 4 * B + 8 * 4 * B
+              + 4 * (net * (1 + n_slots) + H * HH + 4 * HH + 3)
+              + (40 * B * T if emit else 0))
+    t_ops, t_bytes = flops / F32_PEAK, nbytes / HBM_RATE
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes \
+        else "bytes"
+
+
+# ---------------------------------------------------------------------------
+# kernel 4: DRQN update block
+# ---------------------------------------------------------------------------
+
+def drqn_update_inputs(seed, dev, ts0=0, interval=2000, tau=0.0):
+    from pingpong_tpu_torch.models.qnet_rnn import (
+        qnet_rnn_sample_noise,
+        qnet_rnn_to_flat,
+    )
+    from pingpong_tpu_torch.ops.drqn_update import flat_noise, kernel_inputs
+
+    c = RNN_CFG
+    K, bs, T = c.updates_per_iteration, c.batch_size, c.trace_length
+    gen = torch.Generator().manual_seed(seed)
+    net, tgt = rnn_nets(gen, 2, dev)
+    g = torch.Generator(dev).manual_seed(seed)
+    lo = torch.tensor([0, 0, -0.06, -0.06, 0, 0, -5], device=dev)
+    hi = torch.tensor([1, 1, 0.06, 0.06, 1, 1, 5], device=dev)
+    obs = lo + (hi - lo) * torch.rand((K, bs, T + 1, 7), generator=g,
+                                      device=dev)
+    xt, nextt, meta = kernel_inputs(
+        obs[:, :, :T].contiguous(), obs[:, :, 1:].contiguous(),
+        torch.randint(0, 3, (K, bs), generator=g, device=dev),
+        torch.randn((K, bs), generator=g, device=dev),
+        torch.rand((K, bs), generator=g, device=dev) < 0.2,
+        torch.rand((K, bs), generator=g, device=dev) < 0.9)
+    params = qnet_rnn_to_flat(net)
+    return dict(ts0=ts0, count0=ts0, xt=xt, nextt=nextt, meta=meta,
+                noise=flat_noise(qnet_rnn_sample_noise(gen, net, batch=(K,)))
+                .to(dev), params=params, target=qnet_rnn_to_flat(tgt),
+                m=torch.zeros_like(params), v=torch.zeros_like(params),
+                dims=(c.feature_dim // 2, c.feature_dim, c.lstm_hidden_dim,
+                      c.head_hidden_dim), K=K, bs=bs, T=T, lr=c.lr,
+                clip=c.grad_clip_norm, gamma=c.gamma, interval=interval,
+                tau=tau)
+
+
+def fresh(kw):
+    return {k: (v.clone() if isinstance(v, torch.Tensor) else v)
+            for k, v in kw.items()}
+
+
+def compare_drqn_update(name, kw):
+    """Losses within rtol 1e-4. Parameters and target: >= 99.9 % of
+    entries within 1e-6 + 1e-4 |x|, and every entry within 2 lr K: Adam's
+    first steps normalise each gradient entry to about +-1, so an entry
+    whose gradient is near zero (its sign set by summation order) may move
+    by up to lr a step the other way. Moments: >= 99.9 % within rtol 1e-3."""
+    from pingpong_tpu_torch.ops.drqn_update import (
+        drqn_update_cuda,
+        drqn_update_plain,
+    )
+
+    kk, kp = fresh(kw), fresh(kw)
+    lk = drqn_update_cuda(**kk)
+    lp = drqn_update_plain(**kp)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(lk).all()), f"update {name}: losses finite")
+    check(torch.allclose(lk, lp, rtol=1e-4, atol=1e-6),
+          f"update {name}: losses differ beyond rtol 1e-4")
+    err = float((lk - lp).abs().max())
+    fracs = {}
+    for key, atol, rtol in (("params", 1e-6, 1e-4), ("target", 1e-6, 1e-4),
+                            ("m", 1e-9, 1e-3), ("v", 1e-12, 1e-3)):
+        d = (kk[key] - kp[key]).abs()
+        fracs[key] = float((d <= atol + rtol * kp[key].abs()).float().mean())
+        check(fracs[key] >= 0.999, f"update {name}: {key} close on "
+              f"{fracs[key]:.5f} < 0.999 of entries")
+        if key in ("params", "target"):
+            err = max(err, float(d.max()))
+    bound = 2 * kw["lr"] * kw["K"]
+    check(err <= bound, f"update {name}: max param error {err} > 2 lr K")
+    print(f"[drqn_update:{name}] loss[0] {float(lk[0]):.6g}/"
+          f"{float(lp[0]):.6g}, max abs err {err:.3g} (limit {bound:.3g}), "
+          f"close fractions {fracs} | {CARD}", flush=True)
+    return err
+
+
+def drqn_update_bound_ms(kw, stale):
+    """Kernel 4's least time: per update the online forward over obs||next
+    and the backward over the obs half (the next half's gradient is zero),
+    Adam over every parameter; the target's wide pass at k = 0 and
+    ``stale`` per-update target passes; bytes: inputs, noise, the four
+    parameter vectors read and written once."""
+    F1, F, H, HH = kw["dims"]
+    K, bs, T = kw["K"], kw["bs"], kw["T"]
+    P = kw["params"].numel()
+    N, NB = T * 2 * bs, T * bs
+    fwd = (2 * (7 * F1 + F1 * F + F * 4 * H + H * 4 * H) * N + 10 * H * N
+           + 2 * (H * HH + 4 * HH) * 2 * bs)
+    bwd = (2 * (2 * H * HH + 4 * HH) * bs + (T - 1) * 2 * 4 * H * H * bs
+           + 2 * (H * 4 * H + 2 * F * 4 * H + 2 * F1 * F + 7 * F1) * NB
+           + 20 * H * NB)
+    tpass = 2 * (7 * F1 + F1 * F + F * 4 * H + H * 4 * H) * T \
+        + 2 * (H * HH + 4 * HH)
+    wide = 0 if kw["tau"] > 0 else K * bs * tpass
+    flops = K * (fwd + bwd + 12 * P) + wide + stale * bs * tpass
+    nbytes = 4 * (kw["xt"].numel() + kw["nextt"].numel() + kw["meta"].numel()
+                  + kw["noise"].numel() + 8 * P + K)
+    t_ops, t_bytes = flops / F32_PEAK, nbytes / HBM_RATE
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes \
+        else "bytes"
+
+
+def profile_iterations(name, learner, state, opp, n):
     """Where a train iteration's time goes: ``torch.profiler`` over ``n``
     warm iterations; device time per kernel or op and the device's busy
     share of the wall time (kernels may overlap, so it can exceed 1)."""
@@ -285,11 +509,37 @@ def profile_iterations(learner, state, opp, n):
                    if e.self_device_time_total > 0), reverse=True)
     dev_ms = sum(ms for ms, _ in rows)
     check(dev_ms > 0, "profiler recorded no device time")
-    print(f"[profile] per iteration (profiled): wall {wall_ms:.3f} ms, "
+    print(f"[profile:{name}] per iteration (profiled): wall {wall_ms:.3f} ms, "
           f"device {dev_ms:.3f} ms, busy share {dev_ms / wall_ms:.3f} | "
           f"{CARD}")
     for ms, key in rows[:8]:
-        print(f"[profile]   {ms:9.4f} ms  {key[:90]}")
+        print(f"[profile:{name}]   {ms:9.4f} ms  {key[:90]}")
+
+
+def time_iterations(name, learner, state, opp, n_it=5):
+    """Host-clock ms of a warm train iteration (ends in a synchronize),
+    once the update block runs."""
+    for _ in range(12):
+        _, metrics = learner.train_iteration(state, opp, 1)
+        if metrics.updates_run > 0:
+            break
+    check(metrics.updates_run > 0, f"{name}: the update block never ran")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_it):
+        _, metrics = learner.train_iteration(state, opp, 1)
+    torch.cuda.synchronize()
+    it_ms = (time.perf_counter() - t0) / n_it * 1e3
+    check(metrics.updates_run > 0 and metrics.mean_loss == metrics.mean_loss,
+          f"{name}: timed iterations ran no finite update")
+    c = learner.cfg
+    steps = c.num_envs * c.rollout_length
+    print(f"[main:{name}] train iteration {it_ms:.3f} ms, "
+          f"{steps / it_ms * 1e3:.4g} env-steps/s (num_envs {c.num_envs}, "
+          f"rollout {c.rollout_length}, {c.updates_per_iteration} updates "
+          f"of {c.batch_size}) | {CARD}", flush=True)
+    profile_iterations(name, learner, state, opp, 3)
+
 
 def train_args(workdir):
     return ["train", "--config", str(ROOT / "configs" / "qnet.yaml"),
@@ -302,22 +552,80 @@ def train_args(workdir):
             "dqn.save_latest_checkpoint_interval_steps=0"]
 
 
+def train_rnn_args(workdir):
+    """``configs/rnn.yaml`` with the gate sizes cut (one generation,
+    4000 training episodes so that update blocks run once the buffer gate
+    of 640 admitted episodes opens, 2000 eval episodes, thresholds 0) and
+    the autosave off."""
+    return ["train-rnn", "--config", str(ROOT / "configs" / "rnn.yaml"),
+            "--workdir", str(workdir),
+            "drqn.selfplay.max_generations=1",
+            "drqn.selfplay.episodes_per_generation=4000",
+            "drqn.selfplay.eval_episodes=2000",
+            "drqn.selfplay.curr_win_threshold=0.0",
+            "drqn.selfplay.pool_win_threshold=0.0",
+            "drqn.save_latest_checkpoint_interval_steps=0"]
+
+
+def drive(name, cli, args_fn, kernels, ckpt_sub, promoted_name):
+    """A path's main run: ``cli`` twice in one workdir, the launch
+    counters set to 0 just before and read just after."""
+    from pingpong_tpu_torch.checkpoint.store import list_checkpoints
+    from pingpong_tpu_torch.selfplay.pool import load_pool
+
+    workdir = ROOT / "build" / f"chip_smoke_{name}"
+    shutil.rmtree(workdir, ignore_errors=True)
+    for k in kernels:
+        k.launches = 0
+    t0 = time.time()
+    rc1 = cli.main(args_fn(workdir))
+    kind = "qnet_rnn" if name == "drqn" else "qnet"
+    pool = load_pool(workdir / ckpt_sub, kind=kind)
+    rc2 = cli.main(args_fn(workdir))
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    ckpts = [p.name for p in list_checkpoints(workdir / ckpt_sub)]
+    print(f"[main:{name}] cli x2 rc={rc1},{rc2} in {time.time() - t0:.1f} s; "
+          f"pool for run 2: {len(pool)} member(s); checkpoints {ckpts}; "
+          f"launches {launches} | {CARD}", flush=True)
+    check(rc1 == 0 and rc2 == 0, f"cli {name} failed")
+    check(len(pool) == 1, f"{name}: run 2 did not load run 1's checkpoint")
+    check(promoted_name in ckpts, f"no promoted {promoted_name} checkpoint")
+    for k, n in launches.items():
+        check(n > 0, f"{k} kernel never launched on the {name} path")
+    return launches, workdir / ckpt_sub / promoted_name
+
+
+def kernel_row(name, source, replaces, launches, err, ms, plain, bound):
+    return {"name": name, "route": "cuda",
+            "source": f"pingpong_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": None, "compare": "pass"}
+
+
 def main() -> int:
-    global CARD, ENV_PARAMS, TILE, MAX_EP_STEPS
+    global CARD, ENV_PARAMS, TILE, MAX_EP_STEPS, RNN_ENV, RNN_CFG
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
     from pingpong_tpu_torch import cli
-    from pingpong_tpu_torch.checkpoint.store import list_checkpoints
     from pingpong_tpu_torch.config import load_config
     from pingpong_tpu_torch.env.pong import env_params_from_config
-    from pingpong_tpu_torch.models.policy import qnet_act_greedy
+    from pingpong_tpu_torch.models.policy import (
+        qnet_act_greedy,
+        rnn_act_greedy,
+    )
+    from pingpong_tpu_torch.models.qnet_rnn import init_hidden
     from pingpong_tpu_torch.ops import actor_rollout as ar
     from pingpong_tpu_torch.ops import dqn_update as du
+    from pingpong_tpu_torch.ops import drqn_update as dru
+    from pingpong_tpu_torch.ops import recurrent_rollout as rr
     from pingpong_tpu_torch.ops.build import build_all
-    from pingpong_tpu_torch.selfplay.pool import load_params_any, load_pool
+    from pingpong_tpu_torch.selfplay.pool import load_params_any
     from pingpong_tpu_torch.train.dqn import DQNLearner
+    from pingpong_tpu_torch.train.drqn import DRQNLearner
 
     t_start = time.time()
     CARD = card()
@@ -329,16 +637,20 @@ def main() -> int:
     B, T = cfg.dqn.num_envs, cfg.dqn.rollout_length
     TILE = min(cfg.dqn.pallas_tile_rows, B)
     MAX_EP_STEPS = cfg.env.max_episode_steps
+    rcfg = load_config(ROOT / "configs" / "rnn.yaml")
+    RNN_ENV = env_params_from_config(rcfg.env)
+    RNN_CFG = rcfg.drqn
 
     # ---- 1. build ---------------------------------------------------------
     t0 = time.time()
-    logs = build_all([ar.KERNEL, du.KERNEL])
+    kernels = [ar.KERNEL, du.KERNEL, rr.KERNEL, dru.KERNEL]
+    logs = build_all(kernels)
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 print(f"[build:{name}] {line.strip()}")
-    print(f"[build] both kernels built for sm_90a in {time.time() - t0:.1f} s",
-          flush=True)
+    print(f"[build] {len(kernels)} kernels built for sm_90a in "
+          f"{time.time() - t0:.1f} s", flush=True)
 
     # ---- 2. kernel vs plain ------------------------------------------------
     actor_err = 0.0
@@ -359,83 +671,105 @@ def main() -> int:
         upd_err = max(upd_err, err)
         if name == "heads_only_hard_sync":
             upd_idx = idx
+    rnn_err = 0.0
+    for i, (name, n_slots, eval_mode) in enumerate([
+            ("1slot", 1, False), ("3slot_bucketed", 3, False),
+            ("eval", 1, True)]):
+        rnn_err = max(rnn_err, compare_rnn(name, rnn_inputs(300 + i, n_slots,
+                                                            eval_mode, dev)))
+    drqn_err = 0.0
+    interval = RNN_CFG.target_update_interval
+    for name, ts0, tau in [("no_sync", 0, 0.0),
+                           ("hard_sync_mid_block", interval - 10, 0.0),
+                           ("polyak", 0, 0.005)]:
+        drqn_err = max(drqn_err, compare_drqn_update(
+            name, drqn_update_inputs(400, dev, ts0=ts0, interval=interval,
+                                     tau=tau)))
 
-    # ---- 3. main path: cli train, twice in one workdir ---------------------
-    workdir = ROOT / "build" / "chip_smoke_run"
-    shutil.rmtree(workdir, ignore_errors=True)
-    ar.KERNEL.launches = 0
-    du.KERNEL.launches = 0
-    t0 = time.time()
-    rc1 = cli.main(train_args(workdir))
-    pool = load_pool(workdir / "checkpoints")
-    rc2 = cli.main(train_args(workdir))
-    torch.cuda.synchronize()
-    launches = {"actor_rollout": ar.KERNEL.launches,
-                "dqn_update": du.KERNEL.launches}
-    t_main = time.time() - t0
-    ckpts = [p.name for p in list_checkpoints(workdir / "checkpoints")]
-    print(f"[main] cli train x2 rc={rc1},{rc2} in {t_main:.1f} s; pool for "
-          f"run 2: {len(pool)} member(s); checkpoints {ckpts}; launches "
-          f"{launches} | {CARD}", flush=True)
-    check(rc1 == 0 and rc2 == 0, "cli train failed")
-    check(len(pool) == 1, "run 2 did not load run 1's checkpoint as pool")
-    check("model5-1" in ckpts, "no promoted model5-1 checkpoint")
-    check(launches["actor_rollout"] > 0, "actor kernel never launched")
-    check(launches["dqn_update"] > 0, "update kernel never launched")
-    promoted = load_params_any(workdir / "checkpoints" / "model5-1")
+    # ---- 3. main paths: cli train and cli train-rnn, twice each ------------
+    qnet_launches, promoted_path = drive(
+        "qnet", cli, train_args, [ar.KERNEL, du.KERNEL], "checkpoints",
+        "model5-1")
+    promoted = load_params_any(promoted_path)
     acts = qnet_act_greedy(promoted, torch.rand((1024, 7)))
     check(bool(((acts >= 0) & (acts <= 2)).all())
           and all(bool(torch.isfinite(p).all())
                   for p in promoted.parameters()),
           "promoted checkpoint is not a finite QNet")
+    rnn_launches, rnn_path = drive(
+        "drqn", cli, train_rnn_args, [rr.KERNEL, dru.KERNEL],
+        "checkpoints_rnn", "rnn_pong_soul_1")
+    rnn_promoted = load_params_any(rnn_path)
+    ra, _ = rnn_act_greedy(rnn_promoted, torch.rand((1024, 7)),
+                           init_hidden(rnn_promoted, (1024,)))
+    check(type(rnn_promoted).__name__ == "QNetRNN"
+          and bool(((ra >= 0) & (ra <= 2)).all())
+          and all(bool(torch.isfinite(p).all())
+                  for p in rnn_promoted.parameters()),
+          "promoted rnn_pong_soul_1 is not a finite QNetRNN")
 
     # ---- 4. timings -------------------------------------------------------
     learner = DQNLearner(cfg.env, cfg.dqn, device="cuda")
     state = learner.init_state(3)
     opp = learner.prepare_opponents([learner.params_b(state), promoted])
-    for _ in range(2):
-        learner.train_iteration(state, opp, 1)
-    torch.cuda.synchronize()
-    n_it = 5
-    t0 = time.perf_counter()
-    for _ in range(n_it):
-        _, metrics = learner.train_iteration(state, opp, 1)
-    torch.cuda.synchronize()
-    it_ms = (time.perf_counter() - t0) / n_it * 1e3
-    check(metrics.updates_run > 0 and metrics.mean_loss == metrics.mean_loss,
-          "timed iterations ran no finite update")
-    print(f"[main] train iteration {it_ms:.3f} ms, "
-          f"{B * T / it_ms * 1e3:.4g} env-steps/s (num_envs {B}, rollout "
-          f"{T}, {cfg.dqn.updates_per_iteration} updates of "
-          f"{cfg.dqn.batch_size}) | {CARD}", flush=True)
-    profile_iterations(learner, state, opp, 3)
+    time_iterations("qnet", learner, state, opp)
+    rlearner = DRQNLearner(rcfg.env, RNN_CFG, device="cuda")
+    rstate = rlearner.init_state(3)
+    ropp = rlearner.prepare_opponents([rlearner.params_b(rstate),
+                                       rnn_promoted])
+    time_iterations("drqn", rlearner, rstate, ropp)
 
     inp = actor_inputs(200, 2, True, False, B, dev)
     a_ms = cuda_ms(lambda: run_actor(ar.actor_rollout_cuda, inp, T), 20)
     a_plain = cuda_ms(lambda: run_actor(ar.actor_rollout_plain, inp, T), 3, 1)
-    a_bound, a_by = actor_bound_ms(B, T, 2)
     ukw = update_kwargs(upd_inp, True, 0.0, 1000)
     u_ms = cuda_ms(lambda: du.dqn_update_cuda(**ukw), 10)
     u_plain = cuda_ms(lambda: du.dqn_update_plain(**ukw), 2, 1)
-    u_bound, u_by = update_bound_ms(256, 64, (1 << 20) // 128, True, upd_idx)
-    print(f"[time] actor_rollout {a_ms:.4f} ms (plain {a_plain:.2f} ms, bound "
-          f"{a_bound:.4f} ms by {a_by}); dqn_update {u_ms:.4f} ms (plain "
-          f"{u_plain:.2f} ms, bound {u_bound:.4f} ms by {u_by}) | {CARD}",
+    RB, RT = RNN_CFG.num_envs, RNN_CFG.rollout_length
+    rtile = min(RNN_CFG.pallas_tile_rows, RB)
+    rinp = rnn_inputs(500, 2, False, dev)
+    r_ms = cuda_ms(lambda: run_rnn(rr.recurrent_rollout_cuda, rinp, RT), 10)
+    r_plain = cuda_ms(lambda: run_rnn(rr.recurrent_rollout_plain, rinp, RT),
+                      1, 1)
+    einp = rnn_inputs(501, 1, True, dev)
+    e_ms = cuda_ms(lambda: run_rnn(rr.recurrent_rollout_cuda, einp, 256), 5)
+    dkw = drqn_update_inputs(600, dev)
+    d_ms = cuda_ms(lambda: dru.drqn_update_cuda(**fresh(dkw)), 10)
+    d_plain = cuda_ms(lambda: dru.drqn_update_plain(**fresh(dkw)), 1, 1)
+    bounds = {
+        "actor_rollout": actor_bound_ms(B, T, 2),
+        "dqn_update": update_bound_ms(256, 64, (1 << 20) // 128, True,
+                                      upd_idx),
+        "recurrent_rollout": rnn_bound_ms(RB, RT, 2, RB // rtile),
+        "drqn_update": drqn_update_bound_ms(dkw, 0),
+    }
+    e_bound = rnn_bound_ms(RB, 256, 1, RB // rtile, emit=False)
+    print(f"[time] actor_rollout {a_ms:.4f} ms (plain {a_plain:.2f} ms); "
+          f"dqn_update {u_ms:.4f} ms (plain {u_plain:.2f} ms); "
+          f"recurrent_rollout {r_ms:.4f} ms (plain {r_plain:.2f} ms), eval "
+          f"chunk (T 256, no transitions) {e_ms:.4f} ms (bound "
+          f"{e_bound[0]:.4f} ms by {e_bound[1]}); drqn_update {d_ms:.4f} ms "
+          f"(plain {d_plain:.2f} ms); bounds "
+          f"{ {k: round(v[0], 5) for k, v in bounds.items()} } | {CARD}",
           flush=True)
 
     kernels = [
-        {"name": "actor_rollout", "route": "cuda",
-         "source": "pingpong_tpu_torch/csrc/actor_rollout.cu",
-         "replaces": "pingpong_tpu/ops/actor_rollout.py:658",
-         "launches": launches["actor_rollout"], "max_abs_err": actor_err,
-         "ms": a_ms, "plain_ms": a_plain, "bound_ms": a_bound,
-         "bound_by": a_by, "library_ms": None, "compare": "pass"},
-        {"name": "dqn_update", "route": "cuda",
-         "source": "pingpong_tpu_torch/csrc/dqn_update.cu",
-         "replaces": "pingpong_tpu/ops/dqn_update.py:599",
-         "launches": launches["dqn_update"], "max_abs_err": upd_err,
-         "ms": u_ms, "plain_ms": u_plain, "bound_ms": u_bound,
-         "bound_by": u_by, "library_ms": None, "compare": "pass"},
+        kernel_row("actor_rollout", "actor_rollout.cu",
+                   "pingpong_tpu/ops/actor_rollout.py:658",
+                   qnet_launches["actor_rollout"], actor_err, a_ms, a_plain,
+                   bounds["actor_rollout"]),
+        kernel_row("dqn_update", "dqn_update.cu",
+                   "pingpong_tpu/ops/dqn_update.py:599",
+                   qnet_launches["dqn_update"], upd_err, u_ms, u_plain,
+                   bounds["dqn_update"]),
+        kernel_row("recurrent_rollout", "recurrent_rollout.cu",
+                   "pingpong_tpu/ops/recurrent_rollout.py:652",
+                   rnn_launches["recurrent_rollout"], rnn_err, r_ms, r_plain,
+                   bounds["recurrent_rollout"]),
+        kernel_row("drqn_update", "drqn_update.cu",
+                   "pingpong_tpu/ops/drqn_update.py:609",
+                   rnn_launches["drqn_update"], drqn_err, d_ms, d_plain,
+                   bounds["drqn_update"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(f"[done] smoke took {time.time() - t_start:.0f} s")

@@ -1,9 +1,11 @@
-"""QNet <-> plain dict / numpy conversion (port of the QNet part of
+"""QNet / QNetRNN <-> plain dict / numpy conversion (port of
 ``pingpong_tpu/checkpoint/serialize.py``).
 
-The dict schema is the JAX package's: ``{"kind": "qnet", "feat1": {"w",
+The dict schemas are the JAX package's: ``{"kind": "qnet", "feat1": {"w",
 "b"}, "feat2": {...}, "fc_v": {"w_mu", "w_sigma", "b_mu", "b_sigma"},
-"fc_a": {...}}`` with ``(in, out)`` weights. Optimizer state is the list
+"fc_a": {...}}`` with ``(in, out)`` weights, and for ``"qnet_rnn"`` the
+same plus ``"lstm": [{"w_ih", "w_hh", "b_ih", "b_hh"}, ...]`` and
+``"shared"`` (a noisy layer, or None). Optimizer state is the list
 ``[count, mu, nu]`` of flat Adam over the raveled parameter vector, which
 is what the JAX learner writes.
 """
@@ -15,9 +17,11 @@ import torch
 
 from pingpong_tpu_torch.models.noisy import Dense, NoisyLinear
 from pingpong_tpu_torch.models.qnet import QNet
+from pingpong_tpu_torch.models.qnet_rnn import LSTMLayer, QNetRNN
 
 _DENSE = ("w", "b")
 _NOISY = ("w_mu", "w_sigma", "b_mu", "b_sigma")
+_LSTM = ("w_ih", "w_hh", "b_ih", "b_hh")
 _LAYERS = (("feat1", _DENSE), ("feat2", _DENSE), ("fc_v", _NOISY),
            ("fc_a", _NOISY))
 
@@ -60,12 +64,68 @@ def qnet_from_dict(d: dict, device="cpu") -> QNet:
     return qnet_from_numpy(d, device)
 
 
-def params_from_dict(d: dict, device="cpu") -> QNet:
+def _np(p) -> np.ndarray:
+    return p.detach().cpu().numpy().astype(np.float32)
+
+
+def _layer_to_numpy(layer, fields) -> dict:
+    return {f: _np(layer.get_parameter(f)) for f in fields}
+
+
+def qnet_rnn_to_numpy(params: QNetRNN) -> dict:
+    """Nested dict of float32 numpy arrays in the JAX ``QNetRNNParams``
+    layout (without the ``kind`` tag)."""
+    shared = params.shared
+    return {
+        "feat1": _layer_to_numpy(params.feat1, _DENSE),
+        "feat2": _layer_to_numpy(params.feat2, _DENSE),
+        "lstm": [_layer_to_numpy(l, _LSTM) for l in params.lstm],
+        "shared": (_layer_to_numpy(shared, _NOISY) if shared is not None
+                   else None),
+        "fc_v": _layer_to_numpy(params.fc_v, _NOISY),
+        "fc_a": _layer_to_numpy(params.fc_a, _NOISY),
+    }
+
+
+def qnet_rnn_from_numpy(d, device="cpu") -> QNetRNN:
+    """A QNetRNN from the JAX layout as numpy arrays: a nested dict (as
+    :func:`qnet_rnn_to_numpy` or a checkpoint gives) or a
+    ``QNetRNNParams`` whose leaves are numpy arrays."""
+
+    def t(x):
+        return torch.tensor(np.asarray(x, np.float32)).to(device)
+
+    def layer(cls, sub, fields):
+        return cls(*(t(_get(sub, f)) for f in fields))
+
+    shared = _get(d, "shared")
+    return QNetRNN(
+        feat1=layer(Dense, _get(d, "feat1"), _DENSE),
+        feat2=layer(Dense, _get(d, "feat2"), _DENSE),
+        lstm=[layer(LSTMLayer, l, _LSTM) for l in _get(d, "lstm")],
+        shared=(layer(NoisyLinear, shared, _NOISY) if shared is not None
+                else None),
+        fc_v=layer(NoisyLinear, _get(d, "fc_v"), _NOISY),
+        fc_a=layer(NoisyLinear, _get(d, "fc_a"), _NOISY),
+    )
+
+
+def qnet_rnn_to_dict(params: QNetRNN) -> dict:
+    return {"kind": "qnet_rnn", **qnet_rnn_to_numpy(params)}
+
+
+def qnet_rnn_from_dict(d: dict, device="cpu") -> QNetRNN:
+    return qnet_rnn_from_numpy(d, device)
+
+
+def params_from_dict(d: dict, device="cpu"):
+    """A QNet or a QNetRNN, by the dict's ``kind`` tag."""
     kind = d.get("kind", "qnet")
-    if kind != "qnet":
-        raise ValueError(f"params kind {kind!r} is not supported by the "
-                         "PyTorch port yet (only 'qnet')")
-    return qnet_from_dict(d, device)
+    if kind == "qnet":
+        return qnet_from_dict(d, device)
+    if kind == "qnet_rnn":
+        return qnet_rnn_from_dict(d, device)
+    raise ValueError(f"unknown params kind {kind!r}")
 
 
 def opt_state_to_leaves(count: int, mu: torch.Tensor, nu: torch.Tensor):

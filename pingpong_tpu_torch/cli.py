@@ -2,6 +2,8 @@
 
     python -m pingpong_tpu_torch.cli train --config configs/qnet.yaml \\
         dqn.save_latest_checkpoint_interval_steps=0
+    python -m pingpong_tpu_torch.cli train-rnn --config configs/rnn.yaml \\
+        drqn.save_latest_checkpoint_interval_steps=0
 
 Runs on the CUDA card by default; ``--device cpu`` runs the kernels' plain
 PyTorch versions instead (tests, tiny shapes). Dotted ``key=value``
@@ -17,20 +19,19 @@ import sys
 from pingpong_tpu_torch.config import apply_overrides, load_config
 
 
-def cmd_train(args) -> int:
-    cfg = load_config(args.config)
-    cfg = apply_overrides(cfg, args.overrides)
+def _load(args):
+    cfg = apply_overrides(load_config(args.config), args.overrides)
     if args.seed is not None:
         cfg = dataclasses.replace(cfg, seed=args.seed)
-    from pingpong_tpu_torch.selfplay.loop import QNetSelfPlay
+    return cfg
+
+
+def _run(trainer_fn, log_name, args) -> int:
     from pingpong_tpu_torch.utils.metrics import MetricsLogger
 
-    logger = MetricsLogger(log_path=f"{args.workdir}/train_qnet_metrics.jsonl")
+    logger = MetricsLogger(log_path=f"{args.workdir}/{log_name}")
     try:
-        trainer = QNetSelfPlay(cfg.env, cfg.dqn, workdir=args.workdir,
-                              seed=cfg.seed, logger=logger,
-                              device=args.device)
-        records = trainer.run()
+        records = trainer_fn(logger).run()
     finally:
         logger.close()
     promoted = sum(1 for r in records if r.promoted)
@@ -38,19 +39,40 @@ def cmd_train(args) -> int:
     return 0
 
 
+def cmd_train(args) -> int:
+    cfg = _load(args)
+    from pingpong_tpu_torch.selfplay.loop import QNetSelfPlay
+
+    return _run(lambda logger: QNetSelfPlay(
+        cfg.env, cfg.dqn, workdir=args.workdir, seed=cfg.seed, logger=logger,
+        device=args.device), "train_qnet_metrics.jsonl", args)
+
+
+def cmd_train_rnn(args) -> int:
+    cfg = _load(args)
+    from pingpong_tpu_torch.selfplay.loop_rnn import DRQNSelfPlay
+
+    return _run(lambda logger: DRQNSelfPlay(
+        cfg.env, cfg.drqn, workdir=args.workdir, seed=cfg.seed, logger=logger,
+        device=args.device), "train_rnn_metrics.jsonl", args)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="pingpong-tpu-torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
-    p = sub.add_parser("train", help="QNet self-play training")
-    p.add_argument("--config", default=None, help="YAML config path")
-    p.add_argument("--workdir", default=".", help="directory for outputs")
-    p.add_argument("--seed", type=int, default=None,
-                   help="override the config seed")
-    p.add_argument("--device", default="cuda",
-                   help="cuda (default) or cpu")
-    p.add_argument("overrides", nargs="*", default=[],
-                   help="dotted config overrides, e.g. dqn.num_envs=8192")
-    p.set_defaults(fn=cmd_train)
+    for name, fn, help_ in (("train", cmd_train, "QNet self-play training"),
+                            ("train-rnn", cmd_train_rnn,
+                             "DRQN (LSTM) self-play training")):
+        p = sub.add_parser(name, help=help_)
+        p.add_argument("--config", default=None, help="YAML config path")
+        p.add_argument("--workdir", default=".", help="directory for outputs")
+        p.add_argument("--seed", type=int, default=None,
+                       help="override the config seed")
+        p.add_argument("--device", default="cuda",
+                       help="cuda (default) or cpu")
+        p.add_argument("overrides", nargs="*", default=[],
+                       help="dotted config overrides, e.g. dqn.num_envs=8192")
+        p.set_defaults(fn=fn)
     args = parser.parse_args(argv)
     try:
         return args.fn(args)

@@ -3,6 +3,7 @@ from pingpong_tpu_torch.models.policy import (
     epsilon_greedy,
     qnet_act_greedy,
     qnet_act_train,
+    rnn_act_greedy,
 )
 from pingpong_tpu_torch.models.qnet import (
     QNet,
@@ -12,10 +13,22 @@ from pingpong_tpu_torch.models.qnet import (
     qnet_init,
     qnet_sample_noise,
 )
+from pingpong_tpu_torch.models.qnet_rnn import (
+    Hidden,
+    QNetRNN,
+    QNetRNNNoise,
+    init_hidden,
+    qnet_rnn_apply,
+    qnet_rnn_init,
+    qnet_rnn_sample_noise,
+    qnet_rnn_step,
+)
 
 __all__ = [
     "Dense", "NoisyLinear", "NoisyNoise", "QNet", "QNetNoise",
     "epsilon_greedy", "qnet_act_greedy", "qnet_act_train", "qnet_apply",
     "qnet_fold_noise", "qnet_init",
-    "qnet_sample_noise",
+    "qnet_sample_noise", "Hidden", "QNetRNN", "QNetRNNNoise", "init_hidden",
+    "qnet_rnn_apply", "qnet_rnn_init", "qnet_rnn_sample_noise",
+    "qnet_rnn_step", "rnn_act_greedy",
 ]

@@ -1,5 +1,6 @@
-"""Batched action selection (port of the QNet part of
-``pingpong_tpu/models/policy.py``): ``obs (B, 7) -> actions (B,)``."""
+"""Batched action selection (port of ``pingpong_tpu/models/policy.py``):
+``obs (B, 7) -> actions (B,)``; the recurrent policies also carry their
+hidden state."""
 
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ from pingpong_tpu_torch.models.qnet import (
     qnet_apply,
     qnet_sample_noise,
 )
+from pingpong_tpu_torch.models.qnet_rnn import Hidden, QNetRNN, qnet_rnn_step
 
 
 def epsilon_greedy(generator, q_values, epsilon: float, n_actions: int = 3):
@@ -34,3 +36,10 @@ def qnet_act_train(generator, params: QNet, obs, epsilon: float):
 def qnet_act_greedy(params: QNet, obs):
     """Eval mode: mu weights, no epsilon."""
     return argmax3(qnet_apply(params, obs))
+
+
+def rnn_act_greedy(params: QNetRNN, obs, hidden: Hidden):
+    """Eval-mode recurrent step: mu weights, no epsilon. Returns
+    ``(actions, next hidden)``."""
+    q, new_hidden = qnet_rnn_step(params, obs, hidden)
+    return argmax3(q), new_hidden

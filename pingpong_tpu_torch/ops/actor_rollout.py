@@ -193,6 +193,64 @@ def _scale_noise(x):
     return torch.sign(x) * torch.sqrt(torch.abs(x))
 
 
+def hash_noise(seed_mix, ctr, k_u1, k_u2, row, col) -> torch.Tensor:
+    """``f(N(0,1))`` from the hash at ``(k_u1, k_u2)``: Box-Muller (cos
+    half) on U[1e-7, 1) and U[0, 1), then ``sign(x) sqrt|x|``."""
+    u1 = 1e-7 + hash_u01(seed_mix, ctr, k_u1, row, col) * (1.0 - 1e-7)
+    u2 = hash_u01(seed_mix, ctr, k_u2, row, col)
+    return _scale_noise(torch.sqrt(-2.0 * torch.log(u1))
+                        * torch.cos(2.0 * math.pi * u2))
+
+
+def env_step_plain(env_params: EnvParams, st: EnvState, ret, act_a, act_b,
+                   mix_env, lane, ctr: int, max_episode_steps: int, pool_f):
+    """One env step of a rollout kernel, step by step: the transition, the
+    ``max_episode_steps`` cap, the accounting rows ``[games/wins vs A,
+    games/wins vs pool, return sum, ended, draws, 0]`` and the auto-reset
+    with a counter-hash serve (``ctr + 8``, column = lane). Returns
+    ``(next_obs_b, reward_b, done, stat_rows (8, B), state', return')``."""
+    new, out = step(env_params, st, act_a, act_b)
+    done = out.done
+    if max_episode_steps:
+        done = done | (new.t >= max_episode_steps)
+    ep_ret = ret + out.reward_b
+    d_f = done.to(torch.float32)
+    w_f = (done & (ep_ret > 0.0)).to(torch.float32)
+    srow = torch.stack([
+        d_f * (1 - pool_f), w_f * (1 - pool_f), d_f * pool_f, w_f * pool_f,
+        torch.where(done, ep_ret, 0.0), d_f,
+        (done & (ep_ret == 0.0)).to(torch.float32), torch.zeros_like(d_f)])
+    u = [hash_u01(mix_env, ctr + 8, k, 0, lane) for k in (1, 2, 3, 4)]
+    svx, svy, ssp = serve_from_uniforms(env_params, *u)
+    zi = torch.zeros_like(new.t)
+    st = EnvState(
+        ball_x=torch.where(done, 0.5, new.ball_x),
+        ball_y=torch.where(done, 0.5, new.ball_y),
+        ball_vx=torch.where(done, svx, new.ball_vx),
+        ball_vy=torch.where(done, svy, new.ball_vy),
+        spin=torch.where(done, ssp, new.spin),
+        top_paddle_x=torch.where(done, 0.5, new.top_paddle_x),
+        bottom_paddle_x=torch.where(done, 0.5, new.bottom_paddle_x),
+        score_a=torch.where(done, zi, new.score_a),
+        score_b=torch.where(done, zi, new.score_b),
+        bounce_count=torch.where(done, zi, new.bounce_count),
+        t=torch.where(done, zi, new.t),
+        done=torch.zeros_like(done),
+    )
+    return out.obs_b, out.reward_b, done, srow, st, torch.where(
+        done, 0.0, ep_ret)
+
+
+def explore_plain(mix_env, lane, ctr: int, eps_i: int, greedy):
+    """Epsilon-greedy of the rollout kernels: hash draws (k 5, 6) per env
+    against ``eps = eps_i * 1e-6``."""
+    eps = float(np.float32(eps_i) * np.float32(1e-6))
+    u_expl = hash_u01(mix_env, ctr, 5, 0, lane)
+    rand_a = torch.clamp((hash_u01(mix_env, ctr, 6, 0, lane) * 3.0)
+                         .to(torch.int32), 0, 2)
+    return torch.where(u_expl < eps, rand_a, greedy)
+
+
 def actor_rollout_plain(env_params: EnvParams, state: EnvState, opp_idx,
                         ep_return, learner: PackedQNet, opponents: PackedQNet,
                         *, seed: int, eps_i: int, steps: int,
@@ -208,7 +266,6 @@ def actor_rollout_plain(env_params: EnvParams, state: EnvState, opp_idx,
     lane = env % tile_rows
     mix_tiles = tile_seed_mix(seed, B // tile_rows, dev)
     mix_env = mix_tiles[gtile]
-    eps = float(np.float32(eps_i) * np.float32(1e-6))
     rows, cols = _noise_grid(dev)
     pool_f = (opp_idx > 0).to(torch.float32)
     lw = learner
@@ -220,11 +277,7 @@ def actor_rollout_plain(env_params: EnvParams, state: EnvState, opp_idx,
     for s in range(steps):
         ctr = s * 16
         # learner head noise: one factorized draw per (tile, step)
-        u1 = 1e-7 + hash_u01(mix_tiles[:, None], ctr, 1, rows, cols) * (
-            1.0 - 1e-7)
-        u2 = hash_u01(mix_tiles[:, None], ctr, 2, rows, cols)
-        nrm = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * math.pi * u2)
-        sn = _scale_noise(nrm)
+        sn = hash_noise(mix_tiles[:, None], ctr, 1, 2, rows, cols)
         ein, eout = sn[:, :HIDDEN], sn[:, HIDDEN:]
         wa = lw.wat_mu[:3] + lw.wat_sigma[:3] * (eout[:, :, None]
                                                  * ein[:, None, :])
@@ -236,50 +289,18 @@ def actor_rollout_plain(env_params: EnvParams, state: EnvState, opp_idx,
         h2 = _trunk(lw.w1t, lw.b1t, lw.w2t, lw.b2t, obs7)
         greedy_b = argmax3(torch.einsum("bh,bah->ba", h2, wa[gtile])
                            + ba[gtile])
-        u_expl = hash_u01(mix_env, ctr, 5, 0, lane)
-        rand_a = torch.clamp((hash_u01(mix_env, ctr, 6, 0, lane) * 3.0)
-                             .to(torch.int32), 0, 2)
-        act_b = torch.where(u_expl < eps, rand_a, greedy_b)
+        act_b = explore_plain(mix_env, lane, ctr, eps_i, greedy_b)
 
-        new, out = step(env_params, st, act_a, act_b)
-        done = out.done
-        if max_episode_steps:
-            done = done | (new.t >= max_episode_steps)
-
+        obs_next, reward, done, srow, st, ret = env_step_plain(
+            env_params, st, ret, act_a, act_b, mix_env, lane, ctr,
+            max_episode_steps, pool_f)
         if emit_transitions:
             tr["obs"].append(obs7)
-            tr["next_obs"].append(out.obs_b)
+            tr["next_obs"].append(obs_next)
             tr["action"].append(act_b)
-            tr["reward"].append(out.reward_b)
+            tr["reward"].append(reward)
             tr["done"].append(done)
-
-        ep_ret = ret + out.reward_b
-        d_f = done.to(torch.float32)
-        w_f = (done & (ep_ret > 0.0)).to(torch.float32)
-        stats += torch.stack([
-            d_f * (1 - pool_f), w_f * (1 - pool_f), d_f * pool_f,
-            w_f * pool_f, torch.where(done, ep_ret, 0.0), d_f,
-            (done & (ep_ret == 0.0)).to(torch.float32),
-            torch.zeros_like(d_f)])
-
-        u = [hash_u01(mix_env, ctr + 8, k, 0, lane) for k in (1, 2, 3, 4)]
-        svx, svy, ssp = serve_from_uniforms(env_params, *u)
-        zi = torch.zeros_like(new.t)
-        st = EnvState(
-            ball_x=torch.where(done, 0.5, new.ball_x),
-            ball_y=torch.where(done, 0.5, new.ball_y),
-            ball_vx=torch.where(done, svx, new.ball_vx),
-            ball_vy=torch.where(done, svy, new.ball_vy),
-            spin=torch.where(done, ssp, new.spin),
-            top_paddle_x=torch.where(done, 0.5, new.top_paddle_x),
-            bottom_paddle_x=torch.where(done, 0.5, new.bottom_paddle_x),
-            score_a=torch.where(done, zi, new.score_a),
-            score_b=torch.where(done, zi, new.score_b),
-            bounce_count=torch.where(done, zi, new.bounce_count),
-            t=torch.where(done, zi, new.t),
-            done=torch.zeros_like(done),
-        )
-        ret = torch.where(done, 0.0, ep_ret)
+        stats += srow
     trans = ({k: torch.stack(v) for k, v in tr.items()}
              if emit_transitions else None)
     return st, ret, trans, stats

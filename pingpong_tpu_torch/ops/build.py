@@ -3,7 +3,8 @@
 Each kernel source in ``pingpong_tpu_torch/csrc/`` has a plain C
 interface. At first use it is compiled with ``nvcc`` for ``sm_90a`` into a
 shared library under ``build/torch_kernels/`` of the checkout and loaded
-with ``ctypes``; a library newer than its source is reused. Nothing here
+with ``ctypes``; a library newer than its source and the shared headers
+(``csrc/*.cuh``) is reused. Nothing here
 runs at import time: this module is imported on machines without a card
 or a compiler, where only the kernels' plain PyTorch versions run.
 """
@@ -52,8 +53,13 @@ class CudaKernel:
         self.ptxas_log = ""
 
     def _stale(self) -> bool:
-        return (not self.library.exists()
-                or self.library.stat().st_mtime < self.source.stat().st_mtime)
+        """The library is missing or older than its source or any shared
+        header of ``csrc/``."""
+        if not self.library.exists():
+            return True
+        newest = max(p.stat().st_mtime
+                     for p in [self.source, *CSRC.glob("*.cuh")])
+        return self.library.stat().st_mtime < newest
 
     def start_build(self) -> Optional[subprocess.Popen]:
         """Start ``nvcc`` for this source if the library is missing or
@@ -89,6 +95,14 @@ class CudaKernel:
             err.restype = ctypes.c_char_p
             self._fn = fn
         return self._fn
+
+    def library_fn(self, symbol: str, argtypes: list, restype):
+        """Another entry point of the same library (a size query, say)."""
+        self.fn()
+        fn = getattr(self._lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = restype
+        return fn
 
     def launch(self, *args) -> None:
         """Call the entry point on the current stream's arguments; raise if

@@ -1,0 +1,467 @@
+"""Fused DRQN update block: K DRQN updates in one cooperative CUDA launch.
+
+Port of ``pingpong_tpu/ops/drqn_update.py::pallas_drqn_update_block``.
+Per update: the online forward over obs‖next_obs with this update's noisy
+heads, the target's Q(s') from a cache filled by one wide pass at the
+first update (refreshed per update after a mid-block hard sync, and every
+update under Polyak averaging), Double-DQN on the last step, the masked
+Huber loss, the hand-derived backward with LSTM BPTT, global-norm clip and
+Adam (b1 0.9, b2 0.999, eps 1e-8), and the hard or Polyak target sync.
+
+The port's own layout: parameters, target and both Adam moments are flat
+vectors in the JAX ``ravel_pytree`` order of ``QNetRNNParams`` (the layout
+of the optax ``(count, mu, nu)`` state both packages keep), and each
+update's noise is one row of :func:`flat_noise` (shared eps_w, eps_b,
+V eps_w, eps_b, A eps_w, eps_b). :func:`pack_upd_params`,
+:func:`unpack_upd_params` and :func:`pack_upd_noise` give the TPU kernel's
+transposed layout, for holding the two against each other.
+
+:func:`drqn_update_plain` is the step-by-step PyTorch version (the CPU
+path, and the reference ``chip_smoke.py`` holds the kernel against);
+``csrc/drqn_update.cu`` is the kernel. Both update ``params``, ``target``,
+``m`` and ``v`` IN PLACE.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import NamedTuple
+
+import torch
+
+from pingpong_tpu_torch.models.qnet_rnn import QNetRNN, QNetRNNNoise
+from pingpong_tpu_torch.ops.recurrent_rollout import MAX_WIDTH
+from pingpong_tpu_torch.ops.build import (
+    CudaKernel,
+    check_cuda,
+    ptr,
+    stream_ptr,
+)
+
+B1, B2, ADAM_EPS = 0.9, 0.999, 1e-8
+
+
+# ---------------------------------------------------------------------------
+# Layouts
+# ---------------------------------------------------------------------------
+
+def param_slices(dims):
+    """Name -> (offset, shape) of every tensor of the flat QNetRNN vector
+    (``ravel_pytree`` order), for widths ``(F1, F, H, HH)``."""
+    F1, F, H, HH = dims
+    shapes = [("w1", (7, F1)), ("b1", (F1,)), ("w2", (F1, F)), ("b2", (F,)),
+              ("wih", (F, 4 * H)), ("whh", (H, 4 * H)), ("bih", (4 * H,)),
+              ("bhh", (4 * H,)), ("ws", (H, HH)), ("wss", (H, HH)),
+              ("bs", (HH,)), ("bss", (HH,)), ("wv", (HH, 1)), ("wvs", (HH, 1)),
+              ("bv", (1,)), ("bvs", (1,)), ("wa", (HH, 3)), ("was", (HH, 3)),
+              ("ba", (3,)), ("bas", (3,))]
+    out, o = {}, 0
+    for name, shape in shapes:
+        out[name] = (o, shape)
+        o += math.prod(shape)
+    out["n"] = (o, ())
+    return out
+
+
+def noise_slices(dims):
+    """Name -> (offset, shape) of one update's flat noise row."""
+    _, _, H, HH = dims
+    shapes = [("sw", (H, HH)), ("sb", (HH,)), ("vw", (HH, 1)), ("vb", (1,)),
+              ("aw", (HH, 3)), ("ab", (3,))]
+    out, o = {}, 0
+    for name, shape in shapes:
+        out[name] = (o, shape)
+        o += math.prod(shape)
+    out["n"] = (o, ())
+    return out
+
+
+def _views(flat, slices):
+    return {k: flat[..., o:o + math.prod(s)].reshape(flat.shape[:-1] + s)
+            for k, (o, s) in slices.items() if k != "n"}
+
+
+def flat_noise(noise: QNetRNNNoise) -> torch.Tensor:
+    """``(K,)``-batched QNetRNNNoise -> ``(K, NN)`` kernel noise rows."""
+    K = noise.v.eps_w.shape[0]
+    return torch.cat([x.reshape(K, -1) for x in (
+        noise.shared.eps_w, noise.shared.eps_b, noise.v.eps_w,
+        noise.v.eps_b, noise.a.eps_w, noise.a.eps_b)], dim=1).contiguous()
+
+
+class UpdParams(NamedTuple):
+    """The TPU kernel's transposed, padded parameter tensors (obs column 7,
+    V rows 1-7 and A rows 3-7 are zero padding)."""
+
+    w1t: torch.Tensor
+    b1t: torch.Tensor
+    w2t: torch.Tensor
+    b2t: torch.Tensor
+    wiht: torch.Tensor
+    whht: torch.Tensor
+    biht: torch.Tensor
+    bhht: torch.Tensor
+    wst_mu: torch.Tensor
+    wst_sig: torch.Tensor
+    bst_mu: torch.Tensor
+    bst_sig: torch.Tensor
+    wvt_mu: torch.Tensor
+    wvt_sig: torch.Tensor
+    bvt_mu: torch.Tensor
+    bvt_sig: torch.Tensor
+    wat_mu: torch.Tensor
+    wat_sig: torch.Tensor
+    bat_mu: torch.Tensor
+    bat_sig: torch.Tensor
+
+
+class UpdNoise(NamedTuple):
+    """Per-update transposed noise of the TPU kernel (leading K axis)."""
+
+    est_w: torch.Tensor   # (K, HH, H)
+    est_b: torch.Tensor   # (K, HH, 1)
+    evt_w: torch.Tensor   # (K, 8, HH)
+    evt_b: torch.Tensor   # (K, 8, 1)
+    eat_w: torch.Tensor   # (K, 8, HH)
+    eat_b: torch.Tensor   # (K, 8, 1)
+
+
+def _pad_rows(x, rows):
+    out = x.new_zeros((rows,) + tuple(x.shape[1:]))
+    out[:x.shape[0]] = x
+    return out
+
+
+def pack_upd_params(p: QNetRNN) -> UpdParams:
+    """QNetRNN -> the TPU kernel's transposed, padded tensors."""
+    lst = p.lstm[0]
+    w1t = p.feat1.w.new_zeros((p.feat1.w.shape[1], 8))
+    w1t[:, :7] = p.feat1.w.T
+    col = lambda b: b[:, None]
+    return UpdParams(
+        w1t=w1t, b1t=col(p.feat1.b), w2t=p.feat2.w.T, b2t=col(p.feat2.b),
+        wiht=lst.w_ih.T, whht=lst.w_hh.T, biht=col(lst.b_ih),
+        bhht=col(lst.b_hh),
+        wst_mu=p.shared.w_mu.T, wst_sig=p.shared.w_sigma.T,
+        bst_mu=col(p.shared.b_mu), bst_sig=col(p.shared.b_sigma),
+        wvt_mu=_pad_rows(p.fc_v.w_mu.T, 8),
+        wvt_sig=_pad_rows(p.fc_v.w_sigma.T, 8),
+        bvt_mu=_pad_rows(col(p.fc_v.b_mu), 8),
+        bvt_sig=_pad_rows(col(p.fc_v.b_sigma), 8),
+        wat_mu=_pad_rows(p.fc_a.w_mu.T, 8),
+        wat_sig=_pad_rows(p.fc_a.w_sigma.T, 8),
+        bat_mu=_pad_rows(col(p.fc_a.b_mu), 8),
+        bat_sig=_pad_rows(col(p.fc_a.b_sigma), 8),
+    )
+
+
+def unpack_upd_params(u: UpdParams, template: QNetRNN) -> QNetRNN:
+    """The TPU kernel's tensors -> a QNetRNN with the template's shapes."""
+    from pingpong_tpu_torch.models.qnet_rnn import qnet_rnn_copy
+
+    out = qnet_rnn_copy(template)
+    n_act = template.fc_a.w_mu.shape[1]
+    values = {
+        "feat1.w": u.w1t[:, :7].T, "feat1.b": u.b1t[:, 0],
+        "feat2.w": u.w2t.T, "feat2.b": u.b2t[:, 0],
+        "lstm.0.w_ih": u.wiht.T, "lstm.0.w_hh": u.whht.T,
+        "lstm.0.b_ih": u.biht[:, 0], "lstm.0.b_hh": u.bhht[:, 0],
+        "shared.w_mu": u.wst_mu.T, "shared.w_sigma": u.wst_sig.T,
+        "shared.b_mu": u.bst_mu[:, 0], "shared.b_sigma": u.bst_sig[:, 0],
+        "fc_v.w_mu": u.wvt_mu[:1].T, "fc_v.w_sigma": u.wvt_sig[:1].T,
+        "fc_v.b_mu": u.bvt_mu[:1, 0], "fc_v.b_sigma": u.bvt_sig[:1, 0],
+        "fc_a.w_mu": u.wat_mu[:n_act].T, "fc_a.w_sigma": u.wat_sig[:n_act].T,
+        "fc_a.b_mu": u.bat_mu[:n_act, 0],
+        "fc_a.b_sigma": u.bat_sig[:n_act, 0],
+    }
+    for name, p in out.named_parameters():
+        p.data.copy_(values[name])
+    return out
+
+
+def pack_upd_noise(noise: QNetRNNNoise) -> UpdNoise:
+    """``(K,)``-stacked QNetRNNNoise -> the TPU kernel's tensors."""
+    tr = lambda x: x.transpose(1, 2)
+
+    def pad_mid(x, rows):
+        out = x.new_zeros((x.shape[0], rows) + tuple(x.shape[2:]))
+        out[:, :x.shape[1]] = x
+        return out
+
+    return UpdNoise(
+        est_w=tr(noise.shared.eps_w), est_b=noise.shared.eps_b[:, :, None],
+        evt_w=pad_mid(tr(noise.v.eps_w), 8),
+        evt_b=pad_mid(noise.v.eps_b[:, :, None], 8),
+        eat_w=pad_mid(tr(noise.a.eps_w), 8),
+        eat_b=pad_mid(noise.a.eps_b[:, :, None], 8),
+    )
+
+
+def kernel_inputs(obs, next_obs, action, reward, done, valid):
+    """The kernels' inputs from K minibatches of ``(K, bs, T, 7)`` traces
+    and ``(K, bs)`` last-step fields: ``xt (K, 7, T*2bs)`` obs‖next with
+    T-major columns (column ``t*2bs + b``, ``b < bs`` the obs half),
+    ``nextt (T, 7, K*bs)`` every update's next-obs (column ``k*bs + b``),
+    ``meta (K, 4, bs)`` rows action, reward, done, valid."""
+    K, bs, T, _ = obs.shape
+    both = torch.cat([obs, next_obs], dim=1)                  # (K, 2bs, T, 7)
+    xt = both.permute(0, 3, 2, 1).reshape(K, 7, T * 2 * bs).contiguous()
+    nextt = next_obs.permute(2, 3, 0, 1).reshape(T, 7, K * bs).contiguous()
+    meta = torch.stack([action.to(torch.float32), reward.to(torch.float32),
+                        done.to(torch.float32), valid.to(torch.float32)],
+                       dim=1).contiguous()
+    return xt, nextt, meta
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version
+# ---------------------------------------------------------------------------
+
+def _features(P, x):
+    """f1, f2 and the input projection ``(w_ih f2 + b_ih) + b_hh`` of
+    ``x (7, n)`` columns."""
+    f1 = torch.relu(P["w1"].T @ x + P["b1"][:, None])
+    f2 = torch.relu(P["w2"].T @ f1 + P["b2"][:, None])
+    xp = (P["wih"].T @ f2 + P["bih"][:, None]) + P["bhh"][:, None]
+    return f1, f2, xp
+
+
+def _lstm(P, xp, T, n, store):
+    H = P["whh"].shape[0]
+    h = xp.new_zeros((H, n))
+    c = xp.new_zeros((H, n))
+    acts = []
+    for t in range(T):
+        g = xp[:, t * n:(t + 1) * n] + P["whh"].T @ h
+        i = torch.sigmoid(g[0:H])
+        f = torch.sigmoid(g[H:2 * H])
+        gg = torch.tanh(g[2 * H:3 * H])
+        o = torch.sigmoid(g[3 * H:4 * H])
+        c_new = f * c + i * gg
+        h_new = o * torch.tanh(c_new)
+        if store:
+            acts.append((i, f, gg, o, c, c_new, h))
+        h, c = h_new, c_new
+    return h, acts
+
+
+def _q(s, wv, bv, wa, ba):
+    """Dueling Q ``(3, n)`` from the shared head's output ``s (HH, n)``."""
+    v = wv.T @ s + bv[:, None]
+    a = wa.T @ s + ba[:, None]
+    return (v + a) - (a[0:1] + a[1:2] + a[2:3]) / 3.0
+
+
+def _target_q(P, x, T, n):
+    """Target Q(s') ``(3, n)`` (mu weights) of ``x (7, T*n)`` columns
+    ``t*n + col``."""
+    _, _, xp = _features(P, x)
+    h, _ = _lstm(P, xp, T, n, store=False)
+    s = torch.relu(P["ws"].T @ h + P["bs"][:, None])
+    return _q(s, P["wv"], P["bv"], P["wa"], P["ba"])
+
+
+def _argmax_rows(q):
+    """Argmax over the 3 rows of ``(3, n)``, ties to the lowest index."""
+    i01 = (q[1] > q[0]).long()
+    return torch.where(q[2] > torch.maximum(q[0], q[1]), 2, i01)
+
+
+def drqn_grad(P, E, nz, x, meta, qt_k, T, bs, gamma):
+    """One update's loss and flat gradient, the kernel's hand backward.
+    ``P``/``E``/``nz``: views of the parameters, the effective noisy heads
+    and the noise; ``x (7, T*2bs)``; ``meta (4, bs)``; ``qt_k (3, bs)``
+    the target's Q(s')."""
+    B2 = 2 * bs
+    f1, f2, xp = _features(P, x)
+    h_T, acts = _lstm(P, xp, T, B2, store=True)
+    s_pre = E["sw"].T @ h_T + E["sb"][:, None]
+    s = torch.relu(s_pre)
+    q = _q(s, E["vw"], E["vb"], E["aw"], E["ab"])
+    q_s, q_ns = q[:, :bs], q[:, bs:]
+    act, rew, done, w = meta[0].long(), meta[1], meta[2], meta[3]
+    ar = torch.arange(bs, device=x.device)
+    nq = qt_k[_argmax_rows(q_ns), ar]
+    y = rew + gamma * nq * (1.0 - done)
+    td = q_s[act, ar] - y
+    huber = torch.where(td.abs() <= 1.0, 0.5 * td * td, td.abs() - 0.5)
+    denom = torch.clamp(w.sum(), min=1.0)
+    loss = (w * huber).sum() / denom
+
+    # heads (obs half; the next half's gradient is exactly zero)
+    dq = w * torch.clamp(td, -1.0, 1.0) / denom
+    dv = dq
+    da = torch.nn.functional.one_hot(act, 3).T.to(dq.dtype) * dq - dq / 3.0
+    so = s[:, :bs]
+    g = {}
+    g["wv"] = (so @ dv)[:, None]
+    g["bv"] = dv.sum()[None]
+    g["wa"] = so @ da.T
+    g["ba"] = da.sum(dim=1)
+    ds = E["vw"] * dv[None, :] + E["aw"] @ da
+    ds_pre = ds * (s_pre[:, :bs] > 0.0)
+    g["ws"] = h_T[:, :bs] @ ds_pre.T
+    g["bs"] = ds_pre.sum(dim=1)
+    dh = E["sw"] @ ds_pre
+    # BPTT
+    dc = torch.zeros_like(dh)
+    dgs = [None] * T
+    for t in range(T - 1, -1, -1):
+        i, f, gg, o, c_prev, c_new, _ = (a[:, :bs] for a in acts[t])
+        tc = torch.tanh(c_new)
+        do = dh * tc
+        dc = dc + dh * o * (1.0 - tc * tc)
+        dgs[t] = torch.cat([dc * gg * i * (1.0 - i),
+                            dc * c_prev * f * (1.0 - f),
+                            dc * i * (1.0 - gg * gg),
+                            do * o * (1.0 - o)], dim=0)
+        dh = P["whh"] @ dgs[t]
+        dc = dc * f
+    dg = torch.cat(dgs, dim=1)                                # (4H, T*bs)
+    obs_cols = (torch.arange(T, device=x.device)[:, None] * B2
+                + torch.arange(bs, device=x.device)[None, :]).reshape(-1)
+    h_prev = torch.cat([acts[t][6][:, :bs] for t in range(T)], dim=1)
+    g["whh"] = h_prev @ dg.T
+    g["bih"] = dg.sum(dim=1)
+    g["bhh"] = g["bih"]
+    f2o, f1o, xo = f2[:, obs_cols], f1[:, obs_cols], x[:, obs_cols]
+    g["wih"] = f2o @ dg.T
+    dz2 = (P["wih"] @ dg) * (f2o > 0.0)
+    g["w2"] = f1o @ dz2.T
+    g["b2"] = dz2.sum(dim=1)
+    dz1 = (P["w2"] @ dz2) * (f1o > 0.0)
+    g["w1"] = xo @ dz1.T
+    g["b1"] = dz1.sum(dim=1)
+    for mu, sig, n in (("ws", "wss", "sw"), ("bs", "bss", "sb"),
+                       ("wv", "wvs", "vw"), ("bv", "bvs", "vb"),
+                       ("wa", "was", "aw"), ("ba", "bas", "ab")):
+        g[sig] = g[mu] * nz[n]
+    return loss, g
+
+
+def drqn_update_plain(*, ts0, count0, xt, nextt, meta, noise, params, target,
+                      m, v, dims, K, bs, T, lr, clip, gamma, interval, tau):
+    """Step-by-step version of the kernel (in place on ``params, target,
+    m, v``). Returns ``losses (K,)``."""
+    ps = param_slices(dims)
+    ns = noise_slices(dims)
+    P, Tg = _views(params, ps), _views(target, ps)
+    grad = torch.zeros_like(params)
+    G = _views(grad, ps)
+    qt = params.new_zeros((K, 3, bs))
+    losses = []
+    for k in range(K):
+        if tau > 0.0 or (ts0 % interval) + k >= interval:
+            x = xt[k].reshape(7, T, 2 * bs)[:, :, bs:].reshape(7, T * bs)
+            qt[k] = _target_q(Tg, x, T, bs)
+        elif k == 0:
+            q_all = _target_q(Tg, nextt.permute(1, 0, 2).reshape(7, -1), T,
+                              K * bs)
+            qt.copy_(q_all.reshape(3, K, bs).transpose(0, 1))
+        nz = _views(noise[k], ns)
+        E = {"sw": P["ws"] + P["wss"] * nz["sw"],
+             "sb": P["bs"] + P["bss"] * nz["sb"],
+             "vw": P["wv"] + P["wvs"] * nz["vw"],
+             "vb": P["bv"] + P["bvs"] * nz["vb"],
+             "aw": P["wa"] + P["was"] * nz["aw"],
+             "ab": P["ba"] + P["bas"] * nz["ab"]}
+        loss, g = drqn_grad(P, E, nz, xt[k], meta[k], qt[k], T, bs, gamma)
+        for name, val in g.items():
+            G[name].copy_(val.reshape(G[name].shape))
+        losses.append(loss)
+        # clip_by_global_norm + flat Adam + target sync
+        gnorm = torch.sqrt((grad * grad).sum())
+        gsc = grad * (clip / torch.clamp(gnorm, min=clip))
+        step = torch.tensor(float(count0 + k + 1), device=params.device)
+        bc1 = 1.0 - torch.exp(step * math.log(B1))
+        bc2 = 1.0 - torch.exp(step * math.log(B2))
+        mj = m * B1 + gsc * (1.0 - B1)
+        vj = v * B2 + gsc * gsc * (1.0 - B2)
+        m.copy_(mj)
+        v.copy_(vj)
+        params.copy_(params - lr * ((mj / bc1) / (torch.sqrt(vj / bc2)
+                                                  + ADAM_EPS)))
+        if tau > 0.0:
+            target.copy_(target + tau * (params - target))
+        elif (ts0 + k + 1) % interval == 0:
+            target.copy_(params)
+    return torch.stack(losses)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel
+# ---------------------------------------------------------------------------
+
+class Hyper(ctypes.Structure):
+    """The kernel's ``Hyper`` struct (float32 each, rounded once)."""
+
+    _fields_ = [(n, ctypes.c_float) for n in (
+        "lr", "clip", "gamma", "tau", "b1", "b2", "one_m_b1", "one_m_b2",
+        "eps", "log_b1", "log_b2")] + [(n, ctypes.c_int) for n in (
+            "interval", "ts0", "count0")]
+
+
+_vp, _i = ctypes.c_void_p, ctypes.c_int
+KERNEL = CudaKernel(
+    "drqn_update", "drqn_update_launch",
+    [_i] * 7 + [ctypes.POINTER(Hyper)] + [_vp] * 11,
+)
+
+
+def _scratch_floats(dims, K, bs, T) -> int:
+    lib_fn = KERNEL.library_fn("drqn_update_scratch_floats",
+                               [_i] * 7, ctypes.c_longlong)
+    return int(lib_fn(*dims, K, bs, T))
+
+
+def drqn_update_cuda(*, ts0, count0, xt, nextt, meta, noise, params, target,
+                     m, v, dims, K, bs, T, lr, clip, gamma, interval, tau):
+    """Launch the CUDA kernel; same contract as :func:`drqn_update_plain`.
+    Raises if the cooperative launch is refused."""
+    if max(dims) > MAX_WIDTH:
+        raise ValueError(f"update kernel takes widths <= {MAX_WIDTH}, "
+                         f"got {dims}")
+    dev = params.device
+    n_par = param_slices(dims)["n"][0]
+    check_cuda("xt", xt, torch.float32, (K, 7, T * 2 * bs))
+    check_cuda("nextt", nextt, torch.float32, (T, 7, K * bs))
+    check_cuda("meta", meta, torch.float32, (K, 4, bs))
+    check_cuda("noise", noise, torch.float32, (K, noise_slices(dims)["n"][0]))
+    for name, t in (("params", params), ("target", target), ("m", m),
+                    ("v", v)):
+        check_cuda(name, t, torch.float32, (n_par,))
+    losses = torch.empty((K,), dtype=torch.float32, device=dev)
+    scratch = torch.empty((_scratch_floats(dims, K, bs, T),),
+                          dtype=torch.float32, device=dev)
+    hp = Hyper(lr=lr, clip=clip, gamma=gamma, tau=tau, b1=B1, b2=B2,
+               one_m_b1=1.0 - B1, one_m_b2=1.0 - B2, eps=ADAM_EPS,
+               log_b1=math.log(B1), log_b2=math.log(B2), interval=interval,
+               ts0=ts0, count0=count0)
+    KERNEL.launch(*dims, K, bs, T, ctypes.byref(hp), ptr(xt), ptr(nextt),
+                  ptr(meta), ptr(noise), ptr(params), ptr(target), ptr(m),
+                  ptr(v), ptr(losses), ptr(scratch), stream_ptr(dev))
+    return losses
+
+
+def drqn_update_block(*, train_steps: int, adam_count: int, obs, next_obs,
+                      action, reward, done, valid, noise, params, target, m,
+                      v, dims, lr: float, clip: float, gamma: float,
+                      interval: int, tau: float):
+    """Run K fused DRQN updates on ``obs``/``next_obs (K, bs, T, 7)`` and
+    last-step ``action``, ``reward``, ``done``, ``valid (K, bs)``, with
+    ``noise (K, NN)`` (:func:`flat_noise`), in place on the flat
+    ``params``, ``target``, ``m`` and ``v``. Runs the CUDA kernel for CUDA
+    tensors and the plain version for CPU tensors. Returns each update's
+    loss ``(K,)``."""
+    K, bs, T, _ = obs.shape
+    xt, nextt, meta = kernel_inputs(obs, next_obs, action, reward, done,
+                                    valid)
+    kw = dict(ts0=int(train_steps), count0=int(adam_count), xt=xt,
+              nextt=nextt, meta=meta, noise=noise.contiguous(),
+              params=params, target=target, m=m, v=v, dims=tuple(dims), K=K,
+              bs=bs, T=T, lr=lr, clip=clip, gamma=gamma, interval=interval,
+              tau=tau)
+    if params.is_cuda:
+        return drqn_update_cuda(**kw)
+    return drqn_update_plain(**kw)

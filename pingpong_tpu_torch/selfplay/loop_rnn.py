@@ -1,0 +1,273 @@
+"""Iterative self-play with generation promotion for the DRQN (LSTM) agent;
+port of ``pingpong_tpu/selfplay/loop_rnn.py``.
+
+* each new generation starts B from A's weights with a fresh optimizer,
+  target and per-generation epsilon;
+* promotion gate: the win rate vs A AND vs the whole pool clear the
+  thresholds; the pool eval splits ``eval_episodes`` evenly over members;
+* on promotion the new generation is APPENDED to the runtime pool (up to
+  ``pool_max``); after ``max_retries_for_generation`` tries a ``_fault``
+  checkpoint is written, B is reset from A (ring kept), and the
+  generation counts as done;
+* the pool is loaded from disk at start-up, fault checkpoints excluded;
+* restore: ``init_model_path_rnn`` warm-starts the weights (tier 2, key
+  chain params_a -> params_b -> params), else random init (tier 3).
+
+Not ported yet (ROADMAP.md): the full-state autosave and its tier-1
+resume, checkpoint retention, the match-runner gates and every DRQN option
+the fused kernels do not run. Configurations that ask for them raise,
+naming the setting.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import List, Optional
+
+import torch
+
+from pingpong_tpu_torch.checkpoint.serialize import (
+    params_from_dict,
+    qnet_rnn_to_dict,
+)
+from pingpong_tpu_torch.checkpoint.store import (
+    is_checkpoint,
+    load_checkpoint,
+    save_checkpoint,
+)
+from pingpong_tpu_torch.config.schema import DRQNConfig, EnvConfig
+from pingpong_tpu_torch.evaluation.fast_eval import (
+    rnn_win_rate,
+    rnn_win_rate_balanced,
+)
+from pingpong_tpu_torch.models.qnet_rnn import QNetRNN, qnet_rnn_copy
+from pingpong_tpu_torch.ops.recurrent_rollout import MAX_WIDTH
+from pingpong_tpu_torch.selfplay.loop import GenerationRecord
+from pingpong_tpu_torch.selfplay.pool import load_pool
+from pingpong_tpu_torch.train.drqn import DRQNLearner, stack_rnn_opponents
+from pingpong_tpu_torch.utils.metrics import (
+    MetricsLogger,
+    Stopwatch,
+    WinRateWindow,
+)
+
+
+def check_supported_rnn(cfg: DRQNConfig) -> None:
+    """Raise, naming the setting, for options of the JAX DRQN trainer that
+    this port does not run yet."""
+    refused = [
+        (cfg.save_latest_checkpoint_interval_steps > 0,
+         "full-state autosave is not ported to PyTorch yet; run with "
+         "drqn.save_latest_checkpoint_interval_steps=0"),
+        (cfg.keep_checkpoints > 0 or cfg.keep_fault_checkpoints > 0,
+         "checkpoint retention is not ported to PyTorch yet; run with "
+         "drqn.keep_checkpoints=0 drqn.keep_fault_checkpoints=0"),
+        (cfg.lstm_layers != 1,
+         "the recurrent kernels take one LSTM layer; run with "
+         "drqn.lstm_layers=1"),
+        (cfg.head_hidden_dim <= 0,
+         "the recurrent kernels need the shared noisy head; run with "
+         "drqn.head_hidden_dim > 0"),
+        (max(cfg.feature_dim, cfg.lstm_hidden_dim, cfg.head_hidden_dim)
+         > MAX_WIDTH,
+         f"the recurrent kernels take widths up to {MAX_WIDTH}; set "
+         "drqn.feature_dim, drqn.lstm_hidden_dim and drqn.head_hidden_dim "
+         f"<= {MAX_WIDTH}"),
+        (cfg.burn_in_length > 0,
+         "burn-in is not ported to PyTorch yet; run with "
+         "drqn.burn_in_length=0"),
+        (not (cfg.use_pallas_rollout and cfg.use_pallas_update
+              and cfg.use_pallas_eval),
+         "the PyTorch port runs only the fused recurrent kernels: "
+         "drqn.use_pallas_rollout, drqn.use_pallas_update and "
+         "drqn.use_pallas_eval must be true"),
+        (cfg.opponent_binding != "bucketed",
+         "only bucketed opponent binding is ported; run with "
+         "drqn.opponent_binding=bucketed"),
+        (cfg.episode_uniform_sampling,
+         "episode-uniform sampling is not ported to PyTorch yet; run with "
+         "drqn.episode_uniform_sampling=false"),
+        (cfg.learner_sharding == "sharded",
+         "the sharded learner is not ported to PyTorch yet; run with "
+         "drqn.learner_sharding=auto"),
+    ]
+    for bad, msg in refused:
+        if bad:
+            raise ValueError(msg)
+
+
+class DRQNSelfPlay:
+    """The generation loop of one DRQN run; ``run()`` executes it."""
+
+    def __init__(self, env_cfg: EnvConfig, cfg: DRQNConfig,
+                 workdir: str = ".", seed: int = 0,
+                 logger: Optional[MetricsLogger] = None, device="cuda"):
+        check_supported_rnn(cfg)
+        self.env_cfg = env_cfg
+        self.cfg = cfg
+        self.workdir = Path(workdir)
+        self.ckpt_dir = self.workdir / cfg.ckpt_dir_rnn
+        self.logger = logger or MetricsLogger()
+        self.learner = DRQNLearner(env_cfg, cfg, device=device)
+        self.device = self.learner.device
+        self.env_params = self.learner.env_params
+        self.gen = torch.Generator().manual_seed(int(seed))
+        self.win_a_window = WinRateWindow(cfg.selfplay.win_rate_interval)
+        self.win_pool_window = WinRateWindow(cfg.selfplay.win_rate_interval)
+        self.records: List[GenerationRecord] = []
+        self.reward_history: List[float] = []
+        self.done_generations = 0
+        self.current_generation = 0
+
+        # runtime pool from disk, faults excluded
+        self.pool: List[QNetRNN] = load_pool(
+            self.ckpt_dir, kind="qnet_rnn", skip_fault=True,
+            limit=cfg.pool_max)
+
+        params = None
+        if cfg.init_model_path_rnn:
+            init_path = self.workdir / cfg.init_model_path_rnn
+            if is_checkpoint(init_path):
+                payload = load_checkpoint(init_path)
+                for key in ("params_a", "params_b", "params"):
+                    if payload.get(key) is not None:
+                        params = params_from_dict(payload[key])
+                        break
+            if params is not None:
+                self.logger.log({"event": "restore", "tier": 2,
+                                 "path": str(init_path)})
+        if params is None:
+            params = self.learner.init_params(self.gen)
+            self.logger.log({"event": "restore", "tier": 3})
+        self.params_a = params
+        self.init_params = params
+        self.state = self.learner.init_state(self._seed(), params)
+
+    def _seed(self) -> int:
+        return int(torch.randint(0, 2**62, (1,), generator=self.gen))
+
+    # -- eval ---------------------------------------------------------------
+    def _eval_vs(self, opponents: List[QNetRNN], n_games: int) -> float:
+        """B vs opponents through the fused recurrent gates, the quota
+        split evenly over them; an empty pool counts as win rate 1."""
+        if not opponents:
+            return 1.0
+        cfg = self.cfg
+        kw = dict(n_envs=min(cfg.num_envs, 4096),
+                  tile_rows=min(cfg.pallas_tile_rows, cfg.num_envs, 4096),
+                  max_episode_steps=cfg.max_episode_steps,
+                  device=self.device)
+        params_b = self.learner.params_b(self.state)
+        per = max(2, n_games // len(opponents))
+        wins = w_b = w_a = 0.0
+        total = 0
+        for opp in opponents:
+            if cfg.selfplay.swap_sides_eval:
+                wr, as_b, as_a, eps = rnn_win_rate_balanced(
+                    self.env_params, opp, params_b, self.gen,
+                    min_episodes=per, **kw)
+                w_b += as_b * eps
+                w_a += as_a * eps
+            else:
+                wr, eps = rnn_win_rate(self.env_params, opp, params_b,
+                                       self.gen, min_episodes=per, **kw)
+            wins += wr * eps
+            total += eps
+        if cfg.selfplay.swap_sides_eval:
+            self.logger.log({"event": "eval_seats",
+                             "win_as_b": w_b / max(total, 1),
+                             "win_as_a": w_a / max(total, 1)})
+        return wins / max(total, 1)
+
+    def _save(self, name: str, generation: int) -> str:
+        st = self.state
+        payload = {
+            "params_b": qnet_rnn_to_dict(self.learner.params_b(st)),
+            "params_a": qnet_rnn_to_dict(self.params_a),
+            "epsilon": float(st.epsilon),
+            "episode": int(st.episodes),
+            "generation": generation,
+            "train_steps": int(st.train_steps),
+            "model_kind": "qnet_rnn",
+        }
+        return str(save_checkpoint(self.ckpt_dir / name, payload))
+
+    # -- training block ------------------------------------------------------
+    def _train_block(self, episodes_target: int) -> None:
+        sp = self.cfg.selfplay
+        goal = self.state.episodes + episodes_target
+        watch = Stopwatch()
+        stack, pool_size = stack_rnn_opponents(self.params_a, self.pool)
+        opp = self.learner.prepare_opponents(stack)
+        env_steps = 0
+        last_log_eps = self.state.episodes
+        while self.state.episodes < goal:
+            self.state, m = self.learner.train_iteration(self.state, opp,
+                                                         pool_size)
+            env_steps += m.env_steps
+            self.win_a_window.add(m.games_vs_a, m.wins_vs_a)
+            self.win_pool_window.add(m.games_vs_pool, m.wins_vs_pool)
+            if m.episodes > 0:
+                self.reward_history.append(m.episode_return_sum / m.episodes)
+            eps_now = self.state.episodes
+            if eps_now - last_log_eps >= sp.win_rate_interval:
+                dt = watch.lap()
+                self.logger.log({
+                    "event": "interval",
+                    "episode": eps_now,
+                    "win_vs_A": self.win_a_window.rate(),
+                    "win_vs_pool": self.win_pool_window.rate(),
+                    "epsilon": m.epsilon,
+                    "loss": m.mean_loss,
+                    "env_steps_per_s": env_steps / max(dt, 1e-9),
+                    "buffer_episodes": m.buffer_episodes,
+                })
+                env_steps = 0
+                last_log_eps = eps_now
+
+    # -- main loop -----------------------------------------------------------
+    def run(self) -> List[GenerationRecord]:
+        sp = self.cfg.selfplay
+        while self.done_generations < sp.max_generations:
+            self.current_generation += 1
+            gen = self.current_generation
+            if gen > 1:
+                self.state = self.learner.new_generation(self.state,
+                                                         self.params_a)
+            tries = 0
+            while True:
+                tries += 1
+                self.logger.log({"event": "try", "generation": gen,
+                                 "try": tries})
+                self._train_block(sp.episodes_per_generation)
+                w_a = self._eval_vs([self.params_a], sp.eval_episodes)
+                w_pool = self._eval_vs(self.pool, sp.eval_episodes)
+                self.logger.log({"event": "eval", "generation": gen,
+                                 "win_vs_A": w_a, "win_vs_pool": w_pool})
+                if (w_a >= sp.curr_win_threshold
+                        and w_pool >= sp.pool_win_threshold):
+                    self.params_a = self.learner.params_b(self.state).cpu()
+                    path = self._save(f"{self.cfg.model_id_prefix}{gen}", gen)
+                    if len(self.pool) < self.cfg.pool_max:
+                        self.pool.append(qnet_rnn_copy(self.params_a))
+                    self.records.append(GenerationRecord(
+                        gen, True, tries, w_a, w_pool, self.state.episodes,
+                        path))
+                    self.logger.log({"event": "promoted", "generation": gen,
+                                     "checkpoint": path})
+                    self.done_generations += 1
+                    break
+                if tries >= sp.max_retries_for_generation:
+                    path = self._save(
+                        f"{self.cfg.model_id_prefix}{gen}_fault", gen)
+                    self.records.append(GenerationRecord(
+                        gen, False, tries, w_a, w_pool, self.state.episodes,
+                        path))
+                    self.logger.log({"event": "fault", "generation": gen,
+                                     "checkpoint": path})
+                    # fresh B from A, ring kept
+                    self.state = self.learner.reset_learner(self.state,
+                                                            self.params_a)
+                    self.done_generations += 1
+                    break
+        return self.records

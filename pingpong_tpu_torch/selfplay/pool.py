@@ -1,8 +1,9 @@
 """Opponent-pool loading (port of ``pingpong_tpu/selfplay/pool.py``).
 
-As in the reference QNet trainer, every checkpoint in the directory joins
-the pool at start-up, ``_fault`` ones included; ``latest*`` full-state
-autosaves are skipped."""
+As in the reference trainers, the QNet trainer loads every checkpoint in
+the directory at start-up, ``_fault`` ones included, and the DRQN trainer
+(``kind="qnet_rnn", skip_fault=True``) skips fault checkpoints;
+``latest*`` full-state autosaves are skipped by both."""
 
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from pingpong_tpu_torch.checkpoint.store import (
     list_checkpoints,
     load_checkpoint,
 )
+from pingpong_tpu_torch.models.qnet_rnn import QNetRNN
 
 
 def load_params_any(ckpt_path, prefer=("params_b", "params_a", "params"),
@@ -28,10 +30,11 @@ def load_params_any(ckpt_path, prefer=("params_b", "params_a", "params"),
 def load_pool(ckpt_dir, kind: str = "qnet", skip_fault: bool = False,
               limit: Optional[int] = None, exclude_names=("latest",),
               device="cpu") -> List:
-    """All QNet checkpoints in ``ckpt_dir`` (sorted by name) as pool
-    members; checkpoints of another kind are skipped."""
-    if kind != "qnet":
-        raise ValueError(f"pool kind {kind!r} is not ported yet")
+    """All checkpoints of ``kind`` ("qnet" or "qnet_rnn") in ``ckpt_dir``
+    (sorted by name) as pool members; checkpoints of another kind are
+    skipped."""
+    if kind not in ("qnet", "qnet_rnn"):
+        raise ValueError(f"unknown pool kind {kind!r}")
     members = []
     for path in list_checkpoints(ckpt_dir):
         if skip_fault and "fault" in path.name:
@@ -41,6 +44,9 @@ def load_pool(ckpt_dir, kind: str = "qnet", skip_fault: bool = False,
         try:
             params = load_params_any(path, device=device)
         except (KeyError, ValueError):
+            continue
+        actual = "qnet_rnn" if isinstance(params, QNetRNN) else "qnet"
+        if actual != kind:
             continue
         members.append(params)
         if limit is not None and len(members) >= limit:

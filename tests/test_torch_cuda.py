@@ -1,6 +1,6 @@
 """PyTorch port on the card: each CUDA kernel vs its plain PyTorch version
-on the same inputs, the wrappers' argument checks, and one learner
-iteration through both kernels. Every test needs an NVIDIA card and skips
+on the same inputs, the wrappers' argument checks, and one iteration of
+each learner through its two kernels. Every test needs an NVIDIA card and skips
 without one. This file imports no JAX, so it also runs on a machine that
 has only the port's dependencies:
 
@@ -23,10 +23,18 @@ from pingpong_tpu_torch.models.qnet import (
     qnet_sample_noise,
     qnet_to_flat,
 )
+from pingpong_tpu_torch.models.qnet_rnn import (
+    qnet_rnn_init,
+    qnet_rnn_sample_noise,
+    qnet_rnn_to_flat,
+)
 from pingpong_tpu_torch.ops import actor_rollout as tar
 from pingpong_tpu_torch.ops import dqn_update as tdu
+from pingpong_tpu_torch.ops import drqn_update as tdru
+from pingpong_tpu_torch.ops import recurrent_rollout as trr
 from pingpong_tpu_torch.replay.per import Transition, per_init, per_push
 from pingpong_tpu_torch.train.dqn import DQNLearner
+from pingpong_tpu_torch.train.drqn import DRQNLearner
 
 CONFIG = "configs/qnet.yaml"
 B, TILE, T = 512, 128, 16
@@ -175,3 +183,136 @@ def test_learner_iteration_runs_both_kernels(cuda):
     assert (tar.KERNEL.launches, tdu.KERNEL.launches) == (a0 + 1, u0 + 1)
     assert m.updates_run == K and np.isfinite(m.mean_loss)
     assert state.buffer.size == B * T and state.params.is_cuda
+
+
+RNN_CONFIG = "configs/rnn.yaml"
+RNN_WIDTHS = dict(feature_dim=64, lstm_hidden_dim=32, head_hidden_dim=32)
+RNN_DIMS = (32, 64, 32, 32)
+
+
+def rnn_args(n_slots, eval_mode, dev, seed=5):
+    cfg = load_config(RNN_CONFIG)
+    gen = torch.Generator().manual_seed(seed)
+    learner, *members = (qnet_rnn_init(gen, **RNN_WIDTHS).to(dev)
+                         for _ in range(1 + n_slots))
+    if eval_mode:
+        for layer in (learner.fc_a, learner.shared):
+            layer.w_sigma.data.zero_()
+            layer.b_sigma.data.zero_()
+    rng = np.random.default_rng(seed)
+    opp = np.sort(rng.integers(0, n_slots, B)).astype(np.int32)
+    hid = rng.uniform(-0.5, 0.5, (4 * 32, B)).astype(np.float32)
+    env_params = env_params_from_config(cfg.env)
+    args = (env_params, reset(env_params, B, gen, dev),
+            torch.from_numpy(opp).to(dev), torch.zeros(B, device=dev),
+            torch.from_numpy(hid).to(dev), trr.pack_qnet_rnn(learner),
+            trr.pack_rnn_sigma(learner),
+            trr.pack_qnet_rnn(members, mirror=True))
+    kw = dict(seed=1234567, eps_i=0 if eval_mode else 300000, steps=T,
+              max_episode_steps=0 if eval_mode else 40, tile_rows=TILE,
+              emit_transitions=not eval_mode)
+    return args, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_slots,eval_mode", [(1, False), (3, False),
+                                               (1, True)])
+def test_recurrent_kernel_matches_plain(cuda, n_slots, eval_mode):
+    args, kw = rnn_args(n_slots, eval_mode, cuda)
+    before = trr.KERNEL.launches
+    sk, rk, hk, tk, stk = trr.recurrent_rollout_cuda(*args, **kw)
+    sp, rp, hp, tp, stp = trr.recurrent_rollout_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert trr.KERNEL.launches == before + 1
+    ok = torch.ones(B, dtype=torch.bool, device=cuda)
+    if not eval_mode:
+        eq = ((tk["action"] == tp["action"]) & (tk["reward"] == tp["reward"])
+              & (tk["done"] == tp["done"]))
+        assert float(eq.float().mean()) >= 0.999
+        ok = eq.all(dim=0)
+        torch.testing.assert_close(tk["obs"][:, ok], tp["obs"][:, ok],
+                                   rtol=0, atol=1e-5)
+    for f in ("score_a", "score_b", "bounce_count", "t"):
+        assert float((getattr(sk, f) == getattr(sp, f)).float().mean()) \
+            >= 0.999
+    for f in ("ball_x", "ball_y", "ball_vx", "ball_vy", "spin"):
+        torch.testing.assert_close(getattr(sk, f)[ok], getattr(sp, f)[ok],
+                                   rtol=0, atol=1e-5)
+    torch.testing.assert_close(hk[:, ok], hp[:, ok], rtol=0, atol=1e-4)
+    torch.testing.assert_close(stk[:7].sum(1), stp[:7].sum(1), rtol=0.01,
+                               atol=1.0)
+
+
+def drqn_update_kwargs(dev, ts0, interval, tau, seed=2):
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator().manual_seed(seed)
+    net, tgt = (qnet_rnn_init(gen, **RNN_WIDTHS) for _ in range(2))
+    K_, bs, T_ = 4, 16, 4
+    t = lambda x: torch.from_numpy(x).to(dev)
+    obs = rng.uniform(-1, 1, (K_, bs, T_ + 1, 7)).astype(np.float32)
+    xt, nextt, meta = tdru.kernel_inputs(
+        t(obs[:, :, :T_].copy()), t(obs[:, :, 1:].copy()),
+        t(rng.integers(0, 3, (K_, bs))), t(rng.normal(size=(K_, bs))
+                                          .astype(np.float32)),
+        t(rng.random((K_, bs)) < 0.2), t(rng.random((K_, bs)) < 0.9))
+    params = qnet_rnn_to_flat(net).to(dev)
+    return dict(ts0=ts0, count0=ts0, xt=xt, nextt=nextt, meta=meta,
+                noise=tdru.flat_noise(qnet_rnn_sample_noise(
+                    gen, net, batch=(K_,))).to(dev),
+                params=params, target=qnet_rnn_to_flat(tgt).to(dev),
+                m=torch.zeros_like(params), v=torch.zeros_like(params),
+                dims=RNN_DIMS, K=K_, bs=bs, T=T_, lr=1e-3, clip=1.0,
+                gamma=0.99, interval=interval, tau=tau)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ts0,interval,tau", [(0, 1000, 0.0), (9, 10, 0.0),
+                                              (0, 1000, 0.05)])
+def test_drqn_update_kernel_matches_plain(cuda, ts0, interval, tau):
+    kk = drqn_update_kwargs(cuda, ts0, interval, tau)
+    kp = {k: (v.clone() if isinstance(v, torch.Tensor) else v)
+          for k, v in kk.items()}
+    before = tdru.KERNEL.launches
+    lk = tdru.drqn_update_cuda(**kk)
+    lp = tdru.drqn_update_plain(**kp)
+    torch.cuda.synchronize()
+    assert tdru.KERNEL.launches == before + 1
+    torch.testing.assert_close(lk, lp, rtol=1e-4, atol=1e-6)
+    for key in ("params", "target"):
+        torch.testing.assert_close(kk[key], kp[key], rtol=1e-4, atol=1e-6)
+    for key in ("m", "v"):
+        torch.testing.assert_close(kk[key], kp[key], rtol=1e-3, atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_recurrent_wrappers_check_their_arguments(cuda):
+    args, kw = rnn_args(1, False, cuda)
+    with pytest.raises(ValueError, match="tile_rows"):
+        trr.recurrent_rollout_cuda(*args, **{**kw, "tile_rows": 12})
+    with pytest.raises(ValueError, match="hid"):
+        trr.recurrent_rollout_cuda(*args[:4], args[4][:8], *args[5:], **kw)
+    kk = drqn_update_kwargs(cuda, 0, 1000, 0.0)
+    with pytest.raises(ValueError, match="noise"):
+        tdru.drqn_update_cuda(**{**kk, "noise": kk["noise"][:, 1:]})
+    with pytest.raises(ValueError, match="widths"):
+        tdru.drqn_update_cuda(**{**kk, "dims": (32, 256, 32, 32)})
+
+
+@pytest.mark.cuda
+def test_drqn_learner_iteration_runs_both_kernels(cuda):
+    cfg = load_config(RNN_CONFIG)
+    dq = dataclasses.replace(cfg.drqn, **RNN_WIDTHS, num_envs=B,
+                             rollout_length=64, updates_per_iteration=4,
+                             batch_size=16, trace_length=4, ring_len=256,
+                             pallas_tile_rows=TILE, max_episode_steps=50,
+                             min_episodes_for_training_start=1)
+    learner = DRQNLearner(cfg.env, dq)
+    state = learner.init_state(0)
+    opp = learner.prepare_opponents([learner.params_b(state)] * 2)
+    r0, u0 = trr.KERNEL.launches, tdru.KERNEL.launches
+    for _ in range(4):
+        state, m = learner.train_iteration(state, opp, 1)
+    torch.cuda.synchronize()
+    assert trr.KERNEL.launches == r0 + 4 and tdru.KERNEL.launches > u0
+    assert m.updates_run == 4 and np.isfinite(m.mean_loss)
+    assert state.params.is_cuda and state.buffer.ep_count > 16
