@@ -6,15 +6,18 @@
    per source, all started together) and prints ptxas' register/smem
    lines;
 2. holds each kernel against its plain PyTorch version on the card, at its
-   path's shapes, with the stated tolerances;
-3. drives both training paths, each with the kernels' launch counters set
+   paths' shapes (the training configs' and the bench's), with the stated
+   tolerances;
+3. drives the port's paths, each with the kernels' launch counters set
    to 0 just before it and read just after: ``cli train`` at
    ``configs/qnet.yaml``'s widths and batch, and ``cli train-rnn`` at
    ``configs/rnn.yaml``'s, each twice in one workdir (the second run loads
-   the first run's promoted checkpoint into its pool);
+   the first run's promoted checkpoint into its pool), then ``cli bench``
+   at the headline bench's shapes with fewer timing windows;
 4. times each kernel (CUDA events, warm) beside its plain version and its
    bound, and a train iteration of each path end to end, and profiles
-   where an iteration's device time goes (``torch.profiler``);
+   where an iteration's and the bench's device time goes
+   (``torch.profiler``);
 5. prints the ``kernels`` JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.
 
@@ -25,8 +28,9 @@ it exits 1 and prints no result.
 from __future__ import annotations
 
 import json
+import math
+import re
 import shutil
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -48,14 +52,6 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
-
-
-def card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, reps, warm=2):
@@ -283,13 +279,13 @@ def rnn_nets(gen, n, dev):
             for _ in range(n)]
 
 
-def rnn_inputs(seed, n_slots, eval_mode, dev):
+def rnn_inputs(seed, n_slots, eval_mode, dev, B=None):
     from pingpong_tpu_torch.env.pong import reset
     from pingpong_tpu_torch.evaluation.fast_eval import _zero_rnn_sigma
     from pingpong_tpu_torch.ops import recurrent_rollout as rr
     from pingpong_tpu_torch.train.dqn import bucket_opp_idx
 
-    B, H = RNN_CFG.num_envs, RNN_CFG.lstm_hidden_dim
+    B, H = B or RNN_CFG.num_envs, RNN_CFG.lstm_hidden_dim
     gen = torch.Generator().manual_seed(seed)
     learner, *members = rnn_nets(gen, 1 + n_slots, dev)
     if eval_mode:
@@ -490,10 +486,162 @@ def drqn_update_bound_ms(kw, stale):
         else "bytes"
 
 
-def profile_iterations(name, learner, state, opp, n):
-    """Where a train iteration's time goes: ``torch.profiler`` over ``n``
-    warm iterations; device time per kernel or op and the device's busy
-    share of the wall time (kernels may overlap, so it can exceed 1)."""
+# ---------------------------------------------------------------------------
+# kernel 5: env-only fused rollout (the headline bench)
+# ---------------------------------------------------------------------------
+
+PONG_B, PONG_TILE, PONG_STEPS = 32768, 64, 1024
+
+
+def pong_inputs(seed, dev):
+    from pingpong_tpu_torch.bench import rollout_env_cfg
+    from pingpong_tpu_torch.env.pong import env_params_from_config, reset
+
+    params = env_params_from_config(rollout_env_cfg())
+    return params, reset(params, PONG_B, torch.Generator().manual_seed(seed),
+                         dev)
+
+
+def plain_chunk_events(params, state, steps, seed):
+    """The plain version's chunk, step by step, counting the paddle hits
+    and the ended episodes (the work the bound counts). Returns ``(state,
+    reward sums, hits, ends)``."""
+    from pingpong_tpu_torch.ops import pong_kernel as pk
+
+    cells = pk.hash_cells(PONG_B, seed, PONG_TILE, state.ball_x.device)
+    tol = float(torch.tensor(0.02, dtype=torch.float32))
+    acc = torch.zeros_like(state.ball_x)
+    hits = ends = 0
+    for i in range(steps):
+        state, reward_b, done, hit = pk.plain_step(params, state, i, cells,
+                                                   tol)
+        acc = acc + reward_b
+        hits += int(hit.sum())
+        ends += int(done.sum())
+    return state, acc, hits, ends
+
+
+def compare_pong(dev):
+    """Two seeds, a 64-step chunk at the bench's shape: scores, bounce
+    count and step count equal on >= 99.9 % of envs, the seven floats within
+    1e-5 and the reward sums equal on those envs. One full 1024-step chunk:
+    reward sums and the envs whose episode ended (the kernel reports no
+    episode count) within 1 %. Returns (max abs err, hits, ends, bench
+    inputs) of the full chunk's plain run."""
+    from pingpong_tpu_torch.ops import pong_kernel as pk
+
+    err = 0.0
+    for seed in (1, 2):
+        params, st = pong_inputs(600 + seed, dev)
+        sk, rk = pk.pong_rollout_cuda(params, st, 64, seed,
+                                      tile_rows=PONG_TILE)
+        sp, rp = pk.pong_rollout_plain(params, st, 64, seed,
+                                       tile_rows=PONG_TILE)
+        torch.cuda.synchronize()
+        ok = torch.ones(PONG_B, dtype=torch.bool, device=dev)
+        for f in ("score_a", "score_b", "bounce_count", "t"):
+            ok &= getattr(sk, f) == getattr(sp, f)
+        frac = float(ok.float().mean())
+        f32_err = max(float((getattr(sk, f) - getattr(sp, f)).abs()[ok].max())
+                      for f in ("ball_x", "ball_y", "ball_vx", "ball_vy",
+                                "spin", "top_paddle_x", "bottom_paddle_x"))
+        rsum_eq = bool((rk == rp)[ok].all())
+        print(f"[pong:seed{seed}] 64 steps: discrete match {frac:.6f}, f32 "
+              f"max err {f32_err:.3g}, reward sums equal on matching envs "
+              f"{rsum_eq} | {CARD}", flush=True)
+        check(frac >= 0.999, f"pong seed {seed}: discrete match {frac}")
+        check(f32_err <= 1e-5, f"pong seed {seed}: f32 error {f32_err}")
+        check(rsum_eq, f"pong seed {seed}: reward sums differ")
+        err = max(err, f32_err)
+    params, st = pong_inputs(700, dev)
+    sk, rk = pk.pong_rollout_cuda(params, st, PONG_STEPS, 5,
+                                  tile_rows=PONG_TILE)
+    sp, rp, hits, ends = plain_chunk_events(params, st, PONG_STEPS, 5)
+    torch.cuda.synchronize()
+    rk_sum, rp_sum = float(rk.sum()), float(rp.sum())
+    ek, ep = int((sk.t < PONG_STEPS).sum()), int((sp.t < PONG_STEPS).sum())
+    same = ((sk.score_a == sp.score_a) & (sk.score_b == sp.score_b)
+            & (sk.t == sp.t) & (rk == rp))
+    print(f"[pong:chunk] {PONG_STEPS} steps: reward sum {rk_sum:.0f}/"
+          f"{rp_sum:.0f}, envs that ended {ek}/{ep}, envs equal in scores, "
+          f"t and reward {float(same.float().mean()):.6f}; plain run: "
+          f"{hits} paddle hits, {ends} ended episodes | {CARD}", flush=True)
+    check(abs(rk_sum - rp_sum) <= 0.01 * max(abs(rp_sum), 1.0),
+          "pong chunk: reward sums differ by more than 1 %")
+    check(abs(ek - ep) <= 0.01 * max(ep, 1), "pong chunk: ended envs")
+    return err, hits, ends, (params, st)
+
+
+def pong_bound_ms(B, steps, hits, ends):
+    """Kernel 5's least time. Bytes: 11 fields read, 7 + 4 fields and the
+    reward sums written, once each. Operations, each float or integer
+    operation counted once against the float32 rate: per env-step the two
+    bots (8) and the step without a hit (30: paddles, Magnus, integration,
+    walls, the two paddle-line tests, reward) and the reward sum (1); per
+    paddle hit the collision (17) and the speed-up (2); per ended episode
+    the serve (4 hashes of 17 integer operations, 16 float operations and
+    a cos and a sin, counted 1 each)."""
+    ops = 39 * B * steps + 19 * hits + (4 * 17 + 16 + 2) * ends
+    nbytes = (11 + 12) * 4 * B
+    t_ops, t_bytes = ops / F32_PEAK, nbytes / HBM_RATE
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes \
+        else "bytes"
+
+
+def drive_bench(cli, kernels):
+    """The bench path: ``cli bench`` in-process at the JAX bench's shapes
+    with fewer timing windows, the launch counters set to 0 just before
+    and read just after. Returns the launches and the JSON line."""
+    import contextlib
+    import io
+
+    for k in kernels:
+        k.launches = 0
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(["bench", "--rollout-windows", "1", "3",
+                       "--iteration-windows", "1", "3", "--trials", "2"])
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    sys.stderr.write(err.getvalue())
+    lines = out.getvalue().strip().splitlines()
+    print(f"[main:bench] cli bench rc={rc} in {time.time() - t0:.1f} s; "
+          f"launches {launches} | {CARD}", flush=True)
+    check(rc == 0 and lines, "cli bench failed")
+    result = json.loads(lines[-1])
+    value = result.get("value")
+    check(isinstance(value, (int, float)) and math.isfinite(value)
+          and value > 0, f"bench value {value!r} is not finite and positive")
+    check(result.get("device") == torch.cuda.get_device_name(0),
+          "the bench line does not name the card")
+    drqn_line = [ln for ln in err.getvalue().splitlines()
+                 if ln.startswith("[bench] DRQN")]
+    m = re.search(r"updates_run (\d+)", drqn_line[-1]) if drqn_line else None
+    check(m is not None, "the DRQN bench printed no updates_run")
+    for name, n in launches.items():
+        if name == "drqn_update" and int(m.group(1)) == 0:
+            continue
+        check(n > 0, f"{name} kernel never launched on the bench path")
+    print(f"[main:bench] {json.dumps(result)}", flush=True)
+    return launches
+
+
+def device_rows(events, n):
+    """``(ms per call, name)`` of each kernel and copy the card ran over
+    ``n`` calls, largest first. Only device events count: the row of a
+    PyTorch op repeats the device time of the kernels it launched."""
+    from torch.autograd import DeviceType
+
+    return sorted(((e.self_device_time_total / 1e3 / n, e.key)
+                   for e in events if e.device_type != DeviceType.CPU
+                   and e.self_device_time_total > 0), reverse=True)
+
+
+def profile_calls(name, fn, n, what="iteration"):
+    """Where a call's time goes: ``torch.profiler`` over ``n`` warm calls
+    of ``fn``; device time per kernel or op and the device's busy share of
+    the wall time (kernels may overlap, so it can exceed 1)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -501,19 +649,42 @@ def profile_iterations(name, learner, state, opp, n):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            learner.train_iteration(state, opp, 1)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    rows = sorted(((e.self_device_time_total / 1e3 / n, e.key)
-                   for e in prof.key_averages()
-                   if e.self_device_time_total > 0), reverse=True)
+    rows = device_rows(prof.key_averages(), n)
     dev_ms = sum(ms for ms, _ in rows)
     check(dev_ms > 0, "profiler recorded no device time")
-    print(f"[profile:{name}] per iteration (profiled): wall {wall_ms:.3f} ms, "
+    print(f"[profile:{name}] per {what} (profiled): wall {wall_ms:.3f} ms, "
           f"device {dev_ms:.3f} ms, busy share {dev_ms / wall_ms:.3f} | "
           f"{CARD}")
     for ms, key in rows[:8]:
         print(f"[profile:{name}]   {ms:9.4f} ms  {key[:90]}")
+
+
+def profile_iterations(name, learner, state, opp, n, pool_size=1):
+    profile_calls(name, lambda: learner.train_iteration(state, opp,
+                                                        pool_size), n)
+
+
+def profile_bench(dev):
+    """Where the bench's time goes: 16 steps of the eager env-only
+    rollout, and 3 iterations of the DQN (pool 16) and DRQN benches once
+    their update blocks run."""
+    from pingpong_tpu_torch import bench
+
+    params, st = pong_inputs(800, dev)
+    gen = torch.Generator(dev).manual_seed(0)
+    bench.env_only_chunk(params, st, gen, 16)
+    profile_calls("bench_env_only", lambda: bench.env_only_chunk(
+        params, st, gen, 16), 1, what="16 steps")
+    for name, setup in (("bench_dqn_pool16", lambda: bench.dqn_setup(16, dev)),
+                        ("bench_drqn", lambda: bench.drqn_setup(dev))):
+        learner, state, opp, n = setup()
+        for _ in range(3):
+            _, m = learner.train_iteration(state, opp, n)
+        check(m.updates_run > 0, f"{name}: the update block never ran")
+        profile_iterations(name, learner, state, opp, 3, n)
 
 
 def time_iterations(name, learner, state, opp, n_it=5):
@@ -597,6 +768,8 @@ def drive(name, cli, args_fn, kernels, ckpt_sub, promoted_name):
 
 
 def kernel_row(name, source, replaces, launches, err, ms, plain, bound):
+    """One entry of the ``kernels`` line. No single PyTorch call computes
+    any of these fused functions, so ``library_ms`` is null."""
     return {"name": name, "route": "cuda",
             "source": f"pingpong_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -611,6 +784,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from pingpong_tpu_torch import cli
+    from pingpong_tpu_torch.bench import card_name
     from pingpong_tpu_torch.config import load_config
     from pingpong_tpu_torch.env.pong import env_params_from_config
     from pingpong_tpu_torch.models.policy import (
@@ -621,6 +795,7 @@ def main() -> int:
     from pingpong_tpu_torch.ops import actor_rollout as ar
     from pingpong_tpu_torch.ops import dqn_update as du
     from pingpong_tpu_torch.ops import drqn_update as dru
+    from pingpong_tpu_torch.ops import pong_kernel as pk
     from pingpong_tpu_torch.ops import recurrent_rollout as rr
     from pingpong_tpu_torch.ops.build import build_all
     from pingpong_tpu_torch.selfplay.pool import load_params_any
@@ -628,8 +803,8 @@ def main() -> int:
     from pingpong_tpu_torch.train.drqn import DRQNLearner
 
     t_start = time.time()
-    CARD = card()
     dev = torch.device("cuda")
+    CARD = card_name(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = load_config(ROOT / "configs" / "qnet.yaml")
@@ -643,7 +818,7 @@ def main() -> int:
 
     # ---- 1. build ---------------------------------------------------------
     t0 = time.time()
-    kernels = [ar.KERNEL, du.KERNEL, rr.KERNEL, dru.KERNEL]
+    kernels = [ar.KERNEL, du.KERNEL, rr.KERNEL, dru.KERNEL, pk.KERNEL]
     logs = build_all(kernels)
     for name, log in logs.items():
         for line in log.splitlines():
@@ -654,12 +829,14 @@ def main() -> int:
 
     # ---- 2. kernel vs plain ------------------------------------------------
     actor_err = 0.0
-    for i, (name, n_slots, shared, eval_mode) in enumerate([
-            ("empty_pool", 1, False, False),
-            ("3slot_shared_trunk", 3, True, False),
-            ("3slot_full", 3, False, False),
-            ("eval", 1, False, True)]):
-        inp = actor_inputs(100 + i, n_slots, shared, eval_mode, B, dev)
+    # the last case is the bench's pool-16 shape: 8192 envs, 17 slots
+    for i, (name, n_slots, shared, eval_mode, n_envs) in enumerate([
+            ("empty_pool", 1, False, False, B),
+            ("3slot_shared_trunk", 3, True, False, B),
+            ("3slot_full", 3, False, False, B),
+            ("eval", 1, False, True, B),
+            ("bench_17slot_shared_trunk", 17, True, False, 8192)]):
+        inp = actor_inputs(100 + i, n_slots, shared, eval_mode, n_envs, dev)
         actor_err = max(actor_err, compare_actor(name, inp))
     upd_err = 0.0
     upd_inp = update_inputs(7, dev)
@@ -672,11 +849,12 @@ def main() -> int:
         if name == "heads_only_hard_sync":
             upd_idx = idx
     rnn_err = 0.0
-    for i, (name, n_slots, eval_mode) in enumerate([
-            ("1slot", 1, False), ("3slot_bucketed", 3, False),
-            ("eval", 1, True)]):
-        rnn_err = max(rnn_err, compare_rnn(name, rnn_inputs(300 + i, n_slots,
-                                                            eval_mode, dev)))
+    # the last case is the DRQN bench's 4096 envs
+    for i, (name, n_slots, eval_mode, n_envs) in enumerate([
+            ("1slot", 1, False, None), ("3slot_bucketed", 3, False, None),
+            ("eval", 1, True, None), ("bench_4096_envs", 1, False, 4096)]):
+        rnn_err = max(rnn_err, compare_rnn(name, rnn_inputs(
+            300 + i, n_slots, eval_mode, dev, n_envs)))
     drqn_err = 0.0
     interval = RNN_CFG.target_update_interval
     for name, ts0, tau in [("no_sync", 0, 0.0),
@@ -685,6 +863,7 @@ def main() -> int:
         drqn_err = max(drqn_err, compare_drqn_update(
             name, drqn_update_inputs(400, dev, ts0=ts0, interval=interval,
                                      tau=tau)))
+    pong_err, pong_hits, pong_ends, (pong_params, pong_st) = compare_pong(dev)
 
     # ---- 3. main paths: cli train and cli train-rnn, twice each ------------
     qnet_launches, promoted_path = drive(
@@ -707,6 +886,7 @@ def main() -> int:
           and all(bool(torch.isfinite(p).all())
                   for p in rnn_promoted.parameters()),
           "promoted rnn_pong_soul_1 is not a finite QNetRNN")
+    bench_launches = drive_bench(cli, kernels)
 
     # ---- 4. timings -------------------------------------------------------
     learner = DQNLearner(cfg.env, cfg.dqn, device="cuda")
@@ -718,6 +898,7 @@ def main() -> int:
     ropp = rlearner.prepare_opponents([rlearner.params_b(rstate),
                                        rnn_promoted])
     time_iterations("drqn", rlearner, rstate, ropp)
+    profile_bench(dev)
 
     inp = actor_inputs(200, 2, True, False, B, dev)
     a_ms = cuda_ms(lambda: run_actor(ar.actor_rollout_cuda, inp, T), 20)
@@ -736,12 +917,18 @@ def main() -> int:
     dkw = drqn_update_inputs(600, dev)
     d_ms = cuda_ms(lambda: dru.drqn_update_cuda(**fresh(dkw)), 10)
     d_plain = cuda_ms(lambda: dru.drqn_update_plain(**fresh(dkw)), 1, 1)
+    p_ms = cuda_ms(lambda: pk.pong_rollout_cuda(
+        pong_params, pong_st, PONG_STEPS, 5, tile_rows=PONG_TILE), 20)
+    p_plain = cuda_ms(lambda: pk.pong_rollout_plain(
+        pong_params, pong_st, PONG_STEPS, 5, tile_rows=PONG_TILE), 1, 1)
     bounds = {
         "actor_rollout": actor_bound_ms(B, T, 2),
         "dqn_update": update_bound_ms(256, 64, (1 << 20) // 128, True,
                                       upd_idx),
         "recurrent_rollout": rnn_bound_ms(RB, RT, 2, RB // rtile),
         "drqn_update": drqn_update_bound_ms(dkw, 0),
+        "pong_kernel": pong_bound_ms(PONG_B, PONG_STEPS, pong_hits,
+                                     pong_ends),
     }
     e_bound = rnn_bound_ms(RB, 256, 1, RB // rtile, emit=False)
     print(f"[time] actor_rollout {a_ms:.4f} ms (plain {a_plain:.2f} ms); "
@@ -749,7 +936,9 @@ def main() -> int:
           f"recurrent_rollout {r_ms:.4f} ms (plain {r_plain:.2f} ms), eval "
           f"chunk (T 256, no transitions) {e_ms:.4f} ms (bound "
           f"{e_bound[0]:.4f} ms by {e_bound[1]}); drqn_update {d_ms:.4f} ms "
-          f"(plain {d_plain:.2f} ms); bounds "
+          f"(plain {d_plain:.2f} ms); pong_kernel {p_ms:.4f} ms (plain "
+          f"{p_plain:.2f} ms, {PONG_B * PONG_STEPS / p_ms * 1e3:.4g} "
+          f"env-steps/s); bounds "
           f"{ {k: round(v[0], 5) for k, v in bounds.items()} } | {CARD}",
           flush=True)
 
@@ -770,6 +959,10 @@ def main() -> int:
                    "pingpong_tpu/ops/drqn_update.py:609",
                    rnn_launches["drqn_update"], drqn_err, d_ms, d_plain,
                    bounds["drqn_update"]),
+        kernel_row("pong_kernel", "pong_kernel.cu",
+                   "pingpong_tpu/ops/pong_kernel.py:216",
+                   bench_launches["pong_kernel"], pong_err, p_ms, p_plain,
+                   bounds["pong_kernel"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(f"[done] smoke took {time.time() - t_start:.0f} s")

@@ -4,6 +4,7 @@
         dqn.save_latest_checkpoint_interval_steps=0
     python -m pingpong_tpu_torch.cli train-rnn --config configs/rnn.yaml \\
         drqn.save_latest_checkpoint_interval_steps=0
+    python -m pingpong_tpu_torch.cli bench
 
 Runs on the CUDA card by default; ``--device cpu`` runs the kernels' plain
 PyTorch versions instead (tests, tiny shapes). Dotted ``key=value``
@@ -57,7 +58,17 @@ def cmd_train_rnn(args) -> int:
         device=args.device), "train_rnn_metrics.jsonl", args)
 
 
+def cmd_bench(args) -> int:
+    from pingpong_tpu_torch import bench
+
+    bench.run(args.device, args.rollout_windows, args.iteration_windows,
+              args.trials)
+    return 0
+
+
 def main(argv=None) -> int:
+    from pingpong_tpu_torch import bench
+
     parser = argparse.ArgumentParser(prog="pingpong-tpu-torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
     for name, fn, help_ in (("train", cmd_train, "QNet self-play training"),
@@ -73,6 +84,10 @@ def main(argv=None) -> int:
         p.add_argument("overrides", nargs="*", default=[],
                        help="dotted config overrides, e.g. dqn.num_envs=8192")
         p.set_defaults(fn=fn)
+    p = sub.add_parser("bench", help="headline bench: env-steps/s of the "
+                       "env-only rollouts and the train iterations")
+    bench.add_arguments(p)
+    p.set_defaults(fn=cmd_bench)
     args = parser.parse_args(argv)
     try:
         return args.fn(args)

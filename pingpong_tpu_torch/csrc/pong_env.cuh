@@ -1,7 +1,9 @@
 // Device-side Pong env shared by the rollout kernels (actor_rollout.cu,
-// recurrent_rollout.cu): the counter-hash RNG, the paddle collision, the
-// env step, and the accounting with the auto-reset serve. A kernel runs
-// env_transition, emits the transition, then env_account_reset.
+// recurrent_rollout.cu, pong_kernel.cu): the counter-hash RNG, the paddle
+// collision, the env step, the accounting with the auto-reset serve, and a
+// serve at any hash cell. A training rollout runs env_transition, emits the
+// transition, then env_account_reset; the env-only rollout runs
+// env_transition and, for an env that ended, env_serve.
 //
 // Semantics are the JAX package's fused kernels' (pingpong_tpu/ops/
 // actor_rollout.py::_env_transition, ops/pong_kernel.py::_hash_uniform and
@@ -15,7 +17,7 @@
 #include <stdint.h>
 
 // Env constants, float32-rounded on the host exactly as the JAX kernels
-// bake them (ops/actor_rollout.py::EnvConsts builds the same struct).
+// bake them (ops/pong_kernel.py::EnvConsts builds the same struct).
 struct EnvP {
   float ps, mf_spin, half_w, e, mu, m, R, m1e, inertia, c27, scale_up;
   float spd_lo, spd_rng, lo0, rng0, lo1, rng1, deg2rad, spin_lo, spin_rng;
@@ -184,6 +186,24 @@ __device__ __forceinline__ void env_account_reset(const EnvP& p, EnvRow& s,
     s.bot = o.next[4]; s.top = o.next[5]; s.spin = o.next[6]; s.ret = ep_ret;
     s.sa = o.sa; s.sb = o.sb; s.bc = o.bc; s.t = o.t;
   }
+}
+
+// A serve's (vx, vy, spin) (pingpong_tpu/ops/pong_kernel.py::_serve_fields)
+// from the hash at k = 1..4 (speed, side pick, angle, spin) of the cell
+// (seed_mix, ctr, row, col).
+__device__ __forceinline__ void env_serve(const EnvP& p, uint32_t seed_mix,
+                                          uint32_t ctr, uint32_t row,
+                                          uint32_t col, float& vx, float& vy,
+                                          float& spin) {
+  const float speed =
+      affine(p.spd_lo, hash_u01(seed_mix, ctr, 1, row, col), p.spd_rng);
+  const bool pick = hash_u01(seed_mix, ctr, 2, row, col) >= 0.5f;
+  const float ua = hash_u01(seed_mix, ctr, 3, row, col);
+  float ang = pick ? affine(p.lo1, ua, p.rng1) : affine(p.lo0, ua, p.rng0);
+  ang = __fmul_rn(ang, p.deg2rad);
+  spin = affine(p.spin_lo, hash_u01(seed_mix, ctr, 4, row, col), p.spin_rng);
+  vx = __fmul_rn(speed, cosf(ang));
+  vy = __fmul_rn(speed, sinf(ang));
 }
 
 // Load / store one env's row from the (8, B) float and (>= 4, B) int blocks

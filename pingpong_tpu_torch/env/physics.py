@@ -30,6 +30,9 @@ def collide_sphere_with_moving_plane(vn, vt, u, omega, e, mu, m, R):
         Jt_star,
         -max_friction_impulse * sign_vrel,
     )
-    vt_post = vt + Jt / m
-    omega_post = omega - (R * Jt) / I
+    # divide by a full tensor: on the card PyTorch divides by a Python
+    # scalar as a product with its reciprocal, one rounding away from the
+    # quotient that the CPU, the JAX package and the CUDA kernels compute
+    vt_post = vt + Jt / torch.full_like(Jt, m)
+    omega_post = omega - (R * Jt) / torch.full_like(Jt, I)
     return vn_post, vt_post, omega_post

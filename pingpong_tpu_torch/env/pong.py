@@ -14,8 +14,9 @@ quirks included:
 :class:`EnvParams` holds Python scalars rounded to float32, the form the
 JAX kernels bake in (``ops/pong_kernel.py::_static_params``), so a
 Python-float constant enters each float32 op exactly as it does there.
-Serves draw from an explicit ``torch.Generator`` on the CPU; the
-reproducibility contract is per backend, as in the JAX package.
+Serves draw from an explicit ``torch.Generator``: on the CPU for
+:func:`reset`, on the state's device for :func:`step_autoreset_batch`;
+the reproducibility contract is per backend, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -158,6 +159,10 @@ def observe_b(state: EnvState) -> torch.Tensor:
     ], dim=-1)
 
 
+def observe(state: EnvState) -> Tuple[torch.Tensor, torch.Tensor]:
+    return observe_a(state), observe_b(state)
+
+
 # ---------------------------------------------------------------------------
 # Step
 # ---------------------------------------------------------------------------
@@ -237,3 +242,41 @@ def step(params: EnvParams, state: EnvState, action_a: torch.Tensor,
     out = StepOut(obs_a=observe_a(new_state), obs_b=observe_b(new_state),
                   reward_a=-reward_b, reward_b=reward_b, done=done)
     return new_state, out
+
+
+def step_autoreset_batch(params: EnvParams, state: EnvState,
+                         generator: torch.Generator, action_a: torch.Tensor,
+                         action_b: torch.Tensor, max_episode_steps: int = 0
+                         ) -> Tuple[EnvState, StepOut]:
+    """Batched step with masked auto-reset. ``max_episode_steps > 0`` also
+    ends (truncates) an episode at that many steps, with ``done`` set in
+    the returned :class:`StepOut`, which carries the terminal observation
+    and reward of the step. The returned state is re-served where an
+    episode ended; the serves of the whole batch come from four ``(B,)``
+    uniforms drawn from ``generator``, which lives on the state's device
+    (``env/pong.py::step_autoreset_batch`` and ``_serve_batch`` of the JAX
+    package, one key for the whole batch)."""
+    new, out = step(params, state, action_a, action_b)
+    ended = out.done
+    if max_episode_steps:
+        ended = ended | (new.t >= max_episode_steps)
+        out = out._replace(done=ended)
+    u = torch.rand((4,) + tuple(state.ball_x.shape), generator=generator,
+                   dtype=torch.float32, device=state.ball_x.device)
+    svx, svy, sspin = serve_from_uniforms(params, u[0], u[1], u[2], u[3])
+    zi = torch.zeros_like(new.t)
+    nxt = EnvState(
+        ball_x=torch.where(ended, 0.5, new.ball_x),
+        ball_y=torch.where(ended, 0.5, new.ball_y),
+        ball_vx=torch.where(ended, svx, new.ball_vx),
+        ball_vy=torch.where(ended, svy, new.ball_vy),
+        spin=torch.where(ended, sspin, new.spin),
+        top_paddle_x=torch.where(ended, 0.5, new.top_paddle_x),
+        bottom_paddle_x=torch.where(ended, 0.5, new.bottom_paddle_x),
+        score_a=torch.where(ended, zi, new.score_a),
+        score_b=torch.where(ended, zi, new.score_b),
+        bounce_count=torch.where(ended, zi, new.bounce_count),
+        t=torch.where(ended, zi, new.t),
+        done=torch.zeros_like(ended),
+    )
+    return nxt, out

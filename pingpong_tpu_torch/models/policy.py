@@ -13,6 +13,7 @@ from pingpong_tpu_torch.models.qnet import (
     qnet_sample_noise,
 )
 from pingpong_tpu_torch.models.qnet_rnn import Hidden, QNetRNN, qnet_rnn_step
+from pingpong_tpu_torch.ops.pong_kernel import bot_actions
 
 
 def epsilon_greedy(generator, q_values, epsilon: float, n_actions: int = 3):
@@ -43,3 +44,11 @@ def rnn_act_greedy(params: QNetRNN, obs, hidden: Hidden):
     ``(actions, next hidden)``."""
     q, new_hidden = qnet_rnn_step(params, obs, hidden)
     return argmax3(q), new_hidden
+
+
+def ball_follower_action(obs, tolerance: float = 0.02):
+    """The hardcoded ball-follower bot on a player's observation: left (0)
+    if ``ball_x < my_paddle_x - tol``, right (2) if ``ball_x > my_paddle_x
+    + tol``, else stay (1); ``obs[..., 0]`` is ball_x, ``obs[..., 4]`` the
+    player's own paddle."""
+    return bot_actions(obs[..., 0], obs[..., 4], tolerance)

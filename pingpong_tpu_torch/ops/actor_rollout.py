@@ -47,6 +47,12 @@ from pingpong_tpu_torch.ops.build import (
     ptr,
     stream_ptr,
 )
+from pingpong_tpu_torch.ops.pong_kernel import (
+    _M32,
+    EnvConsts,
+    hash_u01,
+    tile_seed_mix,
+)
 
 NEG_BIG = -1e30
 HIDDEN = 64
@@ -119,34 +125,6 @@ def packed_flat(p: PackedQNet) -> torch.Tensor:
         raise ValueError(f"packed net has {flat.shape[-1]} floats, the "
                          f"kernel takes hidden={HIDDEN} ({NET} floats)")
     return flat.contiguous()
-
-
-# ---------------------------------------------------------------------------
-# Counter-hash RNG (pingpong_tpu/ops/pong_kernel.py::_hash_uniform)
-# ---------------------------------------------------------------------------
-
-_M32 = 0xFFFFFFFF
-
-
-def hash_u01(seed_mix, ctr, k, row, col) -> torch.Tensor:
-    """U[0,1) float32 from the xorshift counter hash. Arguments broadcast;
-    uint32 arithmetic is carried in int64 with ``& 0xFFFFFFFF`` (CPU
-    torch lacks most uint32 ops)."""
-    x = (torch.as_tensor(seed_mix, dtype=torch.int64)
-         + ctr * 2654435761 + k * 0x9E3779B9
-         + torch.as_tensor(row, dtype=torch.int64) * 40503
-         + torch.as_tensor(col, dtype=torch.int64) * 69069) & _M32
-    for _ in range(2):
-        x = x ^ ((x << 13) & _M32)
-        x = x ^ (x >> 17)
-        x = x ^ ((x << 5) & _M32)
-    return x.to(torch.float32) * (1.0 / 4294967296.0)
-
-
-def tile_seed_mix(seed: int, n_tiles: int, device) -> torch.Tensor:
-    """``seed ^ (tile * 747796405)`` per tile, as uint32 in int64."""
-    tiles = torch.arange(n_tiles, dtype=torch.int64, device=device)
-    return (seed & _M32) ^ ((tiles * 747796405) & _M32)
 
 
 def epsilon_to_int(epsilon: float) -> int:
@@ -309,37 +287,6 @@ def actor_rollout_plain(env_params: EnvParams, state: EnvState, opp_idx,
 # ---------------------------------------------------------------------------
 # CUDA kernel
 # ---------------------------------------------------------------------------
-
-class EnvConsts(ctypes.Structure):
-    """The kernel's ``EnvP``: each constant is evaluated in double from the
-    float32-rounded env params and rounded to float32 once, as the JAX
-    kernels' Python-float constants are."""
-
-    _fields_ = [(n, ctypes.c_float) for n in (
-        "ps", "mf_spin", "half_w", "e", "mu", "m", "R", "m1e", "inertia",
-        "c27", "scale_up", "spd_lo", "spd_rng", "lo0", "rng0", "lo1", "rng1",
-        "deg2rad", "spin_lo", "spin_rng", "u1_lo", "u1_rng", "two_pi")] + [
-        (n, ctypes.c_int) for n in (
-            "max_score", "speed_scale_every", "max_episode_steps")]
-
-    @classmethod
-    def build(cls, p: EnvParams, max_episode_steps: int) -> "EnvConsts":
-        (lo0, hi0), (lo1, hi1) = p.angle_intervals
-        m, e, R = p.ball_mass, p.restitution, p.ball_radius
-        return cls(
-            ps=p.paddle_speed, mf_spin=p.enable_spin * p.magnus_factor,
-            half_w=p.paddle_width * 0.5, e=e, mu=p.friction, m=m, R=R,
-            m1e=m * (1.0 + e), inertia=0.4 * m * R * R, c27=2.0 * m / 7.0,
-            scale_up=1.0 + p.speed_increment,
-            spd_lo=p.speed_min, spd_rng=p.speed_max - p.speed_min,
-            lo0=lo0, rng0=hi0 - lo0, lo1=lo1, rng1=hi1 - lo1,
-            deg2rad=math.pi / 180.0, spin_lo=p.spin_min,
-            spin_rng=p.spin_max - p.spin_min,
-            u1_lo=1e-7, u1_rng=1.0 - 1e-7, two_pi=2.0 * math.pi,
-            max_score=p.max_score, speed_scale_every=p.speed_scale_every,
-            max_episode_steps=max_episode_steps,
-        )
-
 
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(

@@ -38,15 +38,12 @@ from pingpong_tpu_torch.env.pong import EnvParams, EnvState
 from pingpong_tpu_torch.models.qnet import argmax3
 from pingpong_tpu_torch.models.qnet_rnn import QNetRNN
 from pingpong_tpu_torch.ops.actor_rollout import (
-    _M32,
     _MIRROR,
     NEG_BIG,
-    EnvConsts,
     env_step_plain,
     epsilon_to_int,
     explore_plain,
     hash_noise,
-    tile_seed_mix,
 )
 from pingpong_tpu_torch.ops.build import (
     CudaKernel,
@@ -54,6 +51,7 @@ from pingpong_tpu_torch.ops.build import (
     ptr,
     stream_ptr,
 )
+from pingpong_tpu_torch.ops.pong_kernel import _M32, EnvConsts, tile_seed_mix
 
 MAX_WIDTH = 128       # every width the kernel takes
 CUDA_ENVS = 8         # envs per CUDA block; tile_rows must be a multiple

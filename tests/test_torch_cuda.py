@@ -16,8 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from pingpong_tpu_torch.config import load_config
-from pingpong_tpu_torch.env.pong import env_params_from_config, reset
+from pingpong_tpu_torch.config import EnvConfig, load_config
+from pingpong_tpu_torch.env.pong import EnvState, env_params_from_config, reset
 from pingpong_tpu_torch.models.qnet import (
     qnet_init,
     qnet_sample_noise,
@@ -31,6 +31,7 @@ from pingpong_tpu_torch.models.qnet_rnn import (
 from pingpong_tpu_torch.ops import actor_rollout as tar
 from pingpong_tpu_torch.ops import dqn_update as tdu
 from pingpong_tpu_torch.ops import drqn_update as tdru
+from pingpong_tpu_torch.ops import pong_kernel as tpk
 from pingpong_tpu_torch.ops import recurrent_rollout as trr
 from pingpong_tpu_torch.replay.per import Transition, per_init, per_push
 from pingpong_tpu_torch.train.dqn import DQNLearner
@@ -316,3 +317,73 @@ def test_drqn_learner_iteration_runs_both_kernels(cuda):
     assert trr.KERNEL.launches == r0 + 4 and tdru.KERNEL.launches > u0
     assert m.updates_run == 4 and np.isfinite(m.mean_loss)
     assert state.params.is_cuda and state.buffer.ep_count > 16
+
+
+# the headline bench's env (pingpong_tpu_torch/bench.py)
+BENCH_ENV = EnvConfig(
+    paddle_speed=0.03, magnus_factor=0.025, restitution=1.0, friction=0.6,
+    ball_speed_range=(0.03, 0.05), spin_range=(-5, 5),
+    speed_scale_every=1, speed_increment=0.1)
+
+
+def pong_state(n, dev, seed):
+    """Mid-rally states with scores up to 2, so serves run early."""
+    rng = np.random.default_rng(seed)
+    speed = rng.uniform(0.03, 0.05, n)
+    ang = np.deg2rad(rng.uniform(30.0, 60.0, n)) * rng.choice([-1.0, 1.0], n)
+    f = lambda x: torch.from_numpy(x.astype(np.float32)).to(dev)
+    i = lambda hi: torch.from_numpy(rng.integers(0, hi, n)
+                                    .astype(np.int32)).to(dev)
+    return EnvState(
+        ball_x=f(rng.uniform(0.1, 0.9, n)), ball_y=f(rng.uniform(0.2, 0.8, n)),
+        ball_vx=f(speed * np.cos(ang)), ball_vy=f(speed * np.sin(ang)),
+        spin=f(rng.uniform(-5.0, 5.0, n)),
+        top_paddle_x=f(rng.uniform(0.1, 0.9, n)),
+        bottom_paddle_x=f(rng.uniform(0.1, 0.9, n)), score_a=i(3),
+        score_b=i(3), bounce_count=i(6), t=i(60),
+        done=torch.zeros(n, dtype=torch.bool, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,tile_rows", [(256, 1), (512, 2), (8192, 64)])
+def test_pong_kernel_matches_plain(cuda, n, tile_rows):
+    """A 64-step chunk: discrete fields and reward sums equal on >= 99.9 %
+    of envs, floats within 1e-5 on those (chip_smoke.py's tolerances)."""
+    params = env_params_from_config(BENCH_ENV)
+    state = pong_state(n, cuda, tile_rows)
+    before = tpk.KERNEL.launches
+    sk, rk = tpk.pong_rollout_cuda(params, state, 64, 99,
+                                   tile_rows=tile_rows)
+    sp, rp = tpk.pong_rollout_plain(params, state, 64, 99,
+                                    tile_rows=tile_rows)
+    torch.cuda.synchronize()
+    assert tpk.KERNEL.launches == before + 1
+    ok = rk == rp
+    for f in ("score_a", "score_b", "bounce_count", "t"):
+        ok &= getattr(sk, f) == getattr(sp, f)
+    assert float(ok.float().mean()) >= 0.999
+    for f in ("ball_x", "ball_y", "ball_vx", "ball_vy", "spin",
+              "top_paddle_x", "bottom_paddle_x"):
+        torch.testing.assert_close(getattr(sk, f)[ok], getattr(sp, f)[ok],
+                                   rtol=0, atol=1e-5)
+    assert not bool(sk.done.any()) and float(rk.abs().sum()) > 0
+
+
+@pytest.mark.cuda
+def test_pong_wrapper_checks_its_arguments(cuda):
+    params = env_params_from_config(BENCH_ENV)
+    state = pong_state(256, cuda, 0)
+    before = tpk.KERNEL.launches
+    with pytest.raises(ValueError, match="ball_vx"):
+        tpk.pong_rollout_cuda(params, state._replace(
+            ball_vx=state.ball_vx.double()), 4, 0, tile_rows=1)
+    strided = torch.zeros(512, device=cuda)[::2]
+    with pytest.raises(ValueError, match="spin must be contiguous"):
+        tpk.pong_rollout_cuda(params, state._replace(spin=strided), 4, 0,
+                              tile_rows=1)
+    with pytest.raises(ValueError, match="multiple of 8192"):
+        tpk.pong_rollout_cuda(params, state, 4, 0)
+    with pytest.raises(ValueError, match="score_a"):
+        tpk.pong_rollout_cuda(params, state._replace(
+            score_a=state.score_a.cpu()), 4, 0, tile_rows=1)
+    assert tpk.KERNEL.launches == before
