@@ -6,8 +6,10 @@
    per source, all started together) and prints ptxas' register/smem
    lines;
 2. holds each kernel against its plain PyTorch version on the card, at its
-   paths' shapes (the training configs' and the bench's), with the stated
-   tolerances;
+   paths' shapes (the training configs' and the bench's, and the update
+   kernel at batch 512 too, update by update), with the stated
+   tolerances, and checks that the two update kernels give bit-identical
+   results run to run;
 3. drives the port's paths, each with the kernels' launch counters set
    to 0 just before it and read just after: ``cli train`` at
    ``configs/qnet.yaml``'s widths and batch, and ``cli train-rnn`` at
@@ -243,6 +245,85 @@ def compare_update(name, inp, heads_only, tau, interval):
     check(frac >= 0.99, f"update {name}: idx match {frac} < 0.99")
     check(bool(torch.isfinite(lk).all()), f"update {name}: losses finite")
     return err, ik
+
+
+def compare_update_stepwise(name, inp, heads_only, tau, interval):
+    """The block's K updates one launch each (K = 1), the kernel and the
+    plain version from the same state, the plain version's state carried
+    to the next update: idx identical on every update; params, target,
+    moments, chunk sums and the loss within rtol 1e-4 after every update.
+    At batch 512 and 2^20 slots the f32 CDF (spacing 0.0625 near its total
+    of about 8e5) turns a rounding difference of the two versions' TD
+    errors into a neighbouring slot now and then, and one such sample
+    moves every later sample of a block run; so the block run's match is
+    printed and its first update checked, and every update is held here."""
+    from pingpong_tpu_torch.ops.dqn_update import (
+        dqn_update_cuda,
+        dqn_update_plain,
+    )
+
+    kb, kp = (update_kwargs(inp, heads_only, tau, interval) for _ in range(2))
+    _, ib, _ = dqn_update_cuda(**kb)
+    _, ipb, _ = dqn_update_plain(**kp)
+    torch.cuda.synchronize()
+    same = (ib == ipb).all(dim=1)
+    first_diff = int((~same).nonzero()[0]) if not bool(same.all()) else None
+    check(bool(same[0]), f"update {name}: first update's idx differ")
+    state = update_kwargs(inp, heads_only, tau, interval)
+    inplace = ("p_alpha", "chunk_sums", "params", "target", "m", "v")
+    err = 0.0
+    for k in range(inp["K"]):
+        step = dict(state, ts0=k, count0=k, frame0=k, K=1,
+                    u01=inp["u01"][k:k + 1], noise=inp["noise"][k:k + 1])
+        kk = dict(step, **{key: step[key].clone() for key in inplace})
+        kp = dict(step, **{key: step[key].clone() for key in inplace})
+        nk, ik, lk = dqn_update_cuda(**kk)
+        np_, ip, lp = dqn_update_plain(**kp)
+        torch.cuda.synchronize()
+        check(bool((ik == ip).all()), f"update {name}: idx differ at {k}")
+        for key, atol in (("params", 1e-6), ("target", 1e-6), ("m", 1e-7),
+                          ("v", 1e-9), ("chunk_sums", 1e-6)):
+            err = max(err, float((kk[key] - kp[key]).abs().max()))
+            check(torch.allclose(kk[key], kp[key], rtol=1e-4, atol=atol),
+                  f"update {name}: {key} differs beyond rtol 1e-4 at {k}")
+        check(torch.allclose(lk, lp, rtol=1e-4, atol=1e-6)
+              and bool(torch.isfinite(lk).all()),
+              f"update {name}: loss differs beyond rtol 1e-4 at {k}")
+        err = max(err, float((lk - lp).abs().max()))
+        state.update({key: kp[key] for key in inplace})
+    print(f"[update:{name}] block run: idx first-update equal True, block "
+          f"match {float((ib == ipb).float().mean()):.5f}, first update "
+          f"with a differing idx {first_diff}; every update on its own: idx "
+          f"equal, max abs err {err:.3g} | {CARD}", flush=True)
+    return err
+
+
+def check_bit_reproducible(upd_inp, drqn_kw):
+    """Kernels 2 and 4 twice each on the same inputs: every output and
+    in-place tensor bit-identical (their cross-block reductions run in a
+    fixed order)."""
+    from pingpong_tpu_torch.ops.dqn_update import dqn_update_cuda
+    from pingpong_tpu_torch.ops.drqn_update import drqn_update_cuda
+
+    for name, fn, kw, keys in (
+            ("dqn_update", dqn_update_cuda,
+             update_kwargs(upd_inp, False, 0.0, 16),
+             ("params", "target", "m", "v", "chunk_sums", "p_alpha")),
+            ("drqn_update", drqn_update_cuda, drqn_kw,
+             ("params", "target", "m", "v"))):
+        runs = []
+        for _ in range(2):
+            k = fresh(kw)
+            out = fn(**k)
+            torch.cuda.synchronize()
+            runs.append((out if isinstance(out, tuple) else (out,), k))
+        (o1, k1), (o2, k2) = runs
+        same = all(torch.equal(a, b) for a, b in zip(o1, o2)) and all(
+            torch.equal(k1[key], k2[key]) for key in keys)
+        print(f"[repro:{name}] two runs on the same inputs bit-identical "
+              f"({', '.join(('newp', 'idx', 'losses') if len(o1) == 3 else ('losses',))}, "
+              f"{', '.join(keys)}): {same} | {CARD}", flush=True)
+        check(same, f"{name}: two runs on the same inputs differ")
 
 
 def update_bound_ms(bs, K, nc, heads_only, idx):
@@ -840,6 +921,7 @@ def main() -> int:
         actor_err = max(actor_err, compare_actor(name, inp))
     upd_err = 0.0
     upd_inp = update_inputs(7, dev)
+    upd_inp512 = update_inputs(8, dev, bs=512)
     for name, heads_only, tau, interval in [
             ("heads_only_hard_sync", True, 0.0, 16),
             ("full_backward", False, 0.0, 10_000),
@@ -848,6 +930,8 @@ def main() -> int:
         upd_err = max(upd_err, err)
         if name == "heads_only_hard_sync":
             upd_idx = idx
+    upd_err = max(upd_err, compare_update_stepwise(
+        "bs512_heads_only_hard_sync", upd_inp512, True, 0.0, 16))
     rnn_err = 0.0
     # the last case is the DRQN bench's 4096 envs
     for i, (name, n_slots, eval_mode, n_envs) in enumerate([
@@ -864,6 +948,7 @@ def main() -> int:
             name, drqn_update_inputs(400, dev, ts0=ts0, interval=interval,
                                      tau=tau)))
     pong_err, pong_hits, pong_ends, (pong_params, pong_st) = compare_pong(dev)
+    check_bit_reproducible(upd_inp, drqn_update_inputs(400, dev))
 
     # ---- 3. main paths: cli train and cli train-rnn, twice each ------------
     qnet_launches, promoted_path = drive(
@@ -906,6 +991,8 @@ def main() -> int:
     ukw = update_kwargs(upd_inp, True, 0.0, 1000)
     u_ms = cuda_ms(lambda: du.dqn_update_cuda(**ukw), 10)
     u_plain = cuda_ms(lambda: du.dqn_update_plain(**ukw), 2, 1)
+    ukw512 = update_kwargs(upd_inp512, True, 0.0, 1000)
+    u512_ms = cuda_ms(lambda: du.dqn_update_cuda(**ukw512), 10)
     RB, RT = RNN_CFG.num_envs, RNN_CFG.rollout_length
     rtile = min(RNN_CFG.pallas_tile_rows, RB)
     rinp = rnn_inputs(500, 2, False, dev)
@@ -932,7 +1019,8 @@ def main() -> int:
     }
     e_bound = rnn_bound_ms(RB, 256, 1, RB // rtile, emit=False)
     print(f"[time] actor_rollout {a_ms:.4f} ms (plain {a_plain:.2f} ms); "
-          f"dqn_update {u_ms:.4f} ms (plain {u_plain:.2f} ms); "
+          f"dqn_update {u_ms:.4f} ms (plain {u_plain:.2f} ms; bs 512 "
+          f"{u512_ms:.4f} ms); "
           f"recurrent_rollout {r_ms:.4f} ms (plain {r_plain:.2f} ms), eval "
           f"chunk (T 256, no transitions) {e_ms:.4f} ms (bound "
           f"{e_bound[0]:.4f} ms by {e_bound[1]}); drqn_update {d_ms:.4f} ms "

@@ -1,5 +1,5 @@
 // Fused DQN update block: K sequential PER + Double-DQN updates in one
-// launch.
+// launch of one thread-block cluster.
 //
 // Replaces the TPU kernel pingpong_tpu/ops/dqn_update.py::
 // pallas_dqn_update_block (body _update_kernel). Each update k: inverse-CDF
@@ -14,28 +14,57 @@
 // of the touched chunk sums.
 //
 // IN PLACE: p_alpha, chunk_sums, params, target, m and v are updated in
-// place; newp, idx and losses are outputs; grad is scratch.
+// place; newp, idx and losses are outputs. grad is not used (the gradient
+// lives in shared memory); it stays in the C interface.
 //
 // What bounds it on an H100: the serial chain, not bytes or FLOPs. The
 // block moves about 8 MB and computes about 0.5 GFLOP (tens of microseconds
 // of the card's peak), but update k+1 samples from the priorities update k
 // wrote and steps from the parameters it wrote, so the K updates are a
-// dependency chain. The design runs the whole block as ONE thread block of
-// 1024 threads that loops over k, with every activation, the parameters
-// and the chunk-level CDF in shared memory (about 210 KB); only the
-// sampled rows, the p_alpha rows and the moments touch global memory.
-// Per update: a block-wide scan of the chunk sums (exact, in double, then
-// rounded to f32; no tensor cores, no TF32: the sampled index is a compare
-// against these sums), one
-// thread per sample for the search, the gather and the per-sample head
-// math, block-wide loops for the 64-wide layers and the gradient sums, one
-// thread per parameter for Adam. The TPU kernel refreshes every chunk sum
-// with a full plane reduce per update; here only the <= bs chunks the
-// write-back touched are re-summed from their 128 slots (the same values
-// up to summation order).
+// dependency chain, and an update's time is the latency of its steps and
+// barriers. The chain does not need one SM: the design is one cluster of 8
+// CTAs (the portable size) of 256 threads on 8 neighbouring SMs, which
+// split each update's bs samples (bs / 8 each) and meet at 4 cluster
+// barriers an update:
+//   B1  each CTA scans its eighth of the chunk sums in double and publishes
+//       the total in its shared memory; after B1 every CTA reads the 8
+//       totals through distributed shared memory (DSMEM), rounds its slice
+//       of the CDF to f32 and stores it into every CTA's CDF. The prefixes
+//       are exact in double (see the CDF note below), so the CDF is bit for
+//       bit the one-block scan's and the plain version's.
+//   B2  every CTA now holds the whole CDF. Eight lanes a sample, four
+//       samples a warp at once: a binary search of the CDF, then a double
+//       prefix over the chunk's 128 slots (16 a lane, exact for the same
+//       reason), the gather of the transition and the raw IS weight. The
+//       CTA's weight maximum and sampled slots are published.
+//   B3  is split: its arrive comes before the three trunk forwards (target
+//       on next, online on next, online on obs) and the TD errors, which
+//       need nothing from the other CTAs, and its wait after them. Then
+//       the cluster's weight maximum, the loss and gradient partials over
+//       the CTA's samples, and the priority write-back: a sample writes
+//       only if no later sample of the update has its slot.
+//   B4  each CTA sums the 8 gradient partials through DSMEM in CTA order
+//       0..7 and applies the same Adam step to its own copy of the
+//       parameters, target and moments (kept in shared memory; no
+//       broadcast), and CTA r re-sums, one warp a chunk, the touched chunks
+//       of its eighth, exactly, for its next scan.
+// Every reduction runs in a fixed order and nothing uses float atomics, so
+// a run is reproducible bit for bit. The barriers are
+// barrier.cluster.arrive.release / wait.acquire: they order the global
+// p_alpha writes of update k before B4 ahead of every CTA's chunk refresh
+// after B4 and its slot search of update k+1, and a CTA's chunk_sums
+// writes come before its own next scan (the other CTAs read only the
+// published totals). p_alpha and chunk_sums are read with ld.global.cg
+// (L2, never a stale L1 line). The three trunk passes are register-tiled:
+// a thread computes 2 samples x 4 hidden units from float4 weight rows,
+// 0.19 shared loads per FMA. No tensor cores, no TF32: the sampled index
+// is a compare against f32 sums.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 // Hyper-parameters; each is rounded to float32 once on the host
 // (ops/dqn_update.py::Hyper builds the same struct).
@@ -47,12 +76,15 @@ struct Hyper {
 
 namespace {
 
-constexpr int THREADS = 1024;
+constexpr int CLUSTER = 8;
+constexpr int THREADS = 256;  // 16 x 16 register tiles of the 64-wide layers
+constexpr int WARPS = THREADS / 32;
 constexpr int D = 7;       // obs dim
 constexpr int H = 64;      // hidden
-constexpr int LD = H + 1;  // padded row stride of the activation buffers
+constexpr int LDA = H + 4; // row stride of the activation buffers (float4)
 constexpr int CH = 128;    // slots per chunk
 constexpr int R = 16;      // fields per slot in a chunk block
+constexpr int MAX_NC = 8192;
 
 // flat parameter vector, ravel_pytree order of the JAX QNetParams
 constexpr int P_W1 = 0;               // (7, 64)
@@ -71,88 +103,77 @@ constexpr int NP = P_BAS + 3;         // 5192
 constexpr int FEAT_END = P_WV;        // trunk parameters end here
 // per-update noise vector: v.eps_w (64) v.eps_b (1) a.eps_w (64,3) a.eps_b (3)
 constexpr int N_EV = 0, N_EVB = H, N_EA = H + 1, N_EAB = 4 * H + 1;
-constexpr int NN = 4 * H + 4;         // 260
+constexpr int NN = 4 * H + 4;         // 260: also the head gradient entries
 
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// block-wide sum in a fixed order: warp trees, then the warps in order
 __device__ float block_sum(float v, float* red) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   __syncthreads();
   if (lane == 0) red[warp] = v;
   __syncthreads();
-  float t = 0.f;
   if (threadIdx.x == 0) {
-    for (int w = 0; w < THREADS / 32; ++w) t += red[w];
-    red[32] = t;
+    float t = 0.f;
+    for (int w = 0; w < WARPS; ++w) t += red[w];
+    red[WARPS] = t;
   }
   __syncthreads();
-  return red[32];
+  return red[WARPS];
 }
 
-__device__ float block_max(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_down_sync(0xffffffffu, v, o));
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float t = red[0];
-    for (int w = 1; w < THREADS / 32; ++w) t = fmaxf(t, red[w]);
-    red[32] = t;
-  }
-  __syncthreads();
-  return red[32];
+__device__ __forceinline__ float comp(const float4& v, int u) {
+  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
 }
 
-// inclusive prefix sums of cs[0:nc] into cdf[0:nc], block-wide: each
-// thread scans a contiguous run, then the run totals are scanned. The sums
-// are carried in double and rounded to float32 once. A double holds the
-// prefix of 8192 float32 chunk sums exactly unless their magnitudes span
-// more than ~2^16, so the CDF does not depend on the summation order and
-// the plain version (ops/dqn_update.py) reproduces it bit for bit.
-__device__ void block_cdf(const float* cs, int nc, float* cdf, double* red) {
-  const int per = (nc + THREADS - 1) / THREADS;
-  const int lo = threadIdx.x * per;
-  const int hi = min(lo + per, nc);
-  double run = 0.0;
-  for (int i = lo; i < hi; ++i) run += (double)cs[i];
-  // exclusive scan of the thread totals: warp shuffles, then warp totals
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  double inc = run;
-  for (int o = 1; o < 32; o <<= 1) {
-    double n = __shfl_up_sync(0xffffffffu, inc, o);
-    if (lane >= o) inc += n;
-  }
-  __syncthreads();
-  if (lane == 31) red[warp] = inc;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    double acc = 0.0;
-    for (int w = 0; w < THREADS / 32; ++w) {
-      double t = red[w];
-      red[w] = acc;
-      acc += t;
+// out[s, j] = relu(b[j] + sum_i in[s, i] * W[i, j]) for s < n, j < 64.
+// Thread (rg, cg) computes samples 2 rg, 2 rg + 1 (+32 per round) x units
+// 4 cg..4 cg+3 from float4 rows of W; sums run over i in order.
+template <int NIN, int LDIN>
+__device__ void dense_relu(const float* in, const float* W, const float* b,
+                           float* out, int n) {
+  const int cgp = threadIdx.x & 15, rg = threadIdx.x >> 4;
+  const float4 bb = *reinterpret_cast<const float4*>(b + 4 * cgp);
+  for (int s0 = 2 * rg; s0 < n; s0 += 32) {
+    float a[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    const float* i0 = in + s0 * LDIN;
+    const float* i1 = i0 + LDIN;
+    if constexpr (NIN % 4 == 0) {
+      for (int i = 0; i < NIN; i += 4) {
+        const float4 x0 = *reinterpret_cast<const float4*>(i0 + i);
+        const float4 x1 = *reinterpret_cast<const float4*>(i1 + i);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float4 w = *reinterpret_cast<const float4*>(W + (i + u) * H + 4 * cgp);
+          const float e0 = comp(x0, u), e1 = comp(x1, u);
+          a[0][0] = fmaf(e0, w.x, a[0][0]); a[0][1] = fmaf(e0, w.y, a[0][1]);
+          a[0][2] = fmaf(e0, w.z, a[0][2]); a[0][3] = fmaf(e0, w.w, a[0][3]);
+          a[1][0] = fmaf(e1, w.x, a[1][0]); a[1][1] = fmaf(e1, w.y, a[1][1]);
+          a[1][2] = fmaf(e1, w.z, a[1][2]); a[1][3] = fmaf(e1, w.w, a[1][3]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < NIN; ++i) {
+        const float4 w = *reinterpret_cast<const float4*>(W + i * H + 4 * cgp);
+        const float e0 = i0[i], e1 = i1[i];
+        a[0][0] = fmaf(e0, w.x, a[0][0]); a[0][1] = fmaf(e0, w.y, a[0][1]);
+        a[0][2] = fmaf(e0, w.z, a[0][2]); a[0][3] = fmaf(e0, w.w, a[0][3]);
+        a[1][0] = fmaf(e1, w.x, a[1][0]); a[1][1] = fmaf(e1, w.y, a[1][1]);
+        a[1][2] = fmaf(e1, w.z, a[1][2]); a[1][3] = fmaf(e1, w.w, a[1][3]);
+      }
     }
-  }
-  __syncthreads();
-  double ex = __shfl_up_sync(0xffffffffu, inc, 1);
-  double acc = red[warp] + (lane == 0 ? 0.0 : ex);
-  for (int i = lo; i < hi; ++i) {
-    acc += (double)cs[i];
-    cdf[i] = (float)acc;
-  }
-  __syncthreads();
-}
-
-// out[s, j] = relu(b[j] + sum_i in[s, i] * W[i, j]) for s < bs, j < 64
-__device__ void dense_relu(const float* in, int ld_in, int n_in,
-                           const float* W, const float* b, float* out,
-                           int bs) {
-  for (int o = threadIdx.x; o < bs * H; o += THREADS) {
-    const int s = o / H, j = o % H;
-    float acc = 0.f;
-    for (int i = 0; i < n_in; ++i) acc = fmaf(in[s * ld_in + i], W[i * H + j], acc);
-    out[s * LD + j] = fmaxf(acc + b[j], 0.f);
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<float4*>(out + (s0 + r) * LDA + 4 * cgp) = make_float4(
+          fmaxf(a[r][0] + bb.x, 0.f), fmaxf(a[r][1] + bb.y, 0.f),
+          fmaxf(a[r][2] + bb.z, 0.f), fmaxf(a[r][3] + bb.w, 0.f));
   }
   __syncthreads();
 }
@@ -178,289 +199,458 @@ __device__ void q_values(const float* f2, const float* wv, float bv,
   q[2] = (v + a2) - mean;
 }
 
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ double warp_scan_inclusive(double v, int lane) {
+  for (int o = 1; o < 32; o <<= 1) {
+    const double n = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v += n;
+  }
+  return v;
+}
+
+// Shared memory of one CTA for spc samples a CTA, bs samples, nc chunks.
+struct Smem {
+  double *tot, *tots, *redd;
+  float *P, *T, *M, *V, *gp, *cdf, *cs, *bufA, *bufB, *x, *xn, *noise, *wv,
+      *wa, *bh, *rew, *done, *wraw, *td, *dv, *da, *qt, *newpa, *red, *pub;
+  int *act, *na, *idx, *all_idx;
+  size_t bytes;
+  __host__ __device__ Smem(char* base, int spc, int bs, int nc) {
+    size_t o = 0;
+    auto d = [&](int n) { double* p = (double*)(base + o); o += 8 * (size_t)n; return p; };
+    auto f = [&](int n) { float* p = (float*)(base + o); o += 4 * (size_t)((n + 3) & ~3); return p; };
+    auto i = [&](int n) { int* p = (int*)(base + o); o += 4 * (size_t)((n + 3) & ~3); return p; };
+    tot = d(2); tots = d(CLUSTER); redd = d(32);
+    P = f(NP); T = f(NP); M = f(NP); V = f(NP); gp = f(NP);
+    cdf = f(nc); cs = f(nc / CLUSTER);
+    bufA = f(spc * LDA); bufB = f(spc * LDA);
+    x = f(spc * 8); xn = f(spc * 8);
+    noise = f(NN); wv = f(H); wa = f(3 * H); bh = f(4);
+    rew = f(spc); done = f(spc); wraw = f(spc); td = f(spc); dv = f(spc);
+    da = f(3 * spc); qt = f(3 * spc); newpa = f(spc);
+    red = f(64); pub = f(4);
+    act = i(spc); na = i(spc); idx = i(spc); all_idx = i(bs);
+    bytes = o;
+  }
+};
+
+__global__ void __launch_bounds__(THREADS, 1)
 dqn_update_kernel(int ts0, int count0, int frame0, int size, int K, int bs,
                   int nc, Hyper hp, const float* __restrict__ u01,
                   const float* __restrict__ noise, float* p_alpha,
                   float* chunk_sums, float* params, float* target, float* m,
                   float* v, const float* __restrict__ data,
                   float* __restrict__ newp_out, int* __restrict__ idx_out,
-                  float* __restrict__ losses, float* grad) {
-  extern __shared__ double smem_d[];
-  double* sRedD = smem_d;               // 64 double reduction slots
-  float* smem = (float*)(smem_d + 64);
-  float* bufA = smem;                   // (bs, LD) activations; the CDF
-  float* bufB = bufA + bs * LD;         // (bs, LD)
-  float* sP = bufB + bs * LD;           // online params (NP)
-  float* sT = sP + NP;                  // target params (NP)
-  float* sX = sT + NP;                  // (bs, 8) obs
-  float* sXn = sX + bs * 8;             // (bs, 8) next obs
-  float* sNoise = sXn + bs * 8;         // (NN)
-  float* sWv = sNoise + NN;             // effective noisy heads
-  float* sWa = sWv + H;                 // (64, 3)
-  float* sBh = sWa + 3 * H;             // bv, ba0..2
-  float* sRew = sBh + 4;                // per-sample scalars ...
-  float* sDone = sRew + bs;
-  float* sW = sDone + bs;               // IS weights
-  float* sTd = sW + bs;
-  float* sDV = sTd + bs;                // dL/dV
-  float* sDA = sDV + bs;                // (bs, 3) dL/dA
-  float* sQt = sDA + 3 * bs;            // (bs, 3) target Q of next
-  float* sRed = sQt + 3 * bs;           // 64 reduction slots
-  int* sAct = (int*)(sRed + 64);
-  int* sNa = sAct + bs;
-  int* sChunk = sNa + bs;
-  int* sIdx = sChunk + bs;
+                  float* __restrict__ losses) {
+  extern __shared__ __align__(16) char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int spc = bs / CLUSTER;          // samples of this CTA
+  const int ns = nc / CLUSTER;           // chunks of this CTA's CDF share
+  const int c_lo = rank * ns;
+  const Smem S(smem_raw, spc, bs, nc);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  const int tid = threadIdx.x;
   for (int i = tid; i < NP; i += THREADS) {
-    sP[i] = params[i];
-    sT[i] = target[i];
+    S.P[i] = params[i];
+    S.T[i] = target[i];
+    S.M[i] = m[i];
+    S.V[i] = v[i];
   }
+  for (int i = tid; i < ns; i += THREADS) S.cs[i] = __ldcg(chunk_sums + c_lo + i);
   __syncthreads();
 
-  for (int k = 0; k < K; ++k) {
-    // ---- inverse-CDF PER sample ----------------------------------------
-    float* cdf = bufA;
-    block_cdf(chunk_sums, nc, cdf, sRedD);
-    const float total = cdf[nc - 1];
-    const int frame_i = frame0 + k + 1;
-    const float beta = fminf(1.0f, hp.beta_start + (float)frame_i * hp.beta_slope);
-    float w_raw = 0.f;
-    if (tid < bs) {
-      const float uu = u01[k * bs + tid] * total;
-      int lo = 0, hi = nc;  // first index with cdf >= uu == #(cdf < uu)
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (cdf[mid] < uu) lo = mid + 1; else hi = mid;
+  for (int k = 0; k < K; ++k) {   // phase: update start
+    // ---- B1: this CTA's share of the CDF, exact in double -----------------
+    // Thread tid holds chunks 4 tid .. 4 tid + 3 of the share (ns <= 1024).
+    const int lo = 4 * tid;
+    const bool mine = lo < ns;
+    const float4 c4 = mine ? *reinterpret_cast<const float4*>(S.cs + lo)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+    const double run = (((double)c4.x + (double)c4.y) + (double)c4.z) + (double)c4.w;
+    const double inc = warp_scan_inclusive(run, lane);
+    const double ex_lane = __shfl_up_sync(0xffffffffu, inc, 1);
+    if (lane == 31) S.redd[warp] = inc;
+    __syncthreads();
+    if (tid == 0) {
+      double acc = 0.0;
+      for (int w = 0; w < WARPS; ++w) {
+        const double t = S.redd[w];
+        S.redd[w] = acc;
+        acc += t;
       }
-      int c = min(lo, nc - 1);
-      c = min(c, size / CH - 1);
-      const float resid = uu - (c > 0 ? cdf[c - 1] : 0.f);
-      const float* row = p_alpha + (size_t)c * CH;
-      double run = 0.0;  // exact: 128 float32 terms
-      int off = 0;
-      for (int l = 0; l < CH; ++l) {
-        run += (double)row[l];
-        off += (float)run < resid ? 1 : 0;
-      }
-      off = min(off, CH - 1);
-      const float pa_val = row[off];
-      const float probs = pa_val / fmaxf(total, 1e-30f);
-      w_raw = expf(-beta * logf((float)size * fmaxf(probs, 1e-30f)));
-      sChunk[tid] = c;
-      sIdx[tid] = c * CH + off;
-      const float* blk = data + (size_t)c * R * CH + off;
-      for (int r = 0; r < D; ++r) {
-        sX[tid * 8 + r] = blk[r * CH];
-        sXn[tid * 8 + r] = blk[(D + r) * CH];
-      }
-      sRew[tid] = blk[2 * D * CH];
-      const float ad = blk[(2 * D + 1) * CH];
-      const float done = ad > 3.5f ? 1.f : 0.f;
-      sDone[tid] = done;
-      sAct[tid] = (int)(ad - 4.0f * done);
+      S.tot[0] = acc;
     }
-    const float w_max = block_max(tid < bs ? w_raw : 0.f, sRed);
-    if (tid < bs) sW[tid] = w_raw / fmaxf(w_max, 1e-30f);
-
-    // this update's noisy heads
-    for (int i = tid; i < NN; i += THREADS) sNoise[i] = noise[k * NN + i];
+    __syncthreads();
+    cluster_arrive();   // phase: B1 arrive
+    // meanwhile: this update's noisy heads
+    for (int i = tid; i < NN; i += THREADS) S.noise[i] = noise[k * NN + i];
     __syncthreads();
     for (int i = tid; i < H; i += THREADS)
-      sWv[i] = sP[P_WV + i] + sP[P_WVS + i] * sNoise[N_EV + i];
+      S.wv[i] = S.P[P_WV + i] + S.P[P_WVS + i] * S.noise[N_EV + i];
     for (int i = tid; i < 3 * H; i += THREADS)
-      sWa[i] = sP[P_WA + i] + sP[P_WAS + i] * sNoise[N_EA + i];
-    if (tid == 0) sBh[0] = sP[P_BV] + sP[P_BVS] * sNoise[N_EVB];
-    if (tid < 3) sBh[1 + tid] = sP[P_BA + tid] + sP[P_BAS + tid] * sNoise[N_EAB + tid];
+      S.wa[i] = S.P[P_WA + i] + S.P[P_WAS + i] * S.noise[N_EA + i];
+    if (tid == 0) S.bh[0] = S.P[P_BV] + S.P[P_BVS] * S.noise[N_EVB];
+    if (tid < 3) S.bh[1 + tid] = S.P[P_BA + tid] + S.P[P_BAS + tid] * S.noise[N_EAB + tid];
+    cluster_wait();     // phase: B1 wait
+    if (tid < CLUSTER) S.tots[tid] = *cluster.map_shared_rank(S.tot, tid);
     __syncthreads();
+    double off = 0.0, all = 0.0;
+    for (int c = 0; c < CLUSTER; ++c) {
+      if (c < rank) off += S.tots[c];
+      all += S.tots[c];
+    }
+    if (mine) {   // this thread's 4 CDF entries, into every CTA's CDF
+      double acc = off + S.redd[warp] + (lane == 0 ? 0.0 : ex_lane);
+      float4 v4;
+      acc += (double)c4.x; v4.x = (float)acc;
+      acc += (double)c4.y; v4.y = (float)acc;
+      acc += (double)c4.z; v4.z = (float)acc;
+      acc += (double)c4.w; v4.w = (float)acc;
+      for (int c = 0; c < CLUSTER; ++c)
+        *reinterpret_cast<float4*>(cluster.map_shared_rank(S.cdf, c) + c_lo + lo) = v4;
+    }
+    cluster_arrive();   // phase: B2 arrive
+    cluster_wait();     // phase: B2 wait
+
+    // ---- B2: 8 lanes a sample: search, slot prefix, gather ---------------
+    const float total = (float)all;
+    const int frame_i = frame0 + k + 1;
+    const float beta = fminf(1.0f, hp.beta_start + (float)frame_i * hp.beta_slope);
+    // 8 lanes a sample (16 slots a lane), 4 samples a warp at a time
+    const int sub = lane >> 3, sl = lane & 7;
+    for (int ls = warp * 4 + sub; ls < spc; ls += WARPS * 4) {
+      const int g = rank * spc + ls;
+      const float uu = u01[k * bs + g] * total;
+      int l = 0, h = nc;  // first index with cdf >= uu == #(cdf < uu)
+      while (l < h) {
+        const int mid = (l + h) >> 1;
+        if (S.cdf[mid] < uu) l = mid + 1; else h = mid;
+      }
+      int c = min(l, nc - 1);
+      c = min(c, size / CH - 1);
+      const float resid = uu - (c > 0 ? S.cdf[c - 1] : 0.f);
+      const float4* row4 = reinterpret_cast<const float4*>(p_alpha + (size_t)c * CH) + 4 * sl;
+      float e[16];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float4 q = __ldcg(row4 + u);
+        e[4 * u] = q.x; e[4 * u + 1] = q.y; e[4 * u + 2] = q.z; e[4 * u + 3] = q.w;
+      }
+      double d[16];
+      d[0] = (double)e[0];
+#pragma unroll
+      for (int u = 1; u < 16; ++u) d[u] = d[u - 1] + (double)e[u];
+      double incl = d[15];
+      for (int o = 1; o < 8; o <<= 1) {
+        const double n = __shfl_up_sync(0xffffffffu, incl, o, 8);
+        if (sl >= o) incl += n;
+      }
+      double ex = __shfl_up_sync(0xffffffffu, incl, 1, 8);
+      if (sl == 0) ex = 0.0;
+      int cnt = 0;
+#pragma unroll
+      for (int u = 0; u < 16; ++u) cnt += (float)(ex + d[u]) < resid ? 1 : 0;
+      for (int o = 4; o > 0; o >>= 1) cnt += __shfl_xor_sync(0xffffffffu, cnt, o, 8);
+      const int offs = min(cnt, CH - 1);
+      float mine = 0.f;
+#pragma unroll
+      for (int u = 0; u < 16; ++u) mine = (offs & 15) == u ? e[u] : mine;
+      const float pa_val = __shfl_sync(0xffffffffu, mine, (offs >> 4), 8);
+      for (int f = sl; f < R; f += 8) {
+        const float fv = __ldg(data + ((size_t)c * R + f) * CH + offs);
+        if (f < D) S.x[ls * 8 + f] = fv;
+        else if (f < 2 * D) S.xn[ls * 8 + f - D] = fv;
+        else if (f == 2 * D) S.rew[ls] = fv;
+        else {
+          const float done = fv > 3.5f ? 1.f : 0.f;
+          S.done[ls] = done;
+          S.act[ls] = (int)(fv - 4.0f * done);
+        }
+      }
+      if (sl == 0) {
+        const float probs = pa_val / fmaxf(total, 1e-30f);
+        S.wraw[ls] = expf(-beta * logf((float)size * fmaxf(probs, 1e-30f)));
+        S.idx[ls] = c * CH + offs;
+      }
+    }
+    __syncthreads();
+    if (warp == 0) {
+      float w = 0.f;
+      for (int s = lane; s < spc; s += 32) w = fmaxf(w, S.wraw[s]);
+      for (int o = 16; o > 0; o >>= 1) w = fmaxf(w, __shfl_down_sync(0xffffffffu, w, o));
+      if (lane == 0) S.pub[0] = w;
+    }
+    __syncthreads();
+    cluster_arrive();   // phase: B3 arrive (weight maximum, slots published)
 
     // ---- target forward (mu only) on next ------------------------------
-    dense_relu(sXn, 8, D, sT + P_W1, sT + P_B1, bufA, bs);
-    dense_relu(bufA, LD, H, sT + P_W2, sT + P_B2, bufB, bs);
-    if (tid < bs) q_values(bufB + tid * LD, sT + P_WV, sT[P_BV], sT + P_WA,
-                           sT + P_BA, sQt + 3 * tid);
+    dense_relu<D, 8>(S.xn, S.T + P_W1, S.T + P_B1, S.bufA, spc);
+    dense_relu<H, LDA>(S.bufA, S.T + P_W2, S.T + P_B2, S.bufB, spc);
+    if (tid < spc) q_values(S.bufB + tid * LDA, S.T + P_WV, S.T[P_BV], S.T + P_WA,
+                            S.T + P_BA, S.qt + 3 * tid);
     __syncthreads();
     // ---- online forward on next: the Double-DQN argmax -----------------
-    dense_relu(sXn, 8, D, sP + P_W1, sP + P_B1, bufA, bs);
-    dense_relu(bufA, LD, H, sP + P_W2, sP + P_B2, bufB, bs);
-    if (tid < bs) {
+    dense_relu<D, 8>(S.xn, S.P + P_W1, S.P + P_B1, S.bufA, spc);
+    dense_relu<H, LDA>(S.bufA, S.P + P_W2, S.P + P_B2, S.bufB, spc);
+    if (tid < spc) {
       float q[3];
-      q_values(bufB + tid * LD, sWv, sBh[0], sWa, sBh + 1, q);
+      q_values(S.bufB + tid * LDA, S.wv, S.bh[0], S.wa, S.bh + 1, q);
       const int na0 = q[1] > q[0] ? 1 : 0;
-      sNa[tid] = q[2] > fmaxf(q[0], q[1]) ? 2 : na0;
+      S.na[tid] = q[2] > fmaxf(q[0], q[1]) ? 2 : na0;
     }
     __syncthreads();
-    // ---- online forward on obs: f1 in bufA, f2 in bufB kept ------------
-    dense_relu(sX, 8, D, sP + P_W1, sP + P_B1, bufA, bs);
-    dense_relu(bufA, LD, H, sP + P_W2, sP + P_B2, bufB, bs);
-    float lterm = 0.f;
-    if (tid < bs) {
+    // ---- online forward on obs: f1 in bufA, f2 in bufB kept; TD ----------
+    dense_relu<D, 8>(S.x, S.P + P_W1, S.P + P_B1, S.bufA, spc);
+    dense_relu<H, LDA>(S.bufA, S.P + P_W2, S.P + P_B2, S.bufB, spc);
+    if (tid < spc) {
       float q[3];
-      q_values(bufB + tid * LD, sWv, sBh[0], sWa, sBh + 1, q);
-      const int a = sAct[tid];
-      const float nq = sQt[3 * tid + sNa[tid]];
-      const float y = sRew[tid] + hp.gamma * nq * (1.0f - sDone[tid]);
-      const float td = q[a] - y;
-      sTd[tid] = td;
-      const float w = sW[tid];
+      q_values(S.bufB + tid * LDA, S.wv, S.bh[0], S.wa, S.bh + 1, q);
+      const float nq = S.qt[3 * tid + S.na[tid]];
+      const float y = S.rew[tid] + hp.gamma * nq * (1.0f - S.done[tid]);
+      const float td = q[S.act[tid]] - y;
+      S.td[tid] = td;
+      const int g = rank * spc + tid;
+      const float np_ = fabsf(td) + hp.per_eps;
+      newp_out[k * bs + g] = np_;
+      idx_out[k * bs + g] = S.idx[tid];
+      S.newpa[tid] = expf(hp.alpha * logf(np_));   // p_alpha of the new priority
+    }
+    cluster_wait();     // phase: B3 wait
+
+    // ---- IS weights, loss and gradient partials, write-back --------------
+    if (tid < CLUSTER) S.red[32 + tid] = *cluster.map_shared_rank(S.pub, tid);
+    for (int i = tid; i < bs; i += THREADS)
+      S.all_idx[i] = cluster.map_shared_rank(S.idx, i / spc)[i % spc];
+    __syncthreads();
+    float w_max = 0.f;
+    for (int c = 0; c < CLUSTER; ++c) w_max = fmaxf(w_max, S.red[32 + c]);
+    float lterm = 0.f;
+    if (tid < spc) {
+      const float w = S.wraw[tid] / fmaxf(w_max, 1e-30f);
+      const float td = S.td[tid];
       lterm = w * td * td;
       const float dq = hp.two_bs * w * td;
-      sDV[tid] = dq;
-      for (int j = 0; j < 3; ++j)
-        sDA[3 * tid + j] = (j == a ? dq : 0.f) - dq / 3.0f;
+      S.dv[tid] = dq;
+      const int a = S.act[tid];
+      for (int j = 0; j < 3; ++j) S.da[3 * tid + j] = (j == a ? dq : 0.f) - dq / 3.0f;
     }
-    const float loss = block_sum(lterm, sRed) * hp.inv_bs;
-    if (tid == 0) losses[k] = loss;
-
-    // ---- backward: head gradients (f2 = bufB) --------------------------
-    for (int o = tid; o < 4 * H + 4; o += THREADS) {
-      float g = 0.f;
+    const float lsum = block_sum(lterm, S.red);
+    if (tid == 0) S.pub[1] = lsum;
+    // last writer wins: a sample writes unless a later sample has its slot
+    for (int ls = warp; ls < spc; ls += WARPS) {
+      const int g = rank * spc + ls, slot = S.all_idx[g];
+      bool later = false;
+      for (int j = g + 1 + lane; j < bs; j += 32) later |= S.all_idx[j] == slot;
+      if (!__any_sync(0xffffffffu, later) && lane == 0) p_alpha[slot] = S.newpa[ls];
+    }
+    // head gradient partials over this CTA's samples (f2 = bufB)
+    for (int o = tid; o < NN; o += THREADS) {
+      float gsum = 0.f;
       if (o < H) {                                   // dWv[h]
-        for (int s = 0; s < bs; ++s) g = fmaf(sDV[s], bufB[s * LD + o], g);
-        grad[P_WV + o] = g;
-        grad[P_WVS + o] = g * sNoise[N_EV + o];
+        for (int s = 0; s < spc; ++s) gsum = fmaf(S.dv[s], S.bufB[s * LDA + o], gsum);
+        S.gp[P_WV + o] = gsum;
       } else if (o < 4 * H) {                        // dWa[h, a]
-        const int h = (o - H) / 3, a = (o - H) % 3;
-        for (int s = 0; s < bs; ++s) g = fmaf(sDA[3 * s + a], bufB[s * LD + h], g);
-        grad[P_WA + o - H] = g;
-        grad[P_WAS + o - H] = g * sNoise[N_EA + o - H];
+        const int hh = (o - H) / 3, a = (o - H) % 3;
+        for (int s = 0; s < spc; ++s) gsum = fmaf(S.da[3 * s + a], S.bufB[s * LDA + hh], gsum);
+        S.gp[P_WA + o - H] = gsum;
       } else if (o == 4 * H) {                       // dbv
-        for (int s = 0; s < bs; ++s) g += sDV[s];
-        grad[P_BV] = g;
-        grad[P_BVS] = g * sNoise[N_EVB];
+        for (int s = 0; s < spc; ++s) gsum += S.dv[s];
+        S.gp[P_BV] = gsum;
       } else {                                       // dba[a]
         const int a = o - 4 * H - 1;
-        for (int s = 0; s < bs; ++s) g += sDA[3 * s + a];
-        grad[P_BA + a] = g;
-        grad[P_BAS + a] = g * sNoise[N_EAB + a];
+        for (int s = 0; s < spc; ++s) gsum += S.da[3 * s + a];
+        S.gp[P_BA + a] = gsum;
       }
     }
     __syncthreads();
     if (!hp.heads_only) {
       // dz2 = (wv dV + wa dA) * (f2 > 0), in place over f2
-      for (int o = tid; o < bs * H; o += THREADS) {
-        const int s = o / H, h = o % H;
-        float df = sWv[h] * sDV[s];
-        df += sWa[h * 3 + 0] * sDA[3 * s + 0] + sWa[h * 3 + 1] * sDA[3 * s + 1] +
-              sWa[h * 3 + 2] * sDA[3 * s + 2];
-        bufB[s * LD + h] = bufB[s * LD + h] > 0.f ? df : 0.f;
+      for (int o = tid; o < spc * H; o += THREADS) {
+        const int s = o / H, hh = o % H;
+        float df = S.wv[hh] * S.dv[s];
+        df += S.wa[hh * 3 + 0] * S.da[3 * s + 0] + S.wa[hh * 3 + 1] * S.da[3 * s + 1] +
+              S.wa[hh * 3 + 2] * S.da[3 * s + 2];
+        S.bufB[s * LDA + hh] = S.bufB[s * LDA + hh] > 0.f ? df : 0.f;
       }
       __syncthreads();
-      // dW2 = f1^T dz2, db2 = sum dz2
-      for (int o = tid; o < H * H + H; o += THREADS) {
-        float g = 0.f;
-        if (o < H * H) {
-          const int i = o / H, j = o % H;
-          for (int s = 0; s < bs; ++s) g = fmaf(bufA[s * LD + i], bufB[s * LD + j], g);
-          grad[P_W2 + o] = g;
-        } else {
-          for (int s = 0; s < bs; ++s) g += bufB[s * LD + o - H * H];
-          grad[P_B2 + o - H * H] = g;
+      {  // dW2 = f1^T dz2: a 4 x 4 tile a thread; db2 = sum dz2
+        const int ig = tid >> 4, jg = tid & 15;
+        float acc[4][4] = {};
+        for (int s = 0; s < spc; ++s) {
+          const float4 a = *reinterpret_cast<const float4*>(S.bufA + s * LDA + 4 * ig);
+          const float4 b = *reinterpret_cast<const float4*>(S.bufB + s * LDA + 4 * jg);
+#pragma unroll
+          for (int p = 0; p < 4; ++p) {
+            const float e = comp(a, p);
+            acc[p][0] = fmaf(e, b.x, acc[p][0]); acc[p][1] = fmaf(e, b.y, acc[p][1]);
+            acc[p][2] = fmaf(e, b.z, acc[p][2]); acc[p][3] = fmaf(e, b.w, acc[p][3]);
+          }
+        }
+#pragma unroll
+        for (int p = 0; p < 4; ++p)
+          *reinterpret_cast<float4*>(S.gp + P_W2 + (4 * ig + p) * H + 4 * jg) =
+              make_float4(acc[p][0], acc[p][1], acc[p][2], acc[p][3]);
+        if (tid < H) {
+          float gsum = 0.f;
+          for (int s = 0; s < spc; ++s) gsum += S.bufB[s * LDA + tid];
+          S.gp[P_B2 + tid] = gsum;
         }
       }
       __syncthreads();
-      // dz1 = (dz2 W2^T) * (f1 > 0), in place over f1
-      for (int o = tid; o < bs * H; o += THREADS) {
-        const int s = o / H, i = o % H;
-        float df = 0.f;
-        for (int j = 0; j < H; ++j) {  // rotated start: no bank conflicts
-          const int jj = (j + i) & (H - 1);
-          df = fmaf(bufB[s * LD + jj], sP[P_W2 + i * H + jj], df);
+      {  // dz1 = (dz2 W2^T) * (f1 > 0), in place over f1; rotated start
+        const int cgp = tid & 15, rg = tid >> 4;
+        for (int s0 = 2 * rg; s0 < spc; s0 += 32) {
+          float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+          for (int jj = 0; jj < H; jj += 4) {
+            const int j = (jj + 4 * cgp) & (H - 1);
+            const float4 d0 = *reinterpret_cast<const float4*>(S.bufB + s0 * LDA + j);
+            const float4 d1 = *reinterpret_cast<const float4*>(S.bufB + (s0 + 1) * LDA + j);
+#pragma unroll
+            for (int qq = 0; qq < 4; ++qq) {
+              const float4 w = *reinterpret_cast<const float4*>(S.P + P_W2 + (4 * cgp + qq) * H + j);
+              acc[0][qq] = fmaf(d0.x, w.x, acc[0][qq]); acc[0][qq] = fmaf(d0.y, w.y, acc[0][qq]);
+              acc[0][qq] = fmaf(d0.z, w.z, acc[0][qq]); acc[0][qq] = fmaf(d0.w, w.w, acc[0][qq]);
+              acc[1][qq] = fmaf(d1.x, w.x, acc[1][qq]); acc[1][qq] = fmaf(d1.y, w.y, acc[1][qq]);
+              acc[1][qq] = fmaf(d1.z, w.z, acc[1][qq]); acc[1][qq] = fmaf(d1.w, w.w, acc[1][qq]);
+            }
+          }
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int qq = 0; qq < 4; ++qq) {
+              float* f = S.bufA + (s0 + r) * LDA + 4 * cgp + qq;
+              *f = *f > 0.f ? acc[r][qq] : 0.f;
+            }
         }
-        bufA[s * LD + i] = bufA[s * LD + i] > 0.f ? df : 0.f;
       }
       __syncthreads();
-      // dW1 = x^T dz1, db1 = sum dz1
-      for (int o = tid; o < D * H + H; o += THREADS) {
-        float g = 0.f;
-        if (o < D * H) {
-          const int i = o / H, j = o % H;
-          for (int s = 0; s < bs; ++s) g = fmaf(sX[s * 8 + i], bufA[s * LD + j], g);
-          grad[P_W1 + o] = g;
-        } else {
-          for (int s = 0; s < bs; ++s) g += bufA[s * LD + o - D * H];
-          grad[P_B1 + o - D * H] = g;
+      if (tid < D * 16) {  // dW1 = x^T dz1, 4 units a thread
+        const int i = tid >> 4, jg = tid & 15;
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int s = 0; s < spc; ++s) {
+          const float xv = S.x[s * 8 + i];
+          const float4 d = *reinterpret_cast<const float4*>(S.bufA + s * LDA + 4 * jg);
+          acc[0] = fmaf(xv, d.x, acc[0]); acc[1] = fmaf(xv, d.y, acc[1]);
+          acc[2] = fmaf(xv, d.z, acc[2]); acc[3] = fmaf(xv, d.w, acc[3]);
         }
+        *reinterpret_cast<float4*>(S.gp + P_W1 + i * H + 4 * jg) =
+            make_float4(acc[0], acc[1], acc[2], acc[3]);
+      } else if (tid < D * 16 + H) {  // db1 = sum dz1
+        const int j = tid - D * 16;
+        float gsum = 0.f;
+        for (int s = 0; s < spc; ++s) gsum += S.bufA[s * LDA + j];
+        S.gp[P_B1 + j] = gsum;
       }
       __syncthreads();
     }
+    cluster_arrive();   // phase: B4 arrive (partials, loss, p_alpha writes)
+    cluster_wait();     // phase: B4 wait
 
-    // ---- Adam (flat, elementwise) + target sync -------------------------
+    // ---- loss; exact refresh of this CTA's touched chunks ---------------
+    if (rank == 0 && tid == 0) {
+      float l = 0.f;
+      for (int c = 0; c < CLUSTER; ++c) l += cluster.map_shared_rank(S.pub, c)[1];
+      losses[k] = l * hp.inv_bs;
+    }
+    for (int g = warp; g < bs; g += WARPS) {
+      const int c = S.all_idx[g] / CH;
+      if (c < c_lo || c >= c_lo + ns) continue;
+      bool later = false;
+      for (int j = g + 1 + lane; j < bs; j += 32) later |= S.all_idx[j] / CH == c;
+      if (__any_sync(0xffffffffu, later)) continue;
+      const float4 q = __ldcg(reinterpret_cast<const float4*>(p_alpha + (size_t)c * CH) + lane);
+      double acc = ((double)q.x + (double)q.y) + ((double)q.z + (double)q.w);
+      for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+      if (lane == 0) {   // exact, as in the CDF
+        chunk_sums[c] = (float)acc;
+        S.cs[c - c_lo] = (float)acc;
+      }
+    }
+
+    // ---- gradient sum over the cluster (CTA order), Adam, target sync ----
     const float step = (float)(count0 + k + 1);
     const float bc1 = 1.0f - expf(step * hp.log_b1);
     const float bc2 = 1.0f - expf(step * hp.log_b2);
+    auto adam = [&](int i, float g) {
+      const float mj = S.M[i] * hp.b1 + g * hp.one_m_b1;
+      const float vj = S.V[i] * hp.b2 + g * g * hp.one_m_b2;
+      S.M[i] = mj;
+      S.V[i] = vj;
+      S.P[i] = S.P[i] - hp.lr * ((mj / bc1) / (sqrtf(vj / bc2) + hp.eps));
+    };
+    const int n_grad = hp.heads_only ? NN : NN + FEAT_END;
+    for (int e = tid; e < n_grad; e += THREADS) {
+      int i, is = -1, ni = 0;
+      if (e < H) { i = P_WV + e; is = P_WVS + e; ni = N_EV + e; }
+      else if (e < 4 * H) { i = P_WA + e - H; is = P_WAS + e - H; ni = N_EA + e - H; }
+      else if (e == 4 * H) { i = P_BV; is = P_BVS; ni = N_EVB; }
+      else if (e < NN) { i = P_BA + e - 4 * H - 1; is = P_BAS + e - 4 * H - 1; ni = N_EAB + e - 4 * H - 1; }
+      else i = e - NN;
+      float g = 0.f;
+      for (int c = 0; c < CLUSTER; ++c) g += cluster.map_shared_rank(S.gp, c)[i];
+      adam(i, g);
+      if (is >= 0) adam(is, g * S.noise[ni]);
+    }
+    __syncthreads();
     const bool sync = ((ts0 + k + 1) % hp.interval) == 0;
+    if (hp.tau > 0.f) {
+      for (int i = tid; i < NP; i += THREADS) S.T[i] = S.T[i] + hp.tau * (S.P[i] - S.T[i]);
+    } else if (sync) {
+      for (int i = tid; i < NP; i += THREADS) S.T[i] = S.P[i];
+    }
+    __syncthreads();
+  }
+  cluster.sync();   // phase: end (no CTA leaves while another reads it)
+  if (rank == 0) {
     for (int i = tid; i < NP; i += THREADS) {
-      float p = sP[i];
-      if (!(hp.heads_only && i < FEAT_END)) {
-        const float g = grad[i];
-        const float mj = m[i] * hp.b1 + g * hp.one_m_b1;
-        const float vj = v[i] * hp.b2 + g * g * hp.one_m_b2;
-        m[i] = mj;
-        v[i] = vj;
-        p = p - hp.lr * ((mj / bc1) / (sqrtf(vj / bc2) + hp.eps));
-        sP[i] = p;
-      }
-      if (hp.tau > 0.f) sT[i] = sT[i] + hp.tau * (p - sT[i]);
-      else if (sync) sT[i] = p;
+      params[i] = S.P[i];
+      target[i] = S.T[i];
+      m[i] = S.M[i];
+      v[i] = S.V[i];
     }
-
-    // ---- priorities: outputs, then the write-back in sample order -------
-    if (tid < bs) {
-      const float np_ = fabsf(sTd[tid]) + hp.per_eps;
-      newp_out[k * bs + tid] = np_;
-      idx_out[k * bs + tid] = sIdx[tid];
-      sTd[tid] = expf(hp.alpha * logf(np_));   // p_alpha of the new priority
-    }
-    __syncthreads();
-    if (tid == 0) {
-      for (int s = 0; s < bs; ++s) p_alpha[sIdx[s]] = sTd[s];
-    }
-    __syncthreads();
-    if (tid < bs) {  // exact refresh of the touched chunk sums
-      const int c = sChunk[tid];
-      const float* row = p_alpha + (size_t)c * CH;
-      double acc = 0.0;  // exact, as in the CDF
-      for (int l = 0; l < CH; ++l) acc += (double)row[l];
-      chunk_sums[c] = (float)acc;
-    }
-    __syncthreads();
   }
-  for (int i = tid; i < NP; i += THREADS) {
-    params[i] = sP[i];
-    target[i] = sT[i];
-  }
-}
-
-size_t smem_bytes(int bs) {
-  return sizeof(double) * 64 + sizeof(float) * (2 * (size_t)bs * LD + 2 * NP + 16 * (size_t)bs +
-                          NN + 4 * H + 4 + 11 * (size_t)bs + 64) +
-         sizeof(int) * 4 * (size_t)bs;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Run K fused updates on `stream`. Shapes (checked by the Python wrapper):
-// u01 (K, bs), noise (K, 260), p_alpha (nc*128), chunk_sums (nc),
-// params/target/m/v/grad (5192), data (nc, 16, 128), newp/idx (K, bs),
-// losses (K). bs <= 256, bs * 65 >= nc. Returns the cudaError_t.
+// Run K fused updates on `stream` as one cluster of 8 CTAs. Shapes
+// (checked by the Python wrapper): u01 (K, bs), noise (K, 260), p_alpha
+// (nc*128), chunk_sums (nc), params/target/m/v/grad (5192), data (nc, 16,
+// 128), newp/idx (K, bs), losses (K). bs % 32 == 0, bs <= 512, nc % 128 == 0,
+// nc <= 8192. Returns the cudaError_t (a refused cluster launch included).
 int dqn_update_launch(int ts0, int count0, int frame0, int size, int K,
                       int bs, int nc, const Hyper* hp, const float* u01,
                       const float* noise, float* p_alpha, float* chunk_sums,
                       float* params, float* target, float* m, float* v,
                       const float* data, float* newp, int* idx,
                       float* losses, float* grad, cudaStream_t stream) {
-  const size_t smem = smem_bytes(bs);
+  (void)grad;
+  if (bs % (4 * CLUSTER) != 0 || nc % (16 * CLUSTER) != 0 || nc > MAX_NC)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = Smem(nullptr, bs / CLUSTER, bs, nc).bytes;
   cudaError_t err = cudaFuncSetAttribute(
       dqn_update_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dqn_update_kernel<<<1, THREADS, smem, stream>>>(
-      ts0, count0, frame0, size, K, bs, nc, *hp, u01, noise, p_alpha,
-      chunk_sums, params, target, m, v, data, newp, idx, losses, grad);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CLUSTER);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, dqn_update_kernel, ts0, count0, frame0,
+                           size, K, bs, nc, *hp, u01, noise, p_alpha,
+                           chunk_sums, params, target, m, v, data, newp, idx,
+                           losses);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -4,7 +4,7 @@ launch.
 Port of ``pingpong_tpu/ops/dqn_update.py::pallas_dqn_update_block``. The
 K updates form a serial chain (each samples from the priorities the last
 one wrote and steps from its parameters), so the whole block is one
-kernel. Per update: inverse-CDF prioritized sample from pre-drawn
+kernel: one cluster of 8 thread blocks that split each update's samples. Per update: inverse-CDF prioritized sample from pre-drawn
 uniforms, importance weights ``(N P(i))^-beta`` max-normalized, the
 Double-DQN TD error with this update's head noise on the online net and
 mu weights on the target, IS-weighted MSE, a hand-written backward
@@ -51,7 +51,9 @@ P_WA = P_WV + 2 * H + 2  # fc_a: w_mu, w_sigma (64, 3), b_mu, b_sigma (3)
 N_PARAMS = P_WA + 6 * H + 6           # 5192
 FEATURES_END = P_WV                   # frozen when train_heads_only
 N_NOISE = 4 * H + 4                   # 260
-MAX_BATCH = 256                       # the kernel's shared-memory budget
+MAX_BATCH = 512                       # the JAX kernel's limit too
+MAX_CHUNKS = 8192                     # replay <= 2^20: the CDF in shared memory
+CLUSTER = 8                           # thread blocks of the kernel's cluster
 B1, B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
 
@@ -65,9 +67,9 @@ def pack_dqn_noise(noise: QNetNoise) -> torch.Tensor:
 
 def supports_fused_update(cfg) -> bool:
     """Shapes the update kernel handles: the JAX package's
-    ``supports_pallas_dqn_update`` (lane-aligned batch, capacity a
-    multiple of 128^2 and at most 2^20, aligned block pushes) with the
-    batch capped at :data:`MAX_BATCH` by the kernel's shared memory."""
+    ``supports_pallas_dqn_update``: lane-aligned batch of at most
+    :data:`MAX_BATCH`, capacity a multiple of 128^2 and at most 2^20,
+    aligned block pushes."""
     m = cfg.num_envs * cfg.rollout_length
     return (cfg.batch_size % CH == 0
             and cfg.batch_size <= MAX_BATCH
@@ -238,12 +240,16 @@ def dqn_update_cuda(*, ts0, count0, frame0, size, u01, noise, p_alpha,
                     chunk_sums, params, target, m, v, data, K, bs, lr, gamma,
                     interval, tau, alpha, per_eps, beta_start, beta_frames,
                     heads_only):
-    """Launch the CUDA kernel; same contract as :func:`dqn_update_plain`."""
+    """Launch the CUDA kernel; same contract as :func:`dqn_update_plain`.
+    Raises if the cluster launch is refused. (The C interface's ``grad``
+    scratch is unused: the gradient lives in shared memory.)"""
     nc = chunk_sums.shape[0]
     dev = params.device
-    if bs > MAX_BATCH or bs * (H + 1) < nc:
-        raise ValueError(f"update kernel takes batch <= {MAX_BATCH} and "
-                         f"65*batch >= chunks, got batch {bs}, {nc} chunks")
+    if bs > MAX_BATCH or bs % (4 * CLUSTER) or nc > MAX_CHUNKS or nc % CH:
+        raise ValueError(f"update kernel takes a batch <= {MAX_BATCH} and a "
+                         f"multiple of {4 * CLUSTER}, and a multiple of "
+                         f"{CH} chunks <= {MAX_CHUNKS}, got batch {bs}, "
+                         f"{nc} chunks")
     check_cuda("u01", u01, torch.float32, (K, bs))
     check_cuda("noise", noise, torch.float32, (K, N_NOISE))
     check_cuda("p_alpha", p_alpha, torch.float32, (nc * CH,))
@@ -255,7 +261,6 @@ def dqn_update_cuda(*, ts0, count0, frame0, size, u01, noise, p_alpha,
     newp = torch.empty((K, bs), dtype=torch.float32, device=dev)
     idx = torch.empty((K, bs), dtype=torch.int32, device=dev)
     losses = torch.empty((K,), dtype=torch.float32, device=dev)
-    grad = torch.zeros((N_PARAMS,), dtype=torch.float32, device=dev)
     hp = Hyper(lr=lr, gamma=gamma, tau=tau, alpha=alpha, per_eps=per_eps,
                beta_start=beta_start,
                beta_slope=(1.0 - beta_start) / beta_frames,
@@ -266,7 +271,7 @@ def dqn_update_cuda(*, ts0, count0, frame0, size, u01, noise, p_alpha,
     KERNEL.launch(ts0, count0, frame0, size, K, bs, nc, ctypes.byref(hp),
                   ptr(u01), ptr(noise), ptr(p_alpha), ptr(chunk_sums),
                   ptr(params), ptr(target), ptr(m), ptr(v), ptr(data),
-                  ptr(newp), ptr(idx), ptr(losses), ptr(grad),
+                  ptr(newp), ptr(idx), ptr(losses), None,
                   stream_ptr(dev))
     return newp, idx, losses
 

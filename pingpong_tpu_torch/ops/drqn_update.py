@@ -422,6 +422,9 @@ def drqn_update_cuda(*, ts0, count0, xt, nextt, meta, noise, params, target,
     if max(dims) > MAX_WIDTH:
         raise ValueError(f"update kernel takes widths <= {MAX_WIDTH}, "
                          f"got {dims}")
+    if bs % 4:
+        raise ValueError(f"update kernel takes a batch that is a multiple "
+                         f"of 4, got {bs}")
     dev = params.device
     n_par = param_slices(dims)["n"][0]
     check_cuda("xt", xt, torch.float32, (K, 7, T * 2 * bs))

@@ -165,7 +165,7 @@ class DQNLearner:
                 "must be true")
         if not supports_fused_update(cfg):
             raise ValueError(
-                "the update kernel needs batch_size % 128 == 0 and <= 256, "
+                "the update kernel needs batch_size % 128 == 0 and <= 512, "
                 "memory_size a multiple of 128^2 and <= 2^20, and one "
                 "rollout chunk (num_envs*rollout_length, a multiple of "
                 "128) dividing memory_size; the row-layout update path is "

@@ -1,0 +1,381 @@
+"""Phase split of the two update-block kernels on the card.
+
+    python -m pingpong_tpu_torch.update_phases {drqn,dqn} [--source FILE]
+        [--reps N]
+
+Writes an instrumented copy of the kernel's source (default: the port's
+own ``csrc/drqn_update.cu`` or ``csrc/dqn_update.cu``) under
+``build/update_phases/``, builds it like the kernel and runs it through the
+port's wrapper, with random weights and data from a seed:
+
+- ``drqn`` (``configs/rnn.yaml``'s update block): every ``grid.sync();``
+  becomes a stamp of the card's ``globaltimer`` by each block just before
+  the barrier and just after it. For each barrier site it prints how long
+  the slowest block computed before it (from the previous barrier's
+  release to the last block's arrival) and how long the barrier held (from
+  that arrival to the release). A site is named by a trailing ``// phase:
+  NAME`` comment, or else by its line and the nearest ``// ----`` section
+  header above it.
+- ``dqn`` (K 64, batch 256, replay 2^20, heads only): thread 0 of CTA 0
+  stamps after every line tagged ``// phase: NAME`` (the cluster barriers
+  and the top of the update loop); it prints the time from each tag to the
+  next, summed by pair of tags.
+
+Times are microseconds summed over one launch, averaged over ``--reps``
+launches, with the card's name and power limit. The committed kernels are
+not changed; the copies are not committed. ``--source`` takes another
+checkout's file, e.g. a parent commit unpacked under ``build/parent/``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import re
+import subprocess
+from collections import OrderedDict
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+OUT = ROOT / "build" / "update_phases"
+MAX_SYNC, MAX_BLK = 2048, 160
+
+HEADER = f"""
+#define PH_MAX_SYNC {MAX_SYNC}
+#define PH_MAX_BLK {MAX_BLK}
+__device__ unsigned long long ph_arr[PH_MAX_BLK * PH_MAX_SYNC];
+__device__ unsigned long long ph_rel[PH_MAX_BLK * PH_MAX_SYNC];
+__device__ int ph_site[PH_MAX_SYNC];
+__device__ int ph_cnt[PH_MAX_BLK];
+__device__ __forceinline__ unsigned long long ph_now() {{
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}}
+#define PHASE_SYNC(g, site) do {{                                        \\
+  __syncthreads();                                                       \\
+  if (threadIdx.x == 0) {{                                                \\
+    const int n_ = ph_cnt[blockIdx.x];                                    \\
+    if (n_ < PH_MAX_SYNC) {{                                              \\
+      ph_arr[blockIdx.x * PH_MAX_SYNC + n_] = ph_now();                  \\
+      if (blockIdx.x == 0) ph_site[n_] = site;                           \\
+    }}                                                                    \\
+  }}                                                                      \\
+  g.sync();                                                              \\
+  if (threadIdx.x == 0) {{                                                \\
+    const int n_ = ph_cnt[blockIdx.x];                                    \\
+    if (n_ < PH_MAX_SYNC) ph_rel[blockIdx.x * PH_MAX_SYNC + n_] = ph_now(); \\
+    ph_cnt[blockIdx.x] = n_ + 1;                                          \\
+  }}                                                                      \\
+}} while (0)
+#line 1
+"""
+
+FOOTER = """
+extern "C" int ph_reset() {
+  static int zeros[PH_MAX_BLK] = {0};
+  return (int)cudaMemcpyToSymbol(ph_cnt, zeros, sizeof(zeros));
+}
+extern "C" int ph_read(unsigned long long* arr, unsigned long long* rel,
+                       int* site, int* cnt) {
+  cudaError_t e = cudaDeviceSynchronize();
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(arr, ph_arr, sizeof(ph_arr));
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(rel, ph_rel, sizeof(ph_rel));
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(site, ph_site, sizeof(ph_site));
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(cnt, ph_cnt, sizeof(ph_cnt));
+  return (int)e;
+}
+"""
+
+
+def instrument_drqn(src: str):
+    """The instrumented DRQN source and each barrier site's name by line."""
+    lines = src.splitlines()
+    names, section = {}, "start"
+    out = []
+    for no, line in enumerate(lines, start=1):
+        m = re.search(r"//\s*----\s*(.*?)\s*-*\s*$", line)
+        if m:
+            section = m.group(1)
+        if "grid.sync();" in line:
+            tag = re.search(r"//\s*phase:\s*(.+?)\s*$", line)
+            names[no] = tag.group(1) if tag else f"line {no}: {section}"
+            line = line.replace("grid.sync();", f"PHASE_SYNC(grid, {no});")
+        out.append(line)
+    return HEADER + "\n".join(out) + "\n" + FOOTER, names
+
+
+DQN_HEADER = """
+__device__ unsigned long long st_t[8192];
+__device__ int st_id[8192];
+__device__ int st_n;
+#define STAMP(site) do {                                                   \\
+  if (threadIdx.x == 0 && cg::this_cluster().block_rank() == 0 &&          \\
+      st_n < 8192) {                                                       \\
+    unsigned long long t_;                                                 \\
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));                 \\
+    st_t[st_n] = t_; st_id[st_n] = site; ++st_n;                           \\
+  }                                                                        \\
+} while (0)
+"""
+
+DQN_FOOTER = """
+extern "C" int st_read(unsigned long long* t, int* id, int* n) {
+  cudaError_t e = cudaDeviceSynchronize();
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(t, st_t, sizeof(st_t));
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(id, st_id, sizeof(st_id));
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(n, st_n, sizeof(int));
+  const int zero = 0;
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(st_n, &zero, sizeof(int));
+  return (int)e;
+}
+"""
+
+
+def instrument_dqn(src: str):
+    """The instrumented DQN source (a stamp after each ``// phase:`` line)
+    and each site's name by id."""
+    names, out = {}, []
+    for line in src.splitlines():
+        out.append(line)
+        tag = re.search(r"//\s*phase:\s*(.+?)\s*$", line)
+        if tag:
+            names[len(names)] = tag.group(1)
+            out.append(f"STAMP({len(names) - 1});")
+    text = "\n".join(out)
+    anchor = "namespace cg = cooperative_groups;\n"
+    return (text.replace(anchor, anchor + DQN_HEADER, 1) + "\n" + DQN_FOOTER,
+            names)
+
+
+def build(source: Path, kernel: str) -> tuple:
+    from pingpong_tpu_torch.ops.build import NVCC_FLAGS, nvcc_path
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    instrument = instrument_drqn if kernel == "drqn" else instrument_dqn
+    text, names = instrument(source.read_text())
+    cu = OUT / f"{kernel}_update_phases.cu"
+    cu.write_text(text)
+    lib = OUT / f"lib{kernel}_update_phases.so"
+    res = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-I", str(source.parent),
+                          "-o", str(lib), str(cu)],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed:\n{res.stdout}{res.stderr}")
+    return lib, names
+
+
+def inputs_drqn(dev, seed=600):
+    """``configs/rnn.yaml``'s update block (K, bs, T and widths) with
+    random weights and traces from ``seed``: no sync in the block, so the
+    k = 0 wide target pass runs once."""
+    from pingpong_tpu_torch.config import load_config
+    from pingpong_tpu_torch.models.qnet_rnn import (
+        qnet_rnn_init,
+        qnet_rnn_sample_noise,
+        qnet_rnn_to_flat,
+    )
+    from pingpong_tpu_torch.ops.drqn_update import flat_noise, kernel_inputs
+
+    c = load_config(ROOT / "configs" / "rnn.yaml").drqn
+    K, bs, T = c.updates_per_iteration, c.batch_size, c.trace_length
+    gen = torch.Generator().manual_seed(seed)
+    net, tgt = (qnet_rnn_init(gen, feature_dim=c.feature_dim,
+                              lstm_hidden_dim=c.lstm_hidden_dim,
+                              head_hidden_dim=c.head_hidden_dim).to(dev)
+                for _ in range(2))
+    g = torch.Generator(dev).manual_seed(seed)
+    obs = torch.rand((K, bs, T + 1, 7), generator=g, device=dev)
+    xt, nextt, meta = kernel_inputs(
+        obs[:, :, :T].contiguous(), obs[:, :, 1:].contiguous(),
+        torch.randint(0, 3, (K, bs), generator=g, device=dev),
+        torch.randn((K, bs), generator=g, device=dev),
+        torch.rand((K, bs), generator=g, device=dev) < 0.2,
+        torch.rand((K, bs), generator=g, device=dev) < 0.9)
+    params = qnet_rnn_to_flat(net)
+    return dict(ts0=0, count0=0, xt=xt, nextt=nextt, meta=meta,
+                noise=flat_noise(qnet_rnn_sample_noise(gen, net, batch=(K,)))
+                .to(dev), params=params, target=qnet_rnn_to_flat(tgt),
+                m=torch.zeros_like(params), v=torch.zeros_like(params),
+                dims=(c.feature_dim // 2, c.feature_dim, c.lstm_hidden_dim,
+                      c.head_hidden_dim), K=K, bs=bs, T=T, lr=c.lr,
+                clip=c.grad_clip_norm, gamma=c.gamma,
+                interval=c.target_update_interval, tau=0.0)
+
+
+def inputs_dqn(dev, seed=7, bs=256, K=64, cap=1 << 20):
+    """K updates of ``bs`` from a full replay of ``cap`` random transitions
+    with random priorities, heads only, no target sync in the block."""
+    from pingpong_tpu_torch.models.qnet import (
+        qnet_init,
+        qnet_sample_noise,
+        qnet_to_flat,
+    )
+    from pingpong_tpu_torch.ops.dqn_update import pack_dqn_noise
+    from pingpong_tpu_torch.replay.per import Transition, per_init, per_push
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    buf = per_init(cap, device=dev)
+    m = min(262144, cap)
+    for _ in range(cap // m):
+        per_push(buf, Transition(
+            obs=torch.rand((m, 7), generator=g, device=dev) * 2 - 1,
+            action=torch.randint(0, 3, (m,), generator=g, device=dev,
+                                 dtype=torch.int32),
+            reward=torch.randn((m,), generator=g, device=dev),
+            next_obs=torch.rand((m, 7), generator=g, device=dev) * 2 - 1,
+            done=torch.rand((m,), generator=g, device=dev) < 0.2), 0.6)
+    buf.p_alpha.copy_((0.1 + 1.9 * torch.rand(cap, generator=g, device=dev))
+                      ** 0.6)
+    buf.chunk_sums.copy_(buf.p_alpha.view(-1, 128).sum(dim=1))
+    hg = torch.Generator().manual_seed(seed)
+    params = qnet_to_flat(qnet_init(hg)).to(dev)
+    return dict(ts0=0, count0=0, frame0=0, size=buf.size,
+                u01=torch.rand((K, bs), generator=g, device=dev),
+                noise=pack_dqn_noise(qnet_sample_noise(
+                    hg, qnet_init(hg), batch=(K,))).to(dev),
+                p_alpha=buf.p_alpha, chunk_sums=buf.chunk_sums,
+                params=params, target=qnet_to_flat(qnet_init(hg)).to(dev),
+                m=torch.zeros_like(params), v=torch.zeros_like(params),
+                data=buf.data, K=K, bs=bs, lr=2.5e-4, gamma=0.99,
+                interval=1000, tau=0.0, alpha=0.6, per_eps=1e-6,
+                beta_start=0.4, beta_frames=100_000, heads_only=True)
+
+
+def fresh(kw):
+    return {a: (b.clone() if isinstance(b, torch.Tensor) else b)
+            for a, b in kw.items()}
+
+
+def timed(fn, kw):
+    """One launch on fresh inputs; its event time in ms."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn(**fresh(kw))
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b)
+
+
+def split_dqn(lib, names, kw, reps):
+    """Per pair of tags: microseconds summed over one launch, averaged
+    over ``reps`` launches; and the launches' event times."""
+    import numpy as np
+
+    from pingpong_tpu_torch.ops import dqn_update as du
+
+    saved, du.KERNEL = du.KERNEL, kernel_from(lib, du.KERNEL.argtypes,
+                                              "dqn_update", "dqn_update_launch")
+    cdll = ctypes.CDLL(str(lib))
+    t = np.zeros(8192, np.uint64)
+    ids = np.zeros(8192, np.int32)
+    n = np.zeros(1, np.int32)
+    ptrs = [x.ctypes.data_as(ctypes.c_void_p) for x in (t, ids, n)]
+    acc, ev_ms = OrderedDict(), []
+    try:
+        timed(du.dqn_update_cuda, kw)            # warm
+        assert cdll.st_read(*ptrs) == 0
+        for _ in range(reps):
+            ev_ms.append(timed(du.dqn_update_cuda, kw))
+            assert cdll.st_read(*ptrs) == 0
+            for a in range(1, int(n[0])):
+                key = f"{names[int(ids[a - 1])]} -> {names[int(ids[a])]}"
+                c, us = acc.get(key, (0, 0.0))
+                acc[key] = (c + 1, us + (int(t[a]) - int(t[a - 1])) / 1e3)
+    finally:
+        du.KERNEL = saved
+    return ({key: (c / reps, us / reps, 0.0) for key, (c, us) in acc.items()},
+            ev_ms, 8)
+
+
+def kernel_from(lib, argtypes, name, symbol):
+    from pingpong_tpu_torch.ops.build import CudaKernel
+
+    k = CudaKernel(name, symbol, argtypes)
+    k.library = lib
+    k._stale = lambda: False
+    return k
+
+
+def split(lib, names, kw, reps):
+    """Per site: (calls, compute us, barrier us) summed over one launch,
+    averaged over ``reps`` launches; and the launches' event times."""
+    import numpy as np
+
+    from pingpong_tpu_torch.ops import drqn_update as dru
+
+    saved, dru.KERNEL = dru.KERNEL, kernel_from(
+        lib, dru.KERNEL.argtypes, "drqn_update", "drqn_update_launch")
+    cdll = ctypes.CDLL(str(lib))
+    arr = np.zeros(MAX_BLK * MAX_SYNC, np.uint64)
+    rel = np.zeros_like(arr)
+    site = np.zeros(MAX_SYNC, np.int32)
+    cnt = np.zeros(MAX_BLK, np.int32)
+    acc = OrderedDict()
+    ev_ms = []
+    try:
+        timed(dru.drqn_update_cuda, kw)          # warm
+        for _ in range(reps):
+            assert cdll.ph_reset() == 0
+            ev_ms.append(timed(dru.drqn_update_cuda, kw))
+            assert cdll.ph_read(*(x.ctypes.data_as(ctypes.c_void_p)
+                                  for x in (arr, rel, site, cnt))) == 0
+            nb = int((cnt > 0).sum())
+            n = int(cnt[0])
+            A = arr.reshape(MAX_BLK, MAX_SYNC)[:nb, :n].astype(np.float64)
+            R = rel.reshape(MAX_BLK, MAX_SYNC)[:nb, :n].astype(np.float64)
+            last_arr, first_rel = A.max(axis=0), R.min(axis=0)
+            start = np.concatenate([[A[:, 0].min()], first_rel[:-1]])
+            for i in range(n):
+                key = names.get(int(site[i]), f"line {int(site[i])}")
+                c, comp, bar = acc.get(key, (0, 0.0, 0.0))
+                acc[key] = (c + 1, comp + (last_arr[i] - start[i]) / 1e3,
+                            bar + (first_rel[i] - last_arr[i]) / 1e3)
+    finally:
+        dru.KERNEL = saved
+    return ({key: (c / reps, comp / reps, bar / reps)
+             for key, (c, comp, bar) in acc.items()}, ev_ms, nb)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("kernel", choices=("drqn", "dqn"))
+    ap.add_argument("--source", type=Path)
+    ap.add_argument("--reps", type=int, default=3)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("update_phases: no CUDA device")
+        return 1
+    dev = torch.device("cuda")
+    source = args.source or (ROOT / "pingpong_tpu_torch" / "csrc" /
+                             f"{args.kernel}_update.cu")
+    lib, names = build(source, args.kernel)
+    if args.kernel == "drqn":
+        kw = inputs_drqn(dev)
+        table, ev_ms, nb = split(lib, names, kw, args.reps)
+        shape = f"K {kw['K']}, bs {kw['bs']}, T {kw['T']}, dims {kw['dims']}"
+    else:
+        kw = inputs_dqn(dev)
+        table, ev_ms, nb = split_dqn(lib, names, kw, args.reps)
+        shape = f"K {kw['K']}, bs {kw['bs']}, replay 2^20, heads only"
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    tot_c = sum(v[1] for v in table.values())
+    tot_b = sum(v[2] for v in table.values())
+    tag = f"[phases:{args.kernel}]"
+    print(f"{tag} {source}: {shape}, {nb} blocks; launch (events, "
+          f"instrumented) {', '.join(f'{x:.3f}' for x in ev_ms)} ms | {card}")
+    print(f"{tag} {'site':60s} {'calls':>6s} {'compute us':>11s} "
+          f"{'barrier us':>11s}")
+    for key, (c, comp, bar) in table.items():
+        print(f"{tag} {key[:60]:60s} {c:6.0f} {comp:11.1f} {bar:11.1f}")
+    print(f"{tag} {'total':60s} {'':6s} {tot_c:11.1f} {tot_b:11.1f}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

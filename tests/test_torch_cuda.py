@@ -104,7 +104,7 @@ def test_actor_kernel_matches_plain(cuda, n_slots, shared, eval_mode):
                                atol=1.0)
 
 
-def update_kwargs(dev, heads_only, tau, interval, seed=2):
+def update_kwargs(dev, heads_only, tau, interval, seed=2, bs=BS):
     rng = np.random.default_rng(seed)
     buf = per_init(CAP, device=dev)
     m = 2048
@@ -123,21 +123,22 @@ def update_kwargs(dev, heads_only, tau, interval, seed=2):
     noise = tdu.pack_dqn_noise(qnet_sample_noise(gen, qnet_init(gen),
                                                  batch=(K,))).to(dev)
     return dict(ts0=1, count0=0, frame0=7, size=m,
-                u01=torch.from_numpy(rng.random((K, BS)).astype(np.float32))
+                u01=torch.from_numpy(rng.random((K, bs)).astype(np.float32))
                 .to(dev), noise=noise, p_alpha=pa,
                 chunk_sums=pa.view(-1, 128).sum(dim=1), params=params,
                 target=params.clone(), m=torch.zeros_like(params),
-                v=torch.zeros_like(params), data=buf.data, K=K, bs=BS,
+                v=torch.zeros_like(params), data=buf.data, K=K, bs=bs,
                 lr=2.5e-4, gamma=0.99, interval=interval, tau=tau, alpha=0.6,
                 per_eps=1e-6, beta_start=0.4, beta_frames=1000,
                 heads_only=heads_only)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("heads_only,tau,interval", [
-    (True, 0.0, 2), (False, 0.0, 10_000), (True, 0.05, 10_000)])
-def test_update_kernel_matches_plain(cuda, heads_only, tau, interval):
-    kk = update_kwargs(cuda, heads_only, tau, interval)
+@pytest.mark.parametrize("heads_only,tau,interval,bs", [
+    (True, 0.0, 2, BS), (False, 0.0, 10_000, BS), (True, 0.05, 10_000, BS),
+    (True, 0.0, 2, 512), (False, 0.0, 10_000, 512)])
+def test_update_kernel_matches_plain(cuda, heads_only, tau, interval, bs):
+    kk = update_kwargs(cuda, heads_only, tau, interval, bs=bs)
     kp = {k: (v.clone() if isinstance(v, torch.Tensor) else v)
           for k, v in kk.items()}
     before = tdu.KERNEL.launches
@@ -153,6 +154,37 @@ def test_update_kernel_matches_plain(cuda, heads_only, tau, interval):
         torch.testing.assert_close(kk[key], kp[key], rtol=1e-4, atol=atol)
 
 
+def run_twice(fn, kw):
+    """Two launches on fresh copies of the same inputs: (outputs, inputs
+    after the call) of each."""
+    runs = []
+    for _ in range(2):
+        k = {a: (b.clone() if isinstance(b, torch.Tensor) else b)
+             for a, b in kw.items()}
+        out = fn(**k)
+        torch.cuda.synchronize()
+        runs.append((out if isinstance(out, tuple) else (out,), k))
+    return runs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads_only", [True, False])
+def test_update_kernels_are_bit_reproducible(cuda, heads_only):
+    """The cluster's and the cooperative launch's reductions run in a
+    fixed order: two runs on the same inputs agree bit for bit."""
+    (o1, k1), (o2, k2) = run_twice(tdu.dqn_update_cuda, update_kwargs(
+        cuda, heads_only, 0.0, 2, bs=512))
+    for a, b in zip(o1, o2):                  # newp, idx, losses
+        assert torch.equal(a, b)
+    for key in ("params", "target", "m", "v", "chunk_sums", "p_alpha"):
+        assert torch.equal(k1[key], k2[key]), key
+    (o1, k1), (o2, k2) = run_twice(tdru.drqn_update_cuda, drqn_update_kwargs(
+        cuda, 9 if heads_only else 0, 10 if heads_only else 1000, 0.0))
+    assert torch.equal(o1[0], o2[0])          # losses
+    for key in ("params", "target", "m", "v"):
+        assert torch.equal(k1[key], k2[key]), key
+
+
 @pytest.mark.cuda
 def test_wrappers_check_their_arguments(cuda):
     args, kw = actor_args(1, False, False, cuda)
@@ -166,6 +198,8 @@ def test_wrappers_check_their_arguments(cuda):
         tdu.dqn_update_cuda(**{**kk, "u01": kk["u01"].double()})
     with pytest.raises(ValueError, match="params"):
         tdu.dqn_update_cuda(**{**kk, "params": kk["params"].cpu()})
+    with pytest.raises(ValueError, match="batch <= 512"):
+        tdu.dqn_update_cuda(**update_kwargs(cuda, True, 0.0, 2, bs=640))
 
 
 @pytest.mark.cuda
@@ -244,11 +278,11 @@ def test_recurrent_kernel_matches_plain(cuda, n_slots, eval_mode):
                                atol=1.0)
 
 
-def drqn_update_kwargs(dev, ts0, interval, tau, seed=2):
+def drqn_update_kwargs(dev, ts0, interval, tau, seed=2, bs=16):
     rng = np.random.default_rng(seed)
     gen = torch.Generator().manual_seed(seed)
     net, tgt = (qnet_rnn_init(gen, **RNN_WIDTHS) for _ in range(2))
-    K_, bs, T_ = 4, 16, 4
+    K_, T_ = (4, 4) if bs <= 64 else (2, 2)
     t = lambda x: torch.from_numpy(x).to(dev)
     obs = rng.uniform(-1, 1, (K_, bs, T_ + 1, 7)).astype(np.float32)
     xt, nextt, meta = tdru.kernel_inputs(
@@ -267,10 +301,11 @@ def drqn_update_kwargs(dev, ts0, interval, tau, seed=2):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("ts0,interval,tau", [(0, 1000, 0.0), (9, 10, 0.0),
-                                              (0, 1000, 0.05)])
-def test_drqn_update_kernel_matches_plain(cuda, ts0, interval, tau):
-    kk = drqn_update_kwargs(cuda, ts0, interval, tau)
+@pytest.mark.parametrize("ts0,interval,tau,bs", [
+    (0, 1000, 0.0, 16), (9, 10, 0.0, 16), (0, 1000, 0.05, 16),
+    (0, 1000, 0.0, 528)])   # 528: a BPTT step's columns over all threads
+def test_drqn_update_kernel_matches_plain(cuda, ts0, interval, tau, bs):
+    kk = drqn_update_kwargs(cuda, ts0, interval, tau, bs=bs)
     kp = {k: (v.clone() if isinstance(v, torch.Tensor) else v)
           for k, v in kk.items()}
     before = tdru.KERNEL.launches

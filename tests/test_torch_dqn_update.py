@@ -31,7 +31,7 @@ HP = dict(lr=2.5e-4, gamma=0.99, alpha=0.6, per_eps=1e-6, beta_start=0.4,
 FRAME0 = 7
 
 
-def make_inputs(seed=0, n_filled=512):
+def make_inputs(seed=0, n_filled=512, bs=BS):
     rng = np.random.default_rng(seed)
     m = n_filled
     batch = jper.Transition(
@@ -56,9 +56,9 @@ def make_inputs(seed=0, n_filled=512):
     ein_a, eout_a = fnoise((K, 64)), fnoise((K, 3))
     noise = dict(v_w=ein_v[:, :, None] * eout_v[:, None, :], v_b=eout_v,
                  a_w=ein_a[:, :, None] * eout_a[:, None, :], a_b=eout_a)
-    u01 = rng.random((K, BS)).astype(np.float32)
+    u01 = rng.random((K, bs)).astype(np.float32)
     return dict(data=np.asarray(buf.data), pa=pa, size=m, params=params,
-                noise=noise, u01=u01)
+                noise=noise, u01=u01, bs=bs)
 
 
 def run_jax(inp, interval, tau, heads_only, ts0):
@@ -76,7 +76,7 @@ def run_jax(inp, interval, tau, heads_only, ts0):
         jpack_noise(noise), pa.reshape(nc, 128),
         pa.reshape(-1, 128).sum(axis=1).reshape(nc // 128, 128),
         po, pt, zeros, zeros, jnp.asarray(inp["data"]),
-        K=K, bs=BS, interval=interval, tau=tau, heads_only=heads_only,
+        K=K, bs=inp["bs"], interval=interval, tau=tau, heads_only=heads_only,
         interpret=True, **HP)
     (pa2, cs2, o2, t2, m2, v2, newp, idx, losses, ts2) = out
     flat = lambda u: np.asarray(ravel_pytree(junpack(u, p))[0])
@@ -103,7 +103,7 @@ def run_port(inp, interval, tau, heads_only, ts0):
         train_steps=ts0, adam_count=0, frame_idx=FRAME0, size=inp["size"],
         u01=torch.from_numpy(inp["u01"]), noise=noise, p_alpha=pa,
         chunk_sums=cs, params=P, target=Tg, m=m, v=v,
-        data=torch.from_numpy(inp["data"].copy()), K=K, bs=BS,
+        data=torch.from_numpy(inp["data"].copy()), K=K, bs=inp["bs"],
         interval=interval, tau=tau, heads_only=heads_only, **HP)
     return dict(params=P.numpy(), target=Tg.numpy(), m=m.numpy(),
                 v=v.numpy(), pa=pa.numpy(), cs=cs.numpy(),
@@ -118,6 +118,23 @@ def run_port(inp, interval, tau, heads_only, ts0):
 ])
 def test_plain_update_matches_jax_interpret(interval, tau, heads_only, ts0):
     inp = make_inputs()
+    check_against_jax(inp, interval, tau, heads_only, ts0)
+    # heads-only leaves the trunk bit-identical
+    if heads_only:
+        np.testing.assert_array_equal(
+            run_port(inp, interval, tau, True, ts0)["params"]
+            [:tdu.FEATURES_END],
+            run_port(make_inputs(), interval, tau, True, ts0)["params"]
+            [:tdu.FEATURES_END])
+
+
+def test_plain_update_matches_jax_interpret_batch_512():
+    """The largest batch both kernels take, hard syncs mid-block."""
+    check_against_jax(make_inputs(seed=3, n_filled=1024, bs=512), 2, 0.0,
+                      True, 1)
+
+
+def check_against_jax(inp, interval, tau, heads_only, ts0):
     want = run_jax(inp, interval, tau, heads_only, ts0)
     got = run_port(inp, interval, tau, heads_only, ts0)
     np.testing.assert_array_equal(got["idx"], want["idx"])
@@ -130,12 +147,6 @@ def test_plain_update_matches_jax_interpret(interval, tau, heads_only, ts0):
         np.testing.assert_allclose(got[key], want[key], rtol=rtol, atol=atol,
                                    err_msg=key)
     assert want["ts"] == ts0 + K
-    # heads-only leaves the trunk bit-identical
-    if heads_only:
-        np.testing.assert_array_equal(
-            got["params"][:tdu.FEATURES_END],
-            run_port(make_inputs(), interval, tau, True, ts0)["params"]
-            [:tdu.FEATURES_END])
 
 
 def test_supports_gate_and_layout():
@@ -145,11 +156,14 @@ def test_supports_gate_and_layout():
     assert tdu.N_PARAMS == 5192 and tdu.N_NOISE == 260
     cfg = load_config("configs/qnet.yaml").dqn
     assert tdu.supports_fused_update(cfg)
+    base = dict(batch_size=256, memory_size=1 << 20, num_envs=4096,
+                rollout_length=64)
+    for bs in (384, 512):   # the JAX kernel's largest batches
+        c = DQNConfig(**{**base, "batch_size": bs})
+        assert tdu.supports_fused_update(c) and supports_pallas_dqn_update(c)
     for kw in (dict(batch_size=100), dict(memory_size=1_000_000),
-               dict(rollout_length=96), dict(batch_size=384)):
-        c = DQNConfig(**{**dict(batch_size=256, memory_size=1 << 20,
-                                num_envs=4096, rollout_length=64), **kw})
+               dict(rollout_length=96), dict(batch_size=640)):
+        c = DQNConfig(**{**base, **kw})
         assert not tdu.supports_fused_update(c)
-        if "batch_size" not in kw or kw["batch_size"] != 384:
-            assert not supports_pallas_dqn_update(c)
+        assert not supports_pallas_dqn_update(c)
 
