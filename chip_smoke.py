@@ -3,13 +3,13 @@
     python3 chip_smoke.py
 
 1. builds every CUDA kernel from ``pingpong_tpu_torch/csrc`` (one ``nvcc``
-   per source, all started together) and prints ptxas' register/smem
-   lines;
+   per source, all started together), prints ptxas' register/smem/spill
+   lines and fails if either rollout kernel spills;
 2. holds each kernel against its plain PyTorch version on the card, at its
    paths' shapes (the training configs' and the bench's, and the update
    kernel at batch 512 too, update by update), with the stated
-   tolerances, and checks that the two update kernels give bit-identical
-   results run to run;
+   tolerances, and checks that the two update kernels and the two
+   training rollout kernels give bit-identical results run to run;
 3. drives the port's paths, each with the kernels' launch counters set
    to 0 just before it and read just after: ``cli train`` at
    ``configs/qnet.yaml``'s widths and batch, and ``cli train-rnn`` at
@@ -324,6 +324,47 @@ def check_bit_reproducible(upd_inp, drqn_kw):
               f"({', '.join(('newp', 'idx', 'losses') if len(o1) == 3 else ('losses',))}, "
               f"{', '.join(keys)}): {same} | {CARD}", flush=True)
         check(same, f"{name}: two runs on the same inputs differ")
+
+
+def check_rollouts_reproducible(actor_inp, rnn_inp):
+    """Kernels 1 and 3 twice each on the same inputs (blocks of several
+    opponent members included): every output bit-identical (their sums run
+    in fixed loop and shuffle orders)."""
+    from pingpong_tpu_torch.ops.actor_rollout import actor_rollout_cuda
+    from pingpong_tpu_torch.ops.recurrent_rollout import recurrent_rollout_cuda
+
+    def tensors(out):
+        for x in out:
+            if isinstance(x, dict):
+                yield from x.values()
+            elif isinstance(x, tuple):
+                yield from x
+            elif x is not None:
+                yield x
+
+    for name, run, fn, inp in (
+            ("actor_rollout", run_actor, actor_rollout_cuda, actor_inp),
+            ("recurrent_rollout", run_rnn, recurrent_rollout_cuda, rnn_inp)):
+        one, two = run(fn, inp, 64), run(fn, inp, 64)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b)
+                   for a, b in zip(tensors(one), tensors(two)))
+        print(f"[repro:{name}] two 64-step runs on the same inputs "
+              f"bit-identical (state, return, transitions, hidden, stats): "
+              f"{same} | {CARD}", flush=True)
+        check(same, f"{name}: two runs on the same inputs differ")
+
+
+def check_no_spills(logs, names):
+    """ptxas' line of every function of these kernels reports 0 bytes of
+    spill stores."""
+    for name in names:
+        lines = [ln for ln in logs[name].splitlines() if "spill stores" in ln]
+        stores = [int(m) for ln in lines
+                  for m in re.findall(r"(\d+) bytes spill stores", ln)]
+        print(f"[build:spill] {name}: {len(stores)} function(s), spill "
+              f"stores {stores}", flush=True)
+        check(stores and not any(stores), f"{name} spills registers")
 
 
 def update_bound_ms(bs, K, nc, heads_only, idx):
@@ -900,13 +941,14 @@ def main() -> int:
     # ---- 1. build ---------------------------------------------------------
     t0 = time.time()
     kernels = [ar.KERNEL, du.KERNEL, rr.KERNEL, dru.KERNEL, pk.KERNEL]
-    logs = build_all(kernels)
+    logs = build_all(kernels, force=True)
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 print(f"[build:{name}] {line.strip()}")
     print(f"[build] {len(kernels)} kernels built for sm_90a in "
           f"{time.time() - t0:.1f} s", flush=True)
+    check_no_spills(logs, ("actor_rollout", "recurrent_rollout"))
 
     # ---- 2. kernel vs plain ------------------------------------------------
     actor_err = 0.0
@@ -949,6 +991,9 @@ def main() -> int:
                                      tau=tau)))
     pong_err, pong_hits, pong_ends, (pong_params, pong_st) = compare_pong(dev)
     check_bit_reproducible(upd_inp, drqn_update_inputs(400, dev))
+    check_rollouts_reproducible(
+        actor_inputs(150, 17, True, False, 8192, dev),
+        rnn_inputs(350, 3, False, dev))
 
     # ---- 3. main paths: cli train and cli train-rnn, twice each ------------
     qnet_launches, promoted_path = drive(
@@ -988,6 +1033,9 @@ def main() -> int:
     inp = actor_inputs(200, 2, True, False, B, dev)
     a_ms = cuda_ms(lambda: run_actor(ar.actor_rollout_cuda, inp, T), 20)
     a_plain = cuda_ms(lambda: run_actor(ar.actor_rollout_plain, inp, T), 3, 1)
+    ainp = actor_inputs(201, 1, False, True, B, dev)
+    ae_ms = cuda_ms(lambda: run_actor(ar.actor_rollout_cuda, ainp, 256), 10)
+    ae_bound = actor_bound_ms(B, 256, 1, emit=False)
     ukw = update_kwargs(upd_inp, True, 0.0, 1000)
     u_ms = cuda_ms(lambda: du.dqn_update_cuda(**ukw), 10)
     u_plain = cuda_ms(lambda: du.dqn_update_plain(**ukw), 2, 1)
@@ -1001,6 +1049,9 @@ def main() -> int:
                       1, 1)
     einp = rnn_inputs(501, 1, True, dev)
     e_ms = cuda_ms(lambda: run_rnn(rr.recurrent_rollout_cuda, einp, 256), 5)
+    binp = rnn_inputs(502, 1, False, dev, 4096)
+    b_ms = cuda_ms(lambda: run_rnn(rr.recurrent_rollout_cuda, binp, RT), 5)
+    b_bound = rnn_bound_ms(4096, RT, 1, 4096 // rtile)
     dkw = drqn_update_inputs(600, dev)
     d_ms = cuda_ms(lambda: dru.drqn_update_cuda(**fresh(dkw)), 10)
     d_plain = cuda_ms(lambda: dru.drqn_update_plain(**fresh(dkw)), 1, 1)
@@ -1018,12 +1069,16 @@ def main() -> int:
                                      pong_ends),
     }
     e_bound = rnn_bound_ms(RB, 256, 1, RB // rtile, emit=False)
-    print(f"[time] actor_rollout {a_ms:.4f} ms (plain {a_plain:.2f} ms); "
+    print(f"[time] actor_rollout {a_ms:.4f} ms (plain {a_plain:.2f} ms), "
+          f"eval chunk ({B} x 256, no transitions) {ae_ms:.4f} ms (bound "
+          f"{ae_bound[0]:.4f} ms by {ae_bound[1]}); "
           f"dqn_update {u_ms:.4f} ms (plain {u_plain:.2f} ms; bs 512 "
           f"{u512_ms:.4f} ms); "
           f"recurrent_rollout {r_ms:.4f} ms (plain {r_plain:.2f} ms), eval "
           f"chunk (T 256, no transitions) {e_ms:.4f} ms (bound "
-          f"{e_bound[0]:.4f} ms by {e_bound[1]}); drqn_update {d_ms:.4f} ms "
+          f"{e_bound[0]:.4f} ms by {e_bound[1]}), B 4096 chunk {b_ms:.4f} ms "
+          f"(bound {b_bound[0]:.4f} ms by {b_bound[1]}); "
+          f"drqn_update {d_ms:.4f} ms "
           f"(plain {d_plain:.2f} ms); pong_kernel {p_ms:.4f} ms (plain "
           f"{p_plain:.2f} ms, {PONG_B * PONG_STEPS / p_ms * 1e3:.4g} "
           f"env-steps/s); bounds "

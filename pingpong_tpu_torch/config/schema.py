@@ -276,12 +276,11 @@ class DRQNConfig:
     # Fused no-transitions eval streaming through the recurrent kernel
     # (promotion gates; single-seat and side-balanced), as in DQNConfig.
     use_pallas_eval: bool = True
-    # Fused Pallas update block (ops/drqn_update.py): all K SGD steps in
-    # one program, params + Adam moments VMEM-resident, hand-derived LSTM
-    # BPTT (JAX package only; not yet ported). Applies on
-    # TPU backends when the architecture matches the rollout-kernel
-    # constraints, burn_in_length == 0, and 2*batch_size % 128 == 0;
-    # otherwise the XLA scan path runs.
+    # Fused update block (ops/drqn_update.py): all K SGD steps in one
+    # launch with a hand-derived LSTM BPTT. The port runs only this path
+    # (the XLA scan path is not ported; false is refused by name) and, on
+    # the card, takes a batch_size that is a multiple of 4 (refused by name
+    # at learner construction otherwise; the CPU's plain version takes any).
     use_pallas_update: bool = True
     pallas_tile_rows: int = 512     # envs per kernel program (mult. of 128
                                     # on TPU; capped at num_envs)

@@ -11,24 +11,34 @@
 // zero-reset of both LSTM streams on done, the emission of obs / action /
 // reward / done, and the per-env statistics.
 //
-// What bounds it on an H100: arithmetic. A net's step is the feature MLP
-// (7 -> F1 -> F), ONE gates product [w_ih | w_hh] (4H x (F+H)), the LSTM
-// cell, the shared head (HH x H) and the A head (3 x HH): about 313 kFLOP
-// at the shipped widths (64, 128, 128, 128), two nets per env-step. The
-// packed gates matrix alone is 4H x (F+H) floats (512 KB), more than a
-// block's shared memory, so the TPU design (one program holding a tile's
-// envs and every net in VMEM) and kernel 1's design (one thread per env,
-// net in shared memory) do not carry over. Here a block of 512 threads
-// takes ENVS = 8 envs (1024 envs -> 128 blocks on 132 SMs): their env
-// state lives in the registers of threads 0-7, both LSTM streams and every
+// What bounds it on an H100: the latency of the weight stream from L2. A
+// net's step is the feature MLP (7 -> F1 -> F), ONE gates product [w_ih |
+// w_hh] (4H x (F+H)), the LSTM cell, the shared head (HH x H) and the A
+// head (3 x HH): about 313 kFLOP at the shipped widths (64, 128, 128, 128),
+// two nets per env-step, so the arithmetic bound of a 1024 x 128 chunk is
+// about 1.2 ms. The packed gates matrix alone is 4H x (F+H) floats (512
+// KB), more than a block's shared memory, so the TPU design (one program
+// holding a tile's envs and every net in VMEM) and kernel 1's design (net
+// in shared memory) do not carry over. Here a block of 512 threads takes
+// ENVS = 8 envs (1024 envs -> 128 blocks on 132 SMs): their env state
+// lives in the registers of threads 0-7, both LSTM streams and every
 // activation in shared memory, and each product runs in the kernel's own
 // body with one thread per output row accumulating all 8 envs, reading
 // the weights from global memory (L2-resident) once per block and step,
-// coalesced across threads. The learner's noisy head weights are formed on
-// the fly (mu + sigma * eps_out * eps_in), never materialized. A block
-// whose envs are bound to several pool members runs the opponent pass once
-// per member present and keeps each env's own member's result (the TPU
-// kernel's [lo, hi] member loop).
+// coalesced across threads. A block-step streams about 1.3 MB from L2 with
+// 8 FMAs a load, so the three weight loops (f2, gates, shared head) are
+// unrolled 32 deep to keep that many independent loads in flight a thread.
+// (A design that kept the gate weights resident in shared memory across an
+// 8-CTA cluster, split by LSTM unit, was built and measured slower on the
+// card: every CTA must hold all of x = [f2; h], which leaves room for
+// only about 32 envs a cluster, so a 1024-env chunk runs in several rounds
+// of clusters and a per-step chain of four cluster barriers dominates;
+// PERF.md.) The learner's noisy head weights are formed on the fly (mu +
+// sigma * eps_out * eps_in), never materialized. A block whose envs are
+// bound to several pool members runs the opponent pass once per member
+// present and keeps each env's own member's result (the TPU kernel's [lo,
+// hi] member loop). Every sum runs in a fixed order and nothing uses
+// atomics: a run is reproducible bit for bit.
 //
 // Semantics kept from the TPU kernel's interpret path: seed_mix = seed ^
 // (tile * 747796405), ctr = 16 * step; the learner noise of a step is one
@@ -100,6 +110,7 @@ __device__ void rnn_forward(const Layout& L, const float* __restrict__ w,
   __syncthreads();
   for (int j = tid; j < F; j += THREADS) {
     float acc[ENVS] = {};
+#pragma unroll 32
     for (int i = 0; i < F1; ++i) {
       const float wv = w[L.w2 + i * F + j];
 #pragma unroll
@@ -112,6 +123,7 @@ __device__ void rnn_forward(const Layout& L, const float* __restrict__ w,
   __syncthreads();
   for (int r = tid; r < G4; r += THREADS) {  // gates = [w_ih | w_hh] [f2; h]
     float acc[ENVS] = {};
+#pragma unroll 32
     for (int k = 0; k < F + H; ++k) {
       const float wv = w[L.wg + k * G4 + r];
 #pragma unroll
@@ -137,6 +149,7 @@ __device__ void rnn_forward(const Layout& L, const float* __restrict__ w,
   for (int j = tid; j < HH; j += THREADS) {  // shared head
     float acc[ENVS] = {};
     const float eo = noisy ? sm.eout_s[j] : 0.f;
+#pragma unroll 32
     for (int i = 0; i < H; ++i) {
       float wv = w[L.ws + i * HH + j];
       if (noisy)

@@ -57,7 +57,7 @@ from pingpong_tpu_torch.ops.pong_kernel import (
 NEG_BIG = -1e30
 HIDDEN = 64
 NET = 5776            # floats per packed net (see csrc/actor_rollout.cu)
-CUDA_BLOCK = 128      # envs per CUDA block; tile_rows must be a multiple
+CUDA_BLOCK = 128      # tile_rows must be a multiple on the card
 
 # obs_a = _MIRROR @ obs_b (+ e_y): x, 1-y, vx, -vy, top, bottom, spin
 _MIRROR = np.zeros((8, 8), np.float32)
@@ -118,9 +118,12 @@ def pack_qnet(params: Union[QNet, Sequence[QNet]],
 
 def packed_flat(p: PackedQNet) -> torch.Tensor:
     """``(..., NET)`` contiguous vector per net, in the CUDA kernel's
-    layout (fields in :class:`PackedQNet` order)."""
+    layout: the fields in :class:`PackedQNet` order, except that layer 2
+    is stored input-major (``w2t`` transposed, so a 16-byte load holds 4
+    hidden units of one input)."""
     lead = p.w1t.shape[:-2]
-    flat = torch.cat([f.reshape(lead + (-1,)) for f in p], dim=-1)
+    fields = p._replace(w2t=p.w2t.transpose(-1, -2))
+    flat = torch.cat([f.reshape(lead + (-1,)) for f in fields], dim=-1)
     if flat.shape[-1] != NET:
         raise ValueError(f"packed net has {flat.shape[-1]} floats, the "
                          f"kernel takes hidden={HIDDEN} ({NET} floats)")

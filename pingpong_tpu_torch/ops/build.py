@@ -61,10 +61,11 @@ class CudaKernel:
                      for p in [self.source, *CSRC.glob("*.cuh")])
         return self.library.stat().st_mtime < newest
 
-    def start_build(self) -> Optional[subprocess.Popen]:
+    def start_build(self, force: bool = False) -> Optional[subprocess.Popen]:
         """Start ``nvcc`` for this source if the library is missing or
-        stale; returns the process (or None when nothing to do)."""
-        if not self._stale():
+        stale, or always with ``force``; returns the process (or None when
+        nothing to do)."""
+        if not (force or self._stale()):
             return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = self.library.with_name(self.library.name + f".tmp-{os.getpid()}")
@@ -115,11 +116,13 @@ class CudaKernel:
         self.launches += 1
 
 
-def build_all(kernels: Iterable[CudaKernel]) -> Dict[str, str]:
-    """Build every stale kernel library with one ``nvcc`` per source, all
-    started together; returns each kernel's compiler log."""
+def build_all(kernels: Iterable[CudaKernel],
+              force: bool = False) -> Dict[str, str]:
+    """Build every stale kernel library (every one with ``force``) with one
+    ``nvcc`` per source, all started together; returns each kernel's
+    compiler log (empty for a library that was not rebuilt)."""
     kernels = list(kernels)
-    procs = [(k, k.start_build()) for k in kernels]
+    procs = [(k, k.start_build(force)) for k in kernels]
     for k, p in procs:
         k.finish_build(p)
     return {k.name: k.ptxas_log for k in kernels}

@@ -403,6 +403,8 @@ class Hyper(ctypes.Structure):
 
 
 _vp, _i = ctypes.c_void_p, ctypes.c_int
+BATCH_MULTIPLE = 4    # the kernel's batch rule (the plain version takes any)
+
 KERNEL = CudaKernel(
     "drqn_update", "drqn_update_launch",
     [_i] * 7 + [ctypes.POINTER(Hyper)] + [_vp] * 11,
@@ -422,9 +424,9 @@ def drqn_update_cuda(*, ts0, count0, xt, nextt, meta, noise, params, target,
     if max(dims) > MAX_WIDTH:
         raise ValueError(f"update kernel takes widths <= {MAX_WIDTH}, "
                          f"got {dims}")
-    if bs % 4:
+    if bs % BATCH_MULTIPLE:
         raise ValueError(f"update kernel takes a batch that is a multiple "
-                         f"of 4, got {bs}")
+                         f"of {BATCH_MULTIPLE}, got {bs}")
     dev = params.device
     n_par = param_slices(dims)["n"][0]
     check_cuda("xt", xt, torch.float32, (K, 7, T * 2 * bs))

@@ -51,7 +51,11 @@ from pingpong_tpu_torch.models.qnet_rnn import (
     qnet_rnn_sample_noise,
     qnet_rnn_to_flat,
 )
-from pingpong_tpu_torch.ops.drqn_update import drqn_update_block, flat_noise
+from pingpong_tpu_torch.ops.drqn_update import (
+    BATCH_MULTIPLE,
+    drqn_update_block,
+    flat_noise,
+)
 from pingpong_tpu_torch.ops.recurrent_rollout import (
     PackedQNetRNN,
     pack_qnet_rnn,
@@ -118,6 +122,17 @@ def stack_rnn_opponents(params_a: QNetRNN, pool: Sequence[QNetRNN]
     return [params_a] + list(pool), len(pool)
 
 
+def check_kernel_batch(cfg: DRQNConfig, device: torch.device) -> None:
+    """Raise, naming the setting, for a batch the update kernel does not
+    take on the card; the CPU's plain version takes any batch, as the JAX
+    learner's XLA update does."""
+    if device.type == "cuda" and cfg.batch_size % BATCH_MULTIPLE:
+        raise ValueError(
+            f"the DRQN update kernel takes a batch that is a multiple of "
+            f"{BATCH_MULTIPLE} on the card; set drqn.batch_size to a "
+            f"multiple of {BATCH_MULTIPLE} (got {cfg.batch_size})")
+
+
 class DRQNLearner:
     """Binds (EnvConfig, DRQNConfig) to one device and runs train
     iterations on a :class:`DRQNTrainState`."""
@@ -126,6 +141,7 @@ class DRQNLearner:
         self.env_cfg = env_cfg
         self.cfg = cfg
         self.device = resolve_device(device)
+        check_kernel_batch(cfg, self.device)
         self.env_params: EnvParams = env_params_from_config(env_cfg)
         self.dims = (cfg.feature_dim // 2, cfg.feature_dim,
                      cfg.lstm_hidden_dim, cfg.head_hidden_dim)

@@ -128,7 +128,12 @@ def test_pack_qnet_matches_jax(mirror):
         np.testing.assert_array_equal(getattr(got, name).numpy(),
                                       np.asarray(getattr(want, name)),
                                       err_msg=name)
-    assert tar.packed_flat(got).shape == (3, tar.NET)
+    flat = tar.packed_flat(got)
+    assert flat.shape == (3, tar.NET)
+    # the kernel reads layer 2 input-major: 4 hidden units a 16-byte load
+    w2 = flat[:, 576:576 + 64 * 64].reshape(3, 64, 64)
+    assert torch.equal(w2, got.w2t.transpose(1, 2))
+    assert torch.equal(flat[:, :512], got.w1t.reshape(3, -1))
 
 
 def test_epsilon_quantization():

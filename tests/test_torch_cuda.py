@@ -34,7 +34,7 @@ from pingpong_tpu_torch.ops import drqn_update as tdru
 from pingpong_tpu_torch.ops import pong_kernel as tpk
 from pingpong_tpu_torch.ops import recurrent_rollout as trr
 from pingpong_tpu_torch.replay.per import Transition, per_init, per_push
-from pingpong_tpu_torch.train.dqn import DQNLearner
+from pingpong_tpu_torch.train.dqn import DQNLearner, bucket_opp_idx
 from pingpong_tpu_torch.train.drqn import DRQNLearner
 
 CONFIG = "configs/qnet.yaml"
@@ -50,7 +50,18 @@ def cuda():
     return torch.device("cuda")
 
 
-def actor_args(n_slots, shared, eval_mode, dev, seed=3):
+def opp_binding(n_slots, n_envs, seed, bucketed):
+    """Each env's slot: sorted random draws, or the learners' contiguous
+    buckets (the first 60 % on slot 0, the rest split over the others),
+    which put several members in one block or group at the seams."""
+    if bucketed:
+        return bucket_opp_idx(n_envs, 0.4, n_slots - 1).numpy()
+    rng = np.random.default_rng(seed)
+    return np.sort(rng.integers(0, n_slots, n_envs)).astype(np.int32)
+
+
+def actor_args(n_slots, shared, eval_mode, dev, seed=3, n_envs=B,
+               tile_rows=TILE, bucketed=False):
     cfg = load_config(CONFIG)
     gen = torch.Generator().manual_seed(seed)
     learner = qnet_init(gen)
@@ -62,15 +73,14 @@ def actor_args(n_slots, shared, eval_mode, dev, seed=3):
         for p in members[1:]:
             p.feat1.load_state_dict(members[0].feat1.state_dict())
             p.feat2.load_state_dict(members[0].feat2.state_dict())
-    rng = np.random.default_rng(seed)
-    opp = np.sort(rng.integers(0, n_slots, B)).astype(np.int32)
+    opp = opp_binding(n_slots, n_envs, seed, bucketed)
     env_params = env_params_from_config(cfg.env)
-    args = (env_params, reset(env_params, B, gen, dev),
-            torch.from_numpy(opp).to(dev), torch.zeros(B, device=dev),
+    args = (env_params, reset(env_params, n_envs, gen, dev),
+            torch.from_numpy(opp).to(dev), torch.zeros(n_envs, device=dev),
             tar.pack_qnet(learner.to(dev)),
             tar.pack_qnet([m.to(dev) for m in members], mirror=True))
     kw = dict(seed=1234567, eps_i=0 if eval_mode else 300000, steps=T,
-              max_episode_steps=0 if eval_mode else 40, tile_rows=TILE,
+              max_episode_steps=0 if eval_mode else 40, tile_rows=tile_rows,
               emit_transitions=not eval_mode, shared_trunk=shared)
     return args, kw
 
@@ -79,13 +89,34 @@ def actor_args(n_slots, shared, eval_mode, dev, seed=3):
 @pytest.mark.parametrize("n_slots,shared,eval_mode", [
     (1, False, False), (3, True, False), (3, False, False), (1, False, True)])
 def test_actor_kernel_matches_plain(cuda, n_slots, shared, eval_mode):
-    args, kw = actor_args(n_slots, shared, eval_mode, cuda)
+    check_actor_kernel(cuda, *actor_args(n_slots, shared, eval_mode, cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["b384_tile128", "17slot_shared_mixed"])
+def test_actor_kernel_matches_plain_at_other_shapes(cuda, case):
+    """384 envs in tiles of 128 (12 blocks of 32 envs); 17 heads-only slots
+    bound in buckets, so blocks hold several members."""
+    if case == "b384_tile128":
+        args, kw = actor_args(3, False, False, cuda, n_envs=384, tile_rows=128)
+    else:
+        args, kw = actor_args(17, True, False, cuda, bucketed=True)
+        per_block = args[2].view(-1, 32)
+        assert bool((per_block.amin(1) != per_block.amax(1)).any())
+    check_actor_kernel(cuda, args, kw)
+
+
+def check_actor_kernel(dev, args, kw):
+    """The kernel against the plain version on the same inputs, at
+    chip_smoke.py's tolerances."""
+    eval_mode = not kw["emit_transitions"]
+    n_envs = args[1].ball_x.shape[0]
     before = tar.KERNEL.launches
     sk, rk, tk, stk = tar.actor_rollout_cuda(*args, **kw)
     sp, rp, tp, stp = tar.actor_rollout_plain(*args, **kw)
     torch.cuda.synchronize()
     assert tar.KERNEL.launches == before + 1
-    ok = torch.ones(B, dtype=torch.bool, device=cuda)
+    ok = torch.ones(n_envs, dtype=torch.bool, device=dev)
     if not eval_mode:
         eq = ((tk["action"] == tp["action"]) & (tk["reward"] == tp["reward"])
               & (tk["done"] == tp["done"]))
@@ -186,6 +217,26 @@ def test_update_kernels_are_bit_reproducible(cuda, heads_only):
 
 
 @pytest.mark.cuda
+def test_rollout_kernels_are_bit_reproducible(cuda):
+    """Both rollout kernels sum in a fixed order (loops and shuffle
+    butterflies): two launches on the same inputs agree bit for bit, blocks
+    of several members included."""
+    for fn, (args, kw) in (
+            (tar.actor_rollout_cuda, actor_args(3, False, False, cuda)),
+            (tar.actor_rollout_cuda, actor_args(17, True, False, cuda,
+                                                bucketed=True)),
+            (trr.recurrent_rollout_cuda, rnn_args(3, False, cuda,
+                                                  bucketed=True))):
+        one, two = fn(*args, **kw), fn(*args, **kw)
+        torch.cuda.synchronize()
+        flat = lambda out: [t for x in out for t in (
+            x.values() if isinstance(x, dict) else
+            (x if isinstance(x, tuple) else (x,)))]
+        for a, b in zip(flat(one), flat(two)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_wrappers_check_their_arguments(cuda):
     args, kw = actor_args(1, False, False, cuda)
     with pytest.raises(ValueError, match="tile_rows"):
@@ -225,26 +276,28 @@ RNN_WIDTHS = dict(feature_dim=64, lstm_hidden_dim=32, head_hidden_dim=32)
 RNN_DIMS = (32, 64, 32, 32)
 
 
-def rnn_args(n_slots, eval_mode, dev, seed=5):
+def rnn_args(n_slots, eval_mode, dev, seed=5, n_envs=B, tile_rows=TILE,
+             widths=RNN_WIDTHS, bucketed=False):
     cfg = load_config(RNN_CONFIG)
     gen = torch.Generator().manual_seed(seed)
-    learner, *members = (qnet_rnn_init(gen, **RNN_WIDTHS).to(dev)
+    learner, *members = (qnet_rnn_init(gen, **widths).to(dev)
                          for _ in range(1 + n_slots))
     if eval_mode:
         for layer in (learner.fc_a, learner.shared):
             layer.w_sigma.data.zero_()
             layer.b_sigma.data.zero_()
     rng = np.random.default_rng(seed)
-    opp = np.sort(rng.integers(0, n_slots, B)).astype(np.int32)
-    hid = rng.uniform(-0.5, 0.5, (4 * 32, B)).astype(np.float32)
+    opp = opp_binding(n_slots, n_envs, seed, bucketed)
+    hid = rng.uniform(-0.5, 0.5, (4 * widths["lstm_hidden_dim"], n_envs)
+                      ).astype(np.float32)
     env_params = env_params_from_config(cfg.env)
-    args = (env_params, reset(env_params, B, gen, dev),
-            torch.from_numpy(opp).to(dev), torch.zeros(B, device=dev),
+    args = (env_params, reset(env_params, n_envs, gen, dev),
+            torch.from_numpy(opp).to(dev), torch.zeros(n_envs, device=dev),
             torch.from_numpy(hid).to(dev), trr.pack_qnet_rnn(learner),
             trr.pack_rnn_sigma(learner),
             trr.pack_qnet_rnn(members, mirror=True))
     kw = dict(seed=1234567, eps_i=0 if eval_mode else 300000, steps=T,
-              max_episode_steps=0 if eval_mode else 40, tile_rows=TILE,
+              max_episode_steps=0 if eval_mode else 40, tile_rows=tile_rows,
               emit_transitions=not eval_mode)
     return args, kw
 
@@ -253,13 +306,45 @@ def rnn_args(n_slots, eval_mode, dev, seed=5):
 @pytest.mark.parametrize("n_slots,eval_mode", [(1, False), (3, False),
                                                (1, True)])
 def test_recurrent_kernel_matches_plain(cuda, n_slots, eval_mode):
-    args, kw = rnn_args(n_slots, eval_mode, cuda)
+    check_recurrent_kernel(cuda, *rnn_args(n_slots, eval_mode, cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["b1000_tile40", "small_widths",
+                                  "3slot_bucketed_mixed", "b4096"])
+def test_recurrent_kernel_matches_plain_at_other_shapes(cuda, case):
+    """1000 envs in tiles of 40 (125 blocks of 8 envs, 5 a tile); the
+    smallest widths (F1 16, F 32, H 16, HH 16: most of a row's lanes
+    idle); 3 slots bound in buckets, so blocks mix members; the bench's
+    4096 envs at the configs' widths (512 blocks, several a SM)."""
+    if case == "b1000_tile40":
+        args, kw = rnn_args(2, False, cuda, n_envs=1000, tile_rows=40)
+    elif case == "small_widths":
+        args, kw = rnn_args(2, False, cuda, widths=dict(
+            feature_dim=32, lstm_hidden_dim=16, head_hidden_dim=16))
+    elif case == "3slot_bucketed_mixed":
+        args, kw = rnn_args(3, False, cuda, bucketed=True)
+        per_block = args[2].view(-1, 8)
+        assert bool((per_block.amin(1) != per_block.amax(1)).any())
+    else:
+        widths = dict(feature_dim=128, lstm_hidden_dim=128,
+                      head_hidden_dim=128)
+        args, kw = rnn_args(1, False, cuda, n_envs=4096, tile_rows=512,
+                            widths=widths)
+    check_recurrent_kernel(cuda, args, kw)
+
+
+def check_recurrent_kernel(dev, args, kw):
+    """The kernel against the plain version on the same inputs, at
+    chip_smoke.py's tolerances."""
+    eval_mode = not kw["emit_transitions"]
+    n_envs = args[1].ball_x.shape[0]
     before = trr.KERNEL.launches
     sk, rk, hk, tk, stk = trr.recurrent_rollout_cuda(*args, **kw)
     sp, rp, hp, tp, stp = trr.recurrent_rollout_plain(*args, **kw)
     torch.cuda.synchronize()
     assert trr.KERNEL.launches == before + 1
-    ok = torch.ones(B, dtype=torch.bool, device=cuda)
+    ok = torch.ones(n_envs, dtype=torch.bool, device=dev)
     if not eval_mode:
         eq = ((tk["action"] == tp["action"]) & (tk["reward"] == tp["reward"])
               & (tk["done"] == tp["done"]))

@@ -50,7 +50,7 @@ from pingpong_tpu_torch.models.qnet_rnn import QNetRNNNoise
 from pingpong_tpu_torch.ops.drqn_update import flat_noise
 from pingpong_tpu_torch.selfplay.loop_rnn import DRQNSelfPlay
 from pingpong_tpu_torch.selfplay.pool import load_params_any
-from pingpong_tpu_torch.train.drqn import DRQNLearner
+from pingpong_tpu_torch.train.drqn import DRQNLearner, check_kernel_batch
 from pingpong_tpu_torch.utils.metrics import MetricsLogger
 
 CONFIG = "configs/rnn.yaml"
@@ -236,6 +236,38 @@ def test_update_waits_for_the_episode_gate():
     assert state.buffer.cursor == 8 and state.train_steps == 0
     assert m.buffer_episodes <= BS
     assert torch.equal(state.params, before)
+
+
+def test_card_learner_refuses_a_batch_the_update_kernel_cannot_take(
+        monkeypatch):
+    """On the card the update kernel takes a batch that is a multiple of
+    4: construction refuses 6 by name, before any launch. The CPU's plain
+    update runs it, as the JAX learner's XLA update does."""
+    cfg = load_config(CONFIG)
+    dq = dataclasses.replace(cfg.drqn, **{**SMALL, "batch_size": 6})
+    with pytest.raises(ValueError, match=r"drqn\.batch_size"):
+        check_kernel_batch(dq, torch.device("cuda"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match=r"drqn\.batch_size"):
+        DRQNLearner(cfg.env, dq, device="cuda")
+    check_kernel_batch(dataclasses.replace(dq, batch_size=8),
+                       torch.device("cuda"))
+    monkeypatch.undo()
+
+    learner = DRQNLearner(cfg.env, dq, device="cpu")
+    state = learner.init_state(1)
+    # scores one point from the end: episodes end, the update gate opens
+    rng = np.random.default_rng(3)
+    state.env_state = state.env_state._replace(
+        score_a=torch.from_numpy(rng.integers(1, 3, B).astype(np.int32)),
+        score_b=torch.from_numpy(rng.integers(1, 3, B).astype(np.int32)))
+    opp = learner.prepare_opponents([learner.params_b(state)])
+    for _ in range(2):
+        state, m = learner.train_iteration(state, opp, 0)
+        if m.updates_run:
+            break
+    assert m.updates_run == K and np.isfinite(m.mean_loss)
+    assert state.opt_count == K
 
 
 def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch, tmp_path):
