@@ -25,10 +25,19 @@
 
 Any failed check exits non-zero before the last line. Without a CUDA card
 it exits 1 and prints no result.
+
+    python3 chip_smoke.py --rollout-times DIR
+
+times only the two training rollout kernels (kernels 1 and 3) of the
+checkout at DIR, at every shape their paths launch them at, with this
+script's inputs and yardstick (``time_rollouts``), and prints one JSON
+line. Run it on a parent commit unpacked under ``build/`` and on this
+checkout, in one call, to compare the two on one card.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import re
@@ -42,8 +51,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 F32_PEAK = 67e12        # H100 SXM float32 (non-tensor-core) FLOP/s
 HBM_RATE = 3.35e12      # H100 SXM HBM3 bytes/s
-# set in main() from the card, configs/qnet.yaml and configs/rnn.yaml
-CARD = ENV_PARAMS = TILE = MAX_EP_STEPS = None
+# set by setup() from the card, configs/qnet.yaml and configs/rnn.yaml
+CARD = DEV = ENV_PARAMS = TILE = MAX_EP_STEPS = MAX_ROLLOUT = QNET_B = None
 RNN_ENV = RNN_CFG = None
 
 
@@ -889,6 +898,36 @@ def drive(name, cli, args_fn, kernels, ckpt_sub, promoted_name):
     return launches, workdir / ckpt_sub / promoted_name
 
 
+def time_rollouts():
+    """CUDA-event means (warm launches) of kernels 1 and 3 at every shape
+    their paths launch them at: kernel 1 at ``configs/qnet.yaml``'s train
+    chunk (2 slots sharing a trunk, transitions), its 256-step gate chunk
+    (1 slot, no transitions) and the bench's pool-16 chunk (8192 x 128, 17
+    slots of one trunk); kernel 3 at ``configs/rnn.yaml``'s train chunk (2
+    slots), its 256-step gate chunk and the DRQN bench's 4096 envs. Uses
+    whichever checkout's package was imported first."""
+    from pingpong_tpu_torch.ops import actor_rollout as ar
+    from pingpong_tpu_torch.ops import recurrent_rollout as rr
+
+    T, RT = MAX_ROLLOUT, RNN_CFG.rollout_length
+    rows = [
+        ("actor_rollout:train", ar.actor_rollout_cuda, run_actor,
+         actor_inputs(200, 2, True, False, QNET_B, DEV), T, 20),
+        ("actor_rollout:gate", ar.actor_rollout_cuda, run_actor,
+         actor_inputs(201, 1, False, True, QNET_B, DEV), 256, 10),
+        ("actor_rollout:bench_pool16", ar.actor_rollout_cuda, run_actor,
+         actor_inputs(202, 17, True, False, 8192, DEV), 128, 10),
+        ("recurrent_rollout:train", rr.recurrent_rollout_cuda, run_rnn,
+         rnn_inputs(500, 2, False, DEV), RT, 10),
+        ("recurrent_rollout:gate", rr.recurrent_rollout_cuda, run_rnn,
+         rnn_inputs(501, 1, True, DEV), 256, 5),
+        ("recurrent_rollout:bench", rr.recurrent_rollout_cuda, run_rnn,
+         rnn_inputs(502, 1, False, DEV, 4096), RT, 5),
+    ]
+    return {name: cuda_ms(lambda: run(fn, inp, steps), reps)
+            for name, fn, run, inp, steps, reps in rows}
+
+
 def kernel_row(name, source, replaces, launches, err, ms, plain, bound):
     """One entry of the ``kernels`` line. No single PyTorch call computes
     any of these fused functions, so ``library_ms`` is null."""
@@ -899,16 +938,55 @@ def kernel_row(name, source, replaces, launches, err, ms, plain, bound):
             "bound_by": bound[1], "library_ms": None, "compare": "pass"}
 
 
-def main() -> int:
-    global CARD, ENV_PARAMS, TILE, MAX_EP_STEPS, RNN_ENV, RNN_CFG
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(ROOT))
-    from pingpong_tpu_torch import cli
+def setup(root: Path):
+    """Import the package of the checkout at ``root`` and set the globals
+    from the card and that checkout's configs."""
+    global CARD, DEV, ENV_PARAMS, TILE, MAX_EP_STEPS, MAX_ROLLOUT, QNET_B
+    global RNN_ENV, RNN_CFG
+    sys.path.insert(0, str(root))
     from pingpong_tpu_torch.bench import card_name
     from pingpong_tpu_torch.config import load_config
     from pingpong_tpu_torch.env.pong import env_params_from_config
+
+    DEV = torch.device("cuda")
+    CARD = card_name(DEV)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = load_config(root / "configs" / "qnet.yaml")
+    ENV_PARAMS = env_params_from_config(cfg.env)
+    QNET_B, MAX_ROLLOUT = cfg.dqn.num_envs, cfg.dqn.rollout_length
+    TILE = min(cfg.dqn.pallas_tile_rows, QNET_B)
+    MAX_EP_STEPS = cfg.env.max_episode_steps
+    rcfg = load_config(root / "configs" / "rnn.yaml")
+    RNN_ENV = env_params_from_config(rcfg.env)
+    RNN_CFG = rcfg.drqn
+    return cfg, rcfg
+
+
+def rollout_times_only(root: Path) -> int:
+    """``--rollout-times``: kernels 1 and 3 of the checkout at ``root``."""
+    setup(root)
+    from pingpong_tpu_torch.ops import actor_rollout as ar
+    from pingpong_tpu_torch.ops import recurrent_rollout as rr
+    from pingpong_tpu_torch.ops.build import build_all
+
+    build_all([ar.KERNEL, rr.KERNEL])
+    times = time_rollouts()
+    print(json.dumps({"rollout_times": str(root), "card": CARD, "ms": times}))
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--rollout-times", type=Path, metavar="DIR")
+    a = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if a.rollout_times is not None:
+        return rollout_times_only(a.rollout_times.resolve())
+    cfg, rcfg = setup(ROOT)
+    from pingpong_tpu_torch import cli
     from pingpong_tpu_torch.models.policy import (
         qnet_act_greedy,
         rnn_act_greedy,
@@ -925,23 +1003,13 @@ def main() -> int:
     from pingpong_tpu_torch.train.drqn import DRQNLearner
 
     t_start = time.time()
-    dev = torch.device("cuda")
-    CARD = card_name(dev)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cfg = load_config(ROOT / "configs" / "qnet.yaml")
-    ENV_PARAMS = env_params_from_config(cfg.env)
-    B, T = cfg.dqn.num_envs, cfg.dqn.rollout_length
-    TILE = min(cfg.dqn.pallas_tile_rows, B)
-    MAX_EP_STEPS = cfg.env.max_episode_steps
-    rcfg = load_config(ROOT / "configs" / "rnn.yaml")
-    RNN_ENV = env_params_from_config(rcfg.env)
-    RNN_CFG = rcfg.drqn
+    dev = DEV
+    B, T = QNET_B, MAX_ROLLOUT
 
     # ---- 1. build ---------------------------------------------------------
     t0 = time.time()
     kernels = [ar.KERNEL, du.KERNEL, rr.KERNEL, dru.KERNEL, pk.KERNEL]
-    logs = build_all(kernels, force=True)
+    logs = build_all(kernels)
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
@@ -1030,12 +1098,12 @@ def main() -> int:
     time_iterations("drqn", rlearner, rstate, ropp)
     profile_bench(dev)
 
+    ro = time_rollouts()
+    a_ms = ro["actor_rollout:train"]
     inp = actor_inputs(200, 2, True, False, B, dev)
-    a_ms = cuda_ms(lambda: run_actor(ar.actor_rollout_cuda, inp, T), 20)
     a_plain = cuda_ms(lambda: run_actor(ar.actor_rollout_plain, inp, T), 3, 1)
-    ainp = actor_inputs(201, 1, False, True, B, dev)
-    ae_ms = cuda_ms(lambda: run_actor(ar.actor_rollout_cuda, ainp, 256), 10)
     ae_bound = actor_bound_ms(B, 256, 1, emit=False)
+    ab_bound = actor_bound_ms(8192, 128, 17)
     ukw = update_kwargs(upd_inp, True, 0.0, 1000)
     u_ms = cuda_ms(lambda: du.dqn_update_cuda(**ukw), 10)
     u_plain = cuda_ms(lambda: du.dqn_update_plain(**ukw), 2, 1)
@@ -1043,14 +1111,10 @@ def main() -> int:
     u512_ms = cuda_ms(lambda: du.dqn_update_cuda(**ukw512), 10)
     RB, RT = RNN_CFG.num_envs, RNN_CFG.rollout_length
     rtile = min(RNN_CFG.pallas_tile_rows, RB)
+    r_ms = ro["recurrent_rollout:train"]
     rinp = rnn_inputs(500, 2, False, dev)
-    r_ms = cuda_ms(lambda: run_rnn(rr.recurrent_rollout_cuda, rinp, RT), 10)
     r_plain = cuda_ms(lambda: run_rnn(rr.recurrent_rollout_plain, rinp, RT),
                       1, 1)
-    einp = rnn_inputs(501, 1, True, dev)
-    e_ms = cuda_ms(lambda: run_rnn(rr.recurrent_rollout_cuda, einp, 256), 5)
-    binp = rnn_inputs(502, 1, False, dev, 4096)
-    b_ms = cuda_ms(lambda: run_rnn(rr.recurrent_rollout_cuda, binp, RT), 5)
     b_bound = rnn_bound_ms(4096, RT, 1, 4096 // rtile)
     dkw = drqn_update_inputs(600, dev)
     d_ms = cuda_ms(lambda: dru.drqn_update_cuda(**fresh(dkw)), 10)
@@ -1070,14 +1134,18 @@ def main() -> int:
     }
     e_bound = rnn_bound_ms(RB, 256, 1, RB // rtile, emit=False)
     print(f"[time] actor_rollout {a_ms:.4f} ms (plain {a_plain:.2f} ms), "
-          f"eval chunk ({B} x 256, no transitions) {ae_ms:.4f} ms (bound "
-          f"{ae_bound[0]:.4f} ms by {ae_bound[1]}); "
+          f"eval chunk ({B} x 256, no transitions) "
+          f"{ro['actor_rollout:gate']:.4f} ms (bound {ae_bound[0]:.4f} ms by "
+          f"{ae_bound[1]}), bench pool-16 chunk (8192 x 128, 17 slots) "
+          f"{ro['actor_rollout:bench_pool16']:.4f} ms (bound "
+          f"{ab_bound[0]:.4f} ms by {ab_bound[1]}); "
           f"dqn_update {u_ms:.4f} ms (plain {u_plain:.2f} ms; bs 512 "
           f"{u512_ms:.4f} ms); "
           f"recurrent_rollout {r_ms:.4f} ms (plain {r_plain:.2f} ms), eval "
-          f"chunk (T 256, no transitions) {e_ms:.4f} ms (bound "
-          f"{e_bound[0]:.4f} ms by {e_bound[1]}), B 4096 chunk {b_ms:.4f} ms "
-          f"(bound {b_bound[0]:.4f} ms by {b_bound[1]}); "
+          f"chunk (T 256, no transitions) {ro['recurrent_rollout:gate']:.4f} "
+          f"ms (bound {e_bound[0]:.4f} ms by {e_bound[1]}), B 4096 chunk "
+          f"{ro['recurrent_rollout:bench']:.4f} ms (bound {b_bound[0]:.4f} ms "
+          f"by {b_bound[1]}); "
           f"drqn_update {d_ms:.4f} ms "
           f"(plain {d_plain:.2f} ms); pong_kernel {p_ms:.4f} ms (plain "
           f"{p_plain:.2f} ms, {PONG_B * PONG_STEPS / p_ms * 1e3:.4g} "

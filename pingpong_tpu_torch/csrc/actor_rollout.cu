@@ -398,8 +398,8 @@ actor_rollout_kernel(EnvP p, const float* __restrict__ f_in,
 extern "C" {
 
 // Launch one rollout chunk on `stream`, B / 16 blocks. B % tile_rows == 0
-// and tile_rows % 128 == 0 (checked by the Python wrapper; the kernel needs
-// tile_rows % 16 == 0). Transition pointers may all be null (eval mode).
+// and tile_rows % 16 == 0 (checked by the Python wrapper too). Transition
+// pointers may all be null (eval mode).
 // Returns the cudaError_t of the launch.
 int actor_rollout_launch(const EnvP* p, const float* f_in, const int* i_in,
                          const float* learner, const float* opp,

@@ -28,12 +28,13 @@
 // coalesced across threads. A block-step streams about 1.3 MB from L2 with
 // 8 FMAs a load, so the three weight loops (f2, gates, shared head) are
 // unrolled 32 deep to keep that many independent loads in flight a thread.
-// (A design that kept the gate weights resident in shared memory across an
-// 8-CTA cluster, split by LSTM unit, was built and measured slower on the
-// card: every CTA must hold all of x = [f2; h], which leaves room for
-// only about 32 envs a cluster, so a 1024-env chunk runs in several rounds
-// of clusters and a per-step chain of four cluster barriers dominates;
-// PERF.md.) The learner's noisy head weights are formed on the fly (mu +
+// (Designs that kept the gate weights resident in shared memory across an
+// 8-CTA cluster, split by LSTM unit, were built and measured slower on the
+// card: every CTA must hold x = [f2; h] of the envs it serves, so a
+// cluster serves only some 70 envs at a time, and each step becomes a
+// chain of short phases (DSMEM pushes, cluster barriers, the head, the env
+// step) that costs more than the resident weights save; PERF.md.) The
+// learner's noisy head weights are formed on the fly (mu +
 // sigma * eps_out * eps_in), never materialized. A block whose envs are
 // bound to several pool members runs the opponent pass once per member
 // present and keeps each env's own member's result (the TPU kernel's [lo,

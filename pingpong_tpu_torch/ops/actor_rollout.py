@@ -57,7 +57,7 @@ from pingpong_tpu_torch.ops.pong_kernel import (
 NEG_BIG = -1e30
 HIDDEN = 64
 NET = 5776            # floats per packed net (see csrc/actor_rollout.cu)
-CUDA_BLOCK = 128      # tile_rows must be a multiple on the card
+CUDA_ENVS = 16        # envs per CUDA block; tile_rows must be a multiple
 
 # obs_a = _MIRROR @ obs_b (+ e_y): x, 1-y, vx, -vy, top, bottom, spin
 _MIRROR = np.zeros((8, 8), np.float32)
@@ -308,9 +308,9 @@ def actor_rollout_cuda(env_params: EnvParams, state: EnvState, opp_idx,
     (``opp_idx`` is returned unchanged by both)."""
     dev = state.ball_x.device
     B = state.ball_x.shape[0]
-    if tile_rows % CUDA_BLOCK:
+    if tile_rows % CUDA_ENVS:
         raise ValueError(f"tile_rows {tile_rows} must be a multiple of "
-                         f"{CUDA_BLOCK} on the card")
+                         f"{CUDA_ENVS} on the card")
     lw = packed_flat(learner)
     ow = packed_flat(opponents)
     n_slots = ow.shape[0]

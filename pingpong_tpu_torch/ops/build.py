@@ -4,7 +4,8 @@ Each kernel source in ``pingpong_tpu_torch/csrc/`` has a plain C
 interface. At first use it is compiled with ``nvcc`` for ``sm_90a`` into a
 shared library under ``build/torch_kernels/`` of the checkout and loaded
 with ``ctypes``; a library newer than its source and the shared headers
-(``csrc/*.cuh``) is reused. Nothing here
+(``csrc/*.cuh``) is reused, and the compiler's log written beside it
+(``lib<name>.log``) with it. Nothing here
 runs at import time: this module is imported on machines without a card
 or a compiler, where only the kernels' plain PyTorch versions run.
 """
@@ -45,27 +46,26 @@ class CudaKernel:
         self.name = name
         self.source = CSRC / f"{name}.cu"
         self.library = BUILD_DIR / f"lib{name}.so"
+        self.log = BUILD_DIR / f"lib{name}.log"
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
         self._fn = None
         self._lib = None
-        self.ptxas_log = ""
 
     def _stale(self) -> bool:
-        """The library is missing or older than its source or any shared
-        header of ``csrc/``."""
-        if not self.library.exists():
+        """The library or its log is missing, or older than its source or
+        any shared header of ``csrc/``."""
+        if not (self.library.exists() and self.log.exists()):
             return True
         newest = max(p.stat().st_mtime
                      for p in [self.source, *CSRC.glob("*.cuh")])
         return self.library.stat().st_mtime < newest
 
-    def start_build(self, force: bool = False) -> Optional[subprocess.Popen]:
+    def start_build(self) -> Optional[subprocess.Popen]:
         """Start ``nvcc`` for this source if the library is missing or
-        stale, or always with ``force``; returns the process (or None when
-        nothing to do)."""
-        if not (force or self._stale()):
+        stale; returns the process (or None when nothing to do)."""
+        if not self._stale():
             return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = self.library.with_name(self.library.name + f".tmp-{os.getpid()}")
@@ -77,11 +77,15 @@ class CudaKernel:
         if proc is None:
             return
         out, _ = proc.communicate()
-        self.ptxas_log = out
         tmp = self.library.with_name(self.library.name + f".tmp-{os.getpid()}")
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {self.source}:\n{out}")
+        self.log.write_text(out)
         os.replace(tmp, self.library)
+
+    def ptxas_log(self) -> str:
+        """The compiler's log (``-Xptxas -v``) of the library in use."""
+        return self.log.read_text() if self.log.exists() else ""
 
     def fn(self):
         """The bound entry point, building the library first if needed."""
@@ -116,16 +120,15 @@ class CudaKernel:
         self.launches += 1
 
 
-def build_all(kernels: Iterable[CudaKernel],
-              force: bool = False) -> Dict[str, str]:
-    """Build every stale kernel library (every one with ``force``) with one
-    ``nvcc`` per source, all started together; returns each kernel's
-    compiler log (empty for a library that was not rebuilt)."""
+def build_all(kernels: Iterable[CudaKernel]) -> Dict[str, str]:
+    """Build every stale kernel library with one ``nvcc`` per source, all
+    started together; returns each kernel's compiler log (that of its last
+    build when the library was up to date)."""
     kernels = list(kernels)
-    procs = [(k, k.start_build(force)) for k in kernels]
+    procs = [(k, k.start_build()) for k in kernels]
     for k, p in procs:
         k.finish_build(p)
-    return {k.name: k.ptxas_log for k in kernels}
+    return {k.name: k.ptxas_log() for k in kernels}
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -93,15 +93,18 @@ def test_actor_kernel_matches_plain(cuda, n_slots, shared, eval_mode):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["b384_tile128", "17slot_shared_mixed"])
+@pytest.mark.parametrize("case", ["b384_tile128", "b384_tile48",
+                                  "17slot_shared_mixed"])
 def test_actor_kernel_matches_plain_at_other_shapes(cuda, case):
-    """384 envs in tiles of 128 (12 blocks of 32 envs); 17 heads-only slots
-    bound in buckets, so blocks hold several members."""
-    if case == "b384_tile128":
-        args, kw = actor_args(3, False, False, cuda, n_envs=384, tile_rows=128)
+    """384 envs in tiles of 128 or of 48, the least multiple of a block's
+    16 envs above 32 (24 blocks); 17 heads-only slots bound in buckets, so
+    blocks hold several members."""
+    if case.startswith("b384_tile"):
+        args, kw = actor_args(3, False, False, cuda, n_envs=384,
+                              tile_rows=int(case[len("b384_tile"):]))
     else:
         args, kw = actor_args(17, True, False, cuda, bucketed=True)
-        per_block = args[2].view(-1, 32)
+        per_block = args[2].view(-1, 16)
         assert bool((per_block.amin(1) != per_block.amax(1)).any())
     check_actor_kernel(cuda, args, kw)
 
@@ -240,7 +243,7 @@ def test_rollout_kernels_are_bit_reproducible(cuda):
 def test_wrappers_check_their_arguments(cuda):
     args, kw = actor_args(1, False, False, cuda)
     with pytest.raises(ValueError, match="tile_rows"):
-        tar.actor_rollout_cuda(*args, **{**kw, "tile_rows": 64})
+        tar.actor_rollout_cuda(*args, **{**kw, "tile_rows": 40})
     bad_idx = args[2].to(torch.int64)
     with pytest.raises(ValueError, match="opp_idx"):
         tar.actor_rollout_cuda(*args[:2], bad_idx, *args[3:], **kw)
