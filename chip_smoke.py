@@ -19,20 +19,26 @@
 4. times each kernel (CUDA events, warm) beside its plain version and its
    bound, and a train iteration of each path end to end, and profiles
    where an iteration's and the bench's device time goes
-   (``torch.profiler``);
+   (``torch.profiler``); for kernel 3 it prints, at each timed binding,
+   the L2 weight bytes of a chunk under the parent design's and the
+   one-member design's stream counts, the launch plan (envs a block,
+   blocks, clusters, rounds, residency) and checks that the card's block
+   table equals ``block_table``'s and holds one member a block;
 5. prints the ``kernels`` JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line. Without a CUDA card
 it exits 1 and prints no result.
 
-    python3 chip_smoke.py --rollout-times DIR
+    python3 chip_smoke.py --rollout-times DIR [--clusters C ...]
 
 times only the two training rollout kernels (kernels 1 and 3) of the
 checkout at DIR, at every shape their paths launch them at, with this
 script's inputs and yardstick (``time_rollouts``), and prints one JSON
-line. Run it on a parent commit unpacked under ``build/`` and on this
-checkout, in one call, to compare the two on one card.
+line; ``--clusters 1 2 4`` also times kernel 3 built for each cluster size
+(where DIR's kernel has clusters). Run it on a parent commit unpacked
+under ``build/`` and on this checkout, in one call, to compare the two on
+one card.
 """
 
 from __future__ import annotations
@@ -410,13 +416,29 @@ def rnn_nets(gen, n, dev):
             for _ in range(n)]
 
 
-def rnn_inputs(seed, n_slots, eval_mode, dev, B=None):
+def rebind_opp_idx(B, ratio, pool_size, seed, dev):
+    """The binding ``train/drqn.py`` leaves after the pool grew from
+    ``pool_size - 1`` to ``pool_size`` members: a seeded random half of the
+    envs (those that ended) on the new buckets, the rest on the old."""
+    from pingpong_tpu_torch.train.dqn import bucket_opp_idx
+
+    g = torch.Generator().manual_seed(seed)
+    moved = (torch.randperm(B, generator=g) < B // 2).to(dev)
+    return torch.where(moved, bucket_opp_idx(B, ratio, pool_size, device=dev),
+                       bucket_opp_idx(B, ratio, pool_size - 1, device=dev))
+
+
+def rnn_inputs(seed, n_slots, eval_mode, dev, B=None, rebind=False):
+    """Kernel 3's inputs at ``configs/rnn.yaml``'s widths: random nets from
+    ``seed``, ``n_slots`` opponents bound in the learner's contiguous
+    buckets, or (``rebind``) half on the buckets of one member fewer."""
     from pingpong_tpu_torch.env.pong import reset
     from pingpong_tpu_torch.evaluation.fast_eval import _zero_rnn_sigma
     from pingpong_tpu_torch.ops import recurrent_rollout as rr
     from pingpong_tpu_torch.train.dqn import bucket_opp_idx
 
     B, H = B or RNN_CFG.num_envs, RNN_CFG.lstm_hidden_dim
+    ratio = RNN_CFG.selfplay.opponent_pool_ratio
     gen = torch.Generator().manual_seed(seed)
     learner, *members = rnn_nets(gen, 1 + n_slots, dev)
     if eval_mode:
@@ -426,8 +448,8 @@ def rnn_inputs(seed, n_slots, eval_mode, dev, B=None):
         hid.uniform_(-0.5, 0.5, generator=torch.Generator(dev).manual_seed(seed))
     return dict(
         state0=reset(RNN_ENV, B, gen, dev),
-        opp_idx=bucket_opp_idx(B, RNN_CFG.selfplay.opponent_pool_ratio,
-                               n_slots - 1, device=dev),
+        opp_idx=(rebind_opp_idx(B, ratio, n_slots - 1, seed, dev) if rebind
+                 else bucket_opp_idx(B, ratio, n_slots - 1, device=dev)),
         ep_return=torch.zeros(B, device=dev), hid=hid,
         learner=rr.pack_qnet_rnn(learner), sigma=rr.pack_rnn_sigma(learner),
         opponents=rr.pack_qnet_rnn(members, mirror=True), eval_mode=eval_mode)
@@ -490,6 +512,60 @@ def compare_rnn(name, inp):
     check(abs(gk - gp) <= 0.01 * max(gp, 1.0), f"rnn {name}: games")
     check(abs(wk - wp) <= 0.01 * max(wp, 1.0), f"rnn {name}: wins")
     return max(f32_err, hid_err)
+
+
+def rnn_weight_bytes(opp_idx, T):
+    """L2 weight bytes of one kernel-3 chunk at ``configs/rnn.yaml``'s
+    widths under two stream counts. Parent: 8 contiguous envs a block,
+    each block-step reading the whole flat net of every member present
+    (157,379 floats), the learner's and its sigmas (16,899 floats). Blocks
+    of one member: each cluster's step reads the streamed matrices (w2, wg,
+    ws of both nets and the learner's ws sigmas) once for its C CTAs, and
+    each block reads the resident parts once. Returns ``(parent bytes,
+    parent's most members in a block, None)``, or for a checkout whose
+    kernel has block tables ``(..., dict(bytes, plan, n_blocks,
+    rounds))`` after checking the card's table against ``block_table``."""
+    from pingpong_tpu_torch.ops import recurrent_rollout as rr
+
+    F1, F, H, HH = (RNN_CFG.feature_dim // 2, RNN_CFG.feature_dim,
+                    RNN_CFG.lstm_hidden_dim, RNN_CFG.head_hidden_dim)
+    net = F1 * 9 + F1 * F + F + (F + H) * 4 * H + 4 * H + H * HH + HH \
+        + 3 * HH + 3
+    sig = H * HH + HH + 3 * HH + 3
+    members = [int(torch.unique(b).numel()) for b in opp_idx.view(-1, 8)]
+    parent = 4 * T * sum(m * net + net + sig for m in members)
+    if not hasattr(rr, "launch_plan"):
+        return parent, max(members), None
+    tile = min(RNN_CFG.pallas_tile_rows, opp_idx.numel())
+    n_slots = int(opp_idx.max()) + 1
+    plan = rr.launch_plan(opp_idx, tile, n_slots, (F1, F, H, HH))
+    counts = rr.segment_counts(opp_idx, tile, n_slots)
+    plain = rr.block_table(opp_idx, tile, plan.envs, plan.cluster, counts,
+                           plan.table.shape[0])
+    _, _, n_blocks, rounds = rr.plan_counts(plan)
+    check(torch.equal(plain, plan.table) and n_blocks == int(
+        rr.member_blocks(counts, plan.envs, plan.cluster).sum()),
+          "the card's block table differs from block_table")
+    lay, _ = rr.net_layout((F1, F, H, HH))
+    slay, _ = rr.sigma_layout((F1, F, H, HH))
+    streamed = 2 * (F1 * F + (F + H) * 4 * H + H * HH) + H * HH
+    resident = 2 * lay["w2"][0] + slay["ws"][0]
+    change = 4 * (T * streamed * n_blocks // plan.cluster
+                  + resident * n_blocks)
+    return parent, max(members), dict(bytes=change, plan=plan,
+                                      n_blocks=n_blocks, rounds=rounds)
+
+
+def check_one_member_blocks(opp_idx, table, n_blocks):
+    """Every block of the table (built on the card, and equal to
+    ``block_table``'s) holds envs of its own member only: at most one
+    opponent pass a block-step. Returns the idle lanes."""
+    envs = table[:n_blocks, 1:]
+    valid = envs >= 0
+    member = table[:n_blocks, :1].expand_as(envs)
+    ok = bool((opp_idx[envs[valid].long()] == member[valid]).all())
+    check(ok, "a block holds envs of two opponents")
+    return int((~valid).sum())
 
 
 def rnn_bound_ms(B, T, n_slots, tiles, emit=True):
@@ -898,34 +974,96 @@ def drive(name, cli, args_fn, kernels, ckpt_sub, promoted_name):
     return launches, workdir / ckpt_sub / promoted_name
 
 
-def time_rollouts():
+def rnn_time_rows():
+    """Kernel 3's timed shapes: ``configs/rnn.yaml``'s train chunk (2
+    slots), its 256-step gate chunk (1 slot, no transitions), the DRQN
+    bench's 4096 envs, and the train chunk against a full pool (``pool_max``
+    + 1 slots) in contiguous buckets and in the binding a pool change
+    leaves (``rebind_opp_idx``)."""
+    RT, slots = RNN_CFG.rollout_length, RNN_CFG.pool_max + 1
+    return [
+        ("recurrent_rollout:train", rnn_inputs(500, 2, False, DEV), RT, 10),
+        ("recurrent_rollout:gate", rnn_inputs(501, 1, True, DEV), 256, 5),
+        ("recurrent_rollout:bench", rnn_inputs(502, 1, False, DEV, 4096), RT,
+         5),
+        ("recurrent_rollout:train_pool16", rnn_inputs(503, slots, False, DEV),
+         RT, 10),
+        ("recurrent_rollout:train_rebind", rnn_inputs(
+            504, slots, False, DEV, rebind=True), RT, 10),
+    ]
+
+
+def report_rnn_stream(name, inp, steps, ms, resident_check):
+    """Print kernel 3's L2 weight bytes of a chunk, and the rate they
+    imply at this time, under the parent's and the one-member stream
+    counts (``rnn_weight_bytes``), with the launch plan; fail if a block
+    holds two opponents, or (``resident_check``) if the blocks do not all
+    fit at once."""
+    parent, pmax, one = rnn_weight_bytes(inp["opp_idx"], steps)
+    line = (f"[stream:{name}] {ms:.4f} ms; L2 weight bytes a chunk: 8-env "
+            f"blocks with a member loop (up to {pmax} opponent passes a "
+            f"block-step) {parent / 1e9:.4f} GB, {parent / ms / 1e9:.3f} "
+            f"TB/s at this time")
+    if one is not None:
+        change, plan = one["bytes"], one["plan"]
+        n_blocks, rounds = one["n_blocks"], one["rounds"]
+        idle = check_one_member_blocks(inp["opp_idx"], plan.table, n_blocks)
+        cfg = plan.config
+        line += (f"; blocks of one member (1 opponent pass a block-step) "
+                 f"{change / 1e9:.4f} GB, {change / ms / 1e9:.3f} TB/s; "
+                 f"{plan.envs} envs a block, {n_blocks} blocks "
+                 f"({idle} idle lanes) in {plan.grid} clusters of "
+                 f"{plan.cluster} launched, {rounds} round(s); "
+                 f"{cfg.blocks_per_sm} block(s) an SM and {cfg.clusters} "
+                 f"clusters resident at once, ring {cfg.stages} x "
+                 f"{4 * cfg.stage_floats} B, {cfg.smem} B shared, "
+                 f"{cfg.threads} threads")
+        if resident_check:
+            check(rounds == 1, f"{name}: blocks not all resident")
+    print(line + f" | {CARD}", flush=True)
+
+
+def time_rollouts(clusters=(), resident_check=False):
     """CUDA-event means (warm launches) of kernels 1 and 3 at every shape
     their paths launch them at: kernel 1 at ``configs/qnet.yaml``'s train
     chunk (2 slots sharing a trunk, transitions), its 256-step gate chunk
     (1 slot, no transitions) and the bench's pool-16 chunk (8192 x 128, 17
-    slots of one trunk); kernel 3 at ``configs/rnn.yaml``'s train chunk (2
-    slots), its 256-step gate chunk and the DRQN bench's 4096 envs. Uses
-    whichever checkout's package was imported first."""
+    slots of one trunk); kernel 3 at ``rnn_time_rows``, each with its
+    weight-stream report. ``clusters``: kernel 3 again with each of these
+    cluster sizes built in (``name@clusterC``). Uses whichever checkout's
+    package was imported first."""
     from pingpong_tpu_torch.ops import actor_rollout as ar
     from pingpong_tpu_torch.ops import recurrent_rollout as rr
 
-    T, RT = MAX_ROLLOUT, RNN_CFG.rollout_length
+    T = MAX_ROLLOUT
     rows = [
-        ("actor_rollout:train", ar.actor_rollout_cuda, run_actor,
-         actor_inputs(200, 2, True, False, QNET_B, DEV), T, 20),
-        ("actor_rollout:gate", ar.actor_rollout_cuda, run_actor,
-         actor_inputs(201, 1, False, True, QNET_B, DEV), 256, 10),
-        ("actor_rollout:bench_pool16", ar.actor_rollout_cuda, run_actor,
-         actor_inputs(202, 17, True, False, 8192, DEV), 128, 10),
-        ("recurrent_rollout:train", rr.recurrent_rollout_cuda, run_rnn,
-         rnn_inputs(500, 2, False, DEV), RT, 10),
-        ("recurrent_rollout:gate", rr.recurrent_rollout_cuda, run_rnn,
-         rnn_inputs(501, 1, True, DEV), 256, 5),
-        ("recurrent_rollout:bench", rr.recurrent_rollout_cuda, run_rnn,
-         rnn_inputs(502, 1, False, DEV, 4096), RT, 5),
+        ("actor_rollout:train", actor_inputs(200, 2, True, False, QNET_B, DEV),
+         T, 20),
+        ("actor_rollout:gate", actor_inputs(201, 1, False, True, QNET_B, DEV),
+         256, 10),
+        ("actor_rollout:bench_pool16", actor_inputs(202, 17, True, False, 8192,
+                                                    DEV), 128, 10),
     ]
-    return {name: cuda_ms(lambda: run(fn, inp, steps), reps)
-            for name, fn, run, inp, steps, reps in rows}
+    times = {name: cuda_ms(lambda: run_actor(ar.actor_rollout_cuda, inp,
+                                             steps), reps)
+             for name, inp, steps, reps in rows}
+    rnn_rows = rnn_time_rows()
+    shipped = getattr(rr, "CUDA_CLUSTER", None)
+    for suffix, C in [("", shipped)] + [(f"@cluster{c}", c)
+                                        for c in clusters]:
+        if C is not None:
+            rr.CUDA_CLUSTER = C
+        try:
+            for name, inp, steps, reps in rnn_rows:
+                ms = cuda_ms(lambda: run_rnn(rr.recurrent_rollout_cuda, inp,
+                                             steps), reps)
+                times[name + suffix] = ms
+                report_rnn_stream(name + suffix, inp, steps, ms,
+                                  resident_check and not suffix)
+        finally:
+            if shipped is not None:
+                rr.CUDA_CLUSTER = shipped
+    return times
 
 
 def kernel_row(name, source, replaces, launches, err, ms, plain, bound):
@@ -963,15 +1101,17 @@ def setup(root: Path):
     return cfg, rcfg
 
 
-def rollout_times_only(root: Path) -> int:
-    """``--rollout-times``: kernels 1 and 3 of the checkout at ``root``."""
+def rollout_times_only(root: Path, clusters) -> int:
+    """``--rollout-times``: kernels 1 and 3 of the checkout at ``root``
+    (kernel 3 also at each of ``clusters``, where that checkout has
+    clusters)."""
     setup(root)
     from pingpong_tpu_torch.ops import actor_rollout as ar
     from pingpong_tpu_torch.ops import recurrent_rollout as rr
     from pingpong_tpu_torch.ops.build import build_all
 
     build_all([ar.KERNEL, rr.KERNEL])
-    times = time_rollouts()
+    times = time_rollouts(clusters if hasattr(rr, "CUDA_CLUSTER") else ())
     print(json.dumps({"rollout_times": str(root), "card": CARD, "ms": times}))
     return 0
 
@@ -979,12 +1119,15 @@ def rollout_times_only(root: Path) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rollout-times", type=Path, metavar="DIR")
+    ap.add_argument("--clusters", type=int, nargs="*", default=[],
+                    metavar="C", help="with --rollout-times: also time "
+                    "kernel 3 built for clusters of C CTAs (1, 2 or 4)")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     if a.rollout_times is not None:
-        return rollout_times_only(a.rollout_times.resolve())
+        return rollout_times_only(a.rollout_times.resolve(), a.clusters)
     cfg, rcfg = setup(ROOT)
     from pingpong_tpu_torch import cli
     from pingpong_tpu_torch.models.policy import (
@@ -1044,11 +1187,14 @@ def main(argv=None) -> int:
         "bs512_heads_only_hard_sync", upd_inp512, True, 0.0, 16))
     rnn_err = 0.0
     # the last case is the DRQN bench's 4096 envs
-    for i, (name, n_slots, eval_mode, n_envs) in enumerate([
-            ("1slot", 1, False, None), ("3slot_bucketed", 3, False, None),
-            ("eval", 1, True, None), ("bench_4096_envs", 1, False, 4096)]):
+    for i, (name, n_slots, eval_mode, n_envs, rebind) in enumerate([
+            ("1slot", 1, False, None, False),
+            ("3slot_bucketed", 3, False, None, False),
+            ("eval", 1, True, None, False),
+            ("bench_4096_envs", 1, False, 4096, False),
+            ("rebind_17slot", RNN_CFG.pool_max + 1, False, None, True)]):
         rnn_err = max(rnn_err, compare_rnn(name, rnn_inputs(
-            300 + i, n_slots, eval_mode, dev, n_envs)))
+            300 + i, n_slots, eval_mode, dev, n_envs, rebind)))
     drqn_err = 0.0
     interval = RNN_CFG.target_update_interval
     for name, ts0, tau in [("no_sync", 0, 0.0),
@@ -1098,7 +1244,7 @@ def main(argv=None) -> int:
     time_iterations("drqn", rlearner, rstate, ropp)
     profile_bench(dev)
 
-    ro = time_rollouts()
+    ro = time_rollouts(resident_check=True)
     a_ms = ro["actor_rollout:train"]
     inp = actor_inputs(200, 2, True, False, B, dev)
     a_plain = cuda_ms(lambda: run_actor(ar.actor_rollout_plain, inp, T), 3, 1)
@@ -1145,7 +1291,9 @@ def main(argv=None) -> int:
           f"chunk (T 256, no transitions) {ro['recurrent_rollout:gate']:.4f} "
           f"ms (bound {e_bound[0]:.4f} ms by {e_bound[1]}), B 4096 chunk "
           f"{ro['recurrent_rollout:bench']:.4f} ms (bound {b_bound[0]:.4f} ms "
-          f"by {b_bound[1]}); "
+          f"by {b_bound[1]}), train chunk at {RNN_CFG.pool_max + 1} slots "
+          f"{ro['recurrent_rollout:train_pool16']:.4f} ms, after a pool "
+          f"change {ro['recurrent_rollout:train_rebind']:.4f} ms; "
           f"drqn_update {d_ms:.4f} ms "
           f"(plain {d_plain:.2f} ms); pong_kernel {p_ms:.4f} ms (plain "
           f"{p_plain:.2f} ms, {PONG_B * PONG_STEPS / p_ms * 1e3:.4g} "

@@ -11,358 +11,1004 @@
 // zero-reset of both LSTM streams on done, the emission of obs / action /
 // reward / done, and the per-env statistics.
 //
-// What bounds it on an H100: the latency of the weight stream from L2. A
-// net's step is the feature MLP (7 -> F1 -> F), ONE gates product [w_ih |
+// What bounds it on an H100: moving the weights through shared memory. A
+// net's step is the feature MLP (7 -> F1 -> F), one gates product [w_ih |
 // w_hh] (4H x (F+H)), the LSTM cell, the shared head (HH x H) and the A
 // head (3 x HH): about 313 kFLOP at the shipped widths (64, 128, 128, 128),
-// two nets per env-step, so the arithmetic bound of a 1024 x 128 chunk is
-// about 1.2 ms. The packed gates matrix alone is 4H x (F+H) floats (512
-// KB), more than a block's shared memory, so the TPU design (one program
-// holding a tile's envs and every net in VMEM) and kernel 1's design (net
-// in shared memory) do not carry over. Here a block of 512 threads takes
-// ENVS = 8 envs (1024 envs -> 128 blocks on 132 SMs): their env state
-// lives in the registers of threads 0-7, both LSTM streams and every
-// activation in shared memory, and each product runs in the kernel's own
-// body with one thread per output row accumulating all 8 envs, reading
-// the weights from global memory (L2-resident) once per block and step,
-// coalesced across threads. A block-step streams about 1.3 MB from L2 with
-// 8 FMAs a load, so the three weight loops (f2, gates, shared head) are
-// unrolled 32 deep to keep that many independent loads in flight a thread.
-// (Designs that kept the gate weights resident in shared memory across an
-// 8-CTA cluster, split by LSTM unit, were built and measured slower on the
-// card: every CTA must hold x = [f2; h] of the envs it serves, so a
-// cluster serves only some 70 envs at a time, and each step becomes a
-// chain of short phases (DSMEM pushes, cluster barriers, the head, the env
-// step) that costs more than the resident weights save; PERF.md.) The
-// learner's noisy head weights are formed on the fly (mu +
-// sigma * eps_out * eps_in), never materialized. A block whose envs are
-// bound to several pool members runs the opponent pass once per member
-// present and keeps each env's own member's result (the TPU kernel's [lo,
-// hi] member loop). Every sum runs in a fixed order and nothing uses
-// atomics: a run is reproducible bit for bit.
+// two nets per env-step. The nets (630 KB each) do not fit a block's shared
+// memory, so every block-step streams both through it once and spreads
+// each weight over the block's envs: at 8 envs a block the bulk writes of
+// the stream and the reads of weights and inputs take about as many
+// shared-memory cycles as the FMAs take issue slots. The design:
 //
-// Semantics kept from the TPU kernel's interpret path: seed_mix = seed ^
-// (tile * 747796405), ctr = 16 * step; the learner noise of a step is one
-// factorized draw shared by a tile of tile_rows envs: eps_in of the shared
-// head at hash (k 10, 11) row 0 cols 0..H-1, eps_in of the A head row 1
-// cols 0..HH-1, eps_out of the shared head at (k 12, 13) col 0 rows
-// 0..HH-1, eps_out of the A head col 1 rows 0..2; exploration at (k 5, 6)
-// and serves as in kernel 1. Transcendentals are the precise expf / tanhf
-// (no fast math). The TPU's grid variant (_rnn_kernel_grid) draws other
-// bits (per-cell seed_mix, batched noise); the port follows the interpret
-// path, which equals the grid variant in distribution.
+// * One opponent per block. The wrapper sorts the envs by (member, tile)
+//   and cuts each (member, tile) segment into blocks of E envs (a block
+//   table built on the card by block_table_kernel below: row = [member, env
+//   ids], -1 for idle lanes), so a block runs one opponent pass and one
+//   learner pass a step (the TPU kernel's [lo, hi] member loop is gone). An
+//   env's arithmetic does not depend on the block or lane that holds it.
+// * One producer warp streams every matrix of both nets (w2, the gates
+//   matrix, the shared head and its sigmas) through a ring of two
+//   shared-memory stages with 1-D bulk asynchronous copies (cp.async.bulk),
+//   full / empty mbarrier pairs a stage, and runs ahead across layers, nets
+//   and steps. The 8 consumer warps meet at a named barrier (bar.sync 1,
+//   256), never at one that waits for the producer. The small tensors (w1,
+//   the biases, the A heads) stay resident for the round.
+// * Clusters of C CTAs bound to one member (C = 1, 2 or 4, built in; the
+//   table pads each member's blocks to a multiple of C): each CTA copies
+//   1/C of every stage with .multicast::cluster into all C CTAs, so one L2
+//   read feeds C blocks; every consumer warp releases a stage in all C CTAs.
+//   On an H100 the L2 is not what bounds the kernel, and C = 1 ships.
+// * E envs a block (8, 16 or 32; the wrapper picks the smallest whose
+//   blocks are all resident at once), so a 4096-env chunk is 128 blocks of
+//   32 envs in one wave, not 512 blocks of 8 in four. A grid larger than
+//   the card walks rounds of blocks.
+// * Products from shared memory: lane l of consumer warp w owns output j =
+//   32 (w % 4) + l, so a warp's 16-byte weight loads are distinct and
+//   contiguous; in the gates product a thread owns the unit's four gates
+//   (the flat layout stores the gates matrix unit-major, so one 16-byte
+//   load gives them) and the cell runs in its registers. Warp group w / 4
+//   takes half of the envs, or at 8 envs the rows of one parity, the two
+//   groups then adding their partial sums through shared memory (even rows
+//   + odd rows). Every sum runs in a fixed order and nothing uses atomics:
+//   a run is reproducible bit for bit.
+//
+// The learner's noisy head weights are formed on the fly (mu + sigma *
+// eps_out * eps_in) from the streamed mu and sigma with each block's own
+// tile noise. Semantics kept from the TPU kernel's interpret path:
+// seed_mix = seed ^ (tile * 747796405), ctr = 16 * step; the learner noise
+// of a step is one factorized draw shared by a tile of tile_rows envs:
+// eps_in of the shared head at hash (k 10, 11) row 0 cols 0..H-1, eps_in
+// of the A head row 1 cols 0..HH-1, eps_out of the shared head at (k 12,
+// 13) col 0 rows 0..HH-1, eps_out of the A head col 1 rows 0..2;
+// exploration at (k 5, 6) and serves as in kernel 1, hashed on env %
+// tile_rows. Transcendentals are the precise expf / tanhf (no fast math).
+// The TPU's grid variant (_rnn_kernel_grid) draws other bits (per-cell
+// seed_mix, batched noise); the port follows the interpret path, which
+// equals the grid variant in distribution.
 
 #include "pong_env.cuh"
 
 namespace {
 
-constexpr int ENVS = 8;       // envs per block
-constexpr int THREADS = 512;
+constexpr int ALIGN = 32;            // floats: each flat section starts on 128 bytes
+constexpr int MAXW = 128;            // every width the kernel takes
+constexpr int NCW = 8;               // consumer warps
+constexpr int NC = NCW * 32;         // consumer threads
+constexpr int THREADS = NC + 32;     // + the producer warp
+constexpr int MAX_STAGES = 16;
+constexpr int MAX_SMEM = 232448;     // a block's dynamic shared memory on an H100
+constexpr int N_SEGS = 6;            // streamed matrices a step
 
-// packed net (floats): w1 (F1, 8) b1 (F1) w2 (F1, F) b2 (F)
-// wg (F+H, 4H) bg (4H) ws (H, HH) bs (HH) wa (3, HH) ba (3)
-// learner sigmas: ws (H, HH) bs (HH) wa (3, HH) ba (3)
+__host__ __device__ constexpr int rup(int n) {
+  return (n + ALIGN - 1) / ALIGN * ALIGN;
+}
+
+// floats a ring stage holds: 64 KB up to 16 envs a block, 32 KB at 32
+template <int E>
+__host__ __device__ constexpr int stage_floats() {
+  return E <= 16 ? 16384 : 8192;
+}
+
+// Flat net (ops/recurrent_rollout.py::net_layout), each section padded to
+// 128 bytes: the resident part w1 (F1, 8) b1 (F1) b2 (F) bg (H, 4: unit-
+// major) bs (HH) wa (3, HH) ba (3), then the streamed part w2 (F1 in, F
+// out) wg (F+H in, H units, 4 gates) ws (H in, HH out). Learner sigmas
+// (sigma_layout): sbs (HH) swa (3, HH) sba (3), then sws (H in, HH out).
 struct Layout {
   int F1, F, H, HH;
-  int w1, b1, w2, b2, wg, bg, ws, bs, wa, ba, net;
-  int sws, sbs, swa, sba;
+  int w1, b1, b2, bg, bs, wa, ba, w2, wg, ws, net;
+  int sbs, swa, sba, sws, sig;
   __host__ __device__ Layout(int f1, int f, int h, int hh)
       : F1(f1), F(f), H(h), HH(hh) {
-    w1 = 0; b1 = w1 + F1 * 8; w2 = b1 + F1; b2 = w2 + F1 * F;
-    wg = b2 + F; bg = wg + (F + H) * 4 * H; ws = bg + 4 * H;
-    bs = ws + H * HH; wa = bs + HH; ba = wa + 3 * HH; net = ba + 3;
-    sws = 0; sbs = H * HH; swa = sbs + HH; sba = swa + 3 * HH;
+    w1 = 0; b1 = w1 + rup(F1 * 8); b2 = b1 + rup(F1); bg = b2 + rup(F);
+    bs = bg + rup(4 * H); wa = bs + rup(HH); ba = wa + rup(3 * HH);
+    w2 = ba + rup(3); wg = w2 + rup(F1 * F); ws = wg + rup((F + H) * 4 * H);
+    net = ws + rup(H * HH);
+    sbs = 0; swa = rup(HH); sba = swa + rup(3 * HH); sws = sba + rup(3);
+    sig = sws + rup(H * HH);
   }
 };
 
-struct Smem {
-  float *obs, *f1, *x, *g, *h, *c, *s, *adv, *ein_s, *eout_s, *ein_a,
-      *eout_a;
-  int *member, *act_a;
+// One streamed matrix: `rows` rows of `len` floats, `rps` rows a stage;
+// with `sg` each stage holds the rows of mu and then the same rows of sigma.
+struct Seg {
+  const float* mu;
+  const float* sg;
+  int rows, len, rps;
 };
+
+// Segment i of a step: 0-2 the opponent's w2, wg, ws; 3-5 the learner's,
+// the last with its sigmas. Producer and consumers walk the same list.
+__device__ __forceinline__ Seg segment(int i, const Layout& L,
+                                       const float* ow, const float* lw,
+                                       const float* sig, int sf) {
+  const float* w = i < 3 ? ow : lw;
+  Seg g;
+  g.sg = nullptr;
+  if (i % 3 == 0) {
+    g.mu = w + L.w2; g.rows = L.F1; g.len = L.F;
+  } else if (i % 3 == 1) {
+    g.mu = w + L.wg; g.rows = L.F + L.H; g.len = 4 * L.H;
+  } else {
+    g.mu = w + L.ws; g.rows = L.H; g.len = L.HH;
+    if (i == 5) g.sg = sig + L.sws;
+  }
+  g.rps = sf / (g.len * (g.sg ? 2 : 1));
+  return g;
+}
+
+__host__ __device__ inline size_t take(size_t& o, size_t bytes, size_t al) {
+  o = (o + al - 1) / al * al;
+  const size_t r = o;
+  o += bytes;
+  return r;
+}
+
+// Shared memory of a block of E envs; with base == nullptr only the sizes.
+template <int E>
+struct Smem {
+  unsigned long long* bar;   // full[MAX_STAGES], empty[MAX_STAGES]
+  int *env, *done;
+  float *res_o, *res_l, *res_s, *ein_s, *eout_s, *ein_a, *eout_a, *obs,
+      *adv, *f1s, *xf2, *h, *c, *xch, *ring;
+  int stages;
+  size_t bytes;
+  __host__ __device__ Smem(char* base, const Layout& L) {
+    size_t o = 0;
+    const size_t f = sizeof(float);
+    bar = (unsigned long long*)(base + take(o, 2 * MAX_STAGES * 8, 8));
+    env = (int*)(base + take(o, E * sizeof(int), 16));
+    done = (int*)(base + take(o, E * sizeof(int), 16));
+    res_o = (float*)(base + take(o, L.w2 * f, 16));
+    res_l = (float*)(base + take(o, L.w2 * f, 16));
+    res_s = (float*)(base + take(o, L.sws * f, 16));
+    ein_s = (float*)(base + take(o, MAXW * f, 16));
+    eout_s = (float*)(base + take(o, MAXW * f, 16));
+    ein_a = (float*)(base + take(o, MAXW * f, 16));
+    eout_a = (float*)(base + take(o, 4 * f, 16));
+    obs = (float*)(base + take(o, 8 * E * f, 16));
+    adv = (float*)(base + take(o, 4 * E * f, 16));
+    // f1 (F1 x E) and the shared head's output s (HH x E) share a buffer
+    f1s = (float*)(base + take(o, (L.F1 > L.HH ? L.F1 : L.HH) * E * f, 16));
+    xf2 = (float*)(base + take(o, L.F * E * f, 16));
+    h = (float*)(base + take(o, 4 * L.H * E * f, 16));   // [stream][buffer]
+    c = (float*)(base + take(o, 2 * L.H * E * f, 16));   // [stream]
+    // the two warp groups' traded partial sums (8 envs a block only)
+    xch = (float*)(base + take(o, (E == 8 ? 2 * MAXW * 4 * 4 : 0) * f, 16));
+    o = (o + 127) / 128 * 128;
+    const size_t sb = stage_floats<E>() * f;
+    const size_t fit = o < (size_t)MAX_SMEM ? (MAX_SMEM - o) / sb : 0;
+    stages = fit < (size_t)MAX_STAGES ? (int)fit : MAX_STAGES;
+    ring = (float*)(base + o);
+    bytes = o + stages * sb;
+  }
+};
+
+struct Args {
+  EnvP p;
+  const float *f_in;
+  const int* i_in;
+  const float *hid_in, *learner, *sigma, *opp;
+  float* f_out;
+  int* i_out;
+  float *hid_out, *tr_obs;
+  int* tr_act;
+  float* tr_rew;
+  int* tr_done;
+  float* stats;
+  const int* table;   // (rows, 1 + E): member, then env ids (-1 idle)
+  const int* info;    // info[2]: the table's blocks (block_table_kernel)
+  int B, T, tile_rows;
+  uint32_t seed;
+  int eps_i, F1, F, H, HH;
+};
+
+// ---- mbarriers, bulk copies, barriers ---------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+__device__ __forceinline__ uint64_t now_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Wait for the completion of the barrier's phase of this parity. A wait
+// of 2 s means a stage that never comes (a chunk takes milliseconds): the
+// kernel traps, and the launch reports an error instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  const uint64_t t0 = now_ns();
+  while (!mbar_try(bar, parity))
+    if (now_ns() - t0 > 2000000000ull) __trap();
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cluster_sync_all() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// the consumers' barrier (named barrier 1, the producer warp not counted)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NC) : "memory");
+}
+
+// Copy `bytes` (a multiple of 16) from global to the same offset of the
+// ring in every CTA of the cluster: this CTA sends its 1/C share, and each
+// destination's `bar` counts the bytes.
+template <int C>
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+                                          uint32_t bytes, uint32_t bar,
+                                          uint32_t rank) {
+  uint32_t lo = 0, hi = bytes;
+  if (C > 1) {
+    lo = (bytes * rank / C) & ~15u;
+    hi = rank + 1 == C ? bytes : (bytes * (rank + 1) / C) & ~15u;
+  }
+  if (hi <= lo) return;
+  const uint32_t d = smem_u32(dst) + lo;
+  const char* s = reinterpret_cast<const char*>(src) + lo;
+  if (C == 1) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(d),
+        "l"(s), "r"(hi - lo), "r"(bar)
+        : "memory");
+  } else {
+    const uint16_t mask = (uint16_t)((1u << C) - 1u);
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes."
+        "multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(d),
+        "l"(s), "r"(hi - lo), "r"(bar), "h"(mask)
+        : "memory");
+  }
+}
+
+// A consumer warp is done with a stage: release it in every CTA of the
+// cluster (each CTA's producer writes into all of them).
+template <int C>
+__device__ __forceinline__ void release(uint32_t bar, int lane) {
+  __syncwarp();
+  if (lane == 0) {
+    if (C == 1) {
+      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+                   : "memory");
+    } else {
+#pragma unroll
+      for (uint32_t q = 0; q < (uint32_t)C; ++q)
+        asm volatile(
+            "{\n .reg .b32 ra;\n"
+            " mapa.shared::cluster.u32 ra, %0, %1;\n"
+            " mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::"r"(bar),
+            "r"(q)
+            : "memory");
+    }
+  }
+}
 
 __device__ __forceinline__ float sigmoid(float v) {
   return 1.0f / (1.0f + expf(-v));
 }
 
-// One recurrent forward of net `w` for the block's envs whose member is
-// `m` (all envs when m < 0), on LSTM stream `stream` (0 learner, 1
-// opponent). With `noisy`, the shared and A heads carry this step's noise.
-// Leaves the advantages in sm.adv and the new h / c in the stream.
-__device__ void rnn_forward(const Layout& L, const float* __restrict__ w,
-                            const float* __restrict__ sig, bool noisy,
-                            int stream, int m, const Smem& sm) {
-  const int tid = threadIdx.x;
-  const int F1 = L.F1, F = L.F, H = L.H, HH = L.HH, G4 = 4 * H;
-  float* h = sm.h + stream * H * ENVS;
-  float* c = sm.c + stream * H * ENVS;
-  for (int j = tid; j < F1; j += THREADS) {
-    float acc[ENVS] = {};
-    for (int i = 0; i < 7; ++i) {
-      const float wv = w[L.w1 + j * 8 + i];
-#pragma unroll
-      for (int e = 0; e < ENVS; ++e) acc[e] = fmaf(wv, sm.obs[i * ENVS + e], acc[e]);
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// ---- the producer --------------------------------------------------------
+
+template <int E, int C>
+__device__ void produce(const Args& a, const Layout& L, const Smem<E>& S,
+                        uint32_t full0, uint32_t empty0, uint32_t rank,
+                        int cid, int ncl) {
+  constexpr int SF = stage_floats<E>();
+  uint32_t n = 0;   // chunks issued
+  const int n_groups = a.info[2] / C;
+  for (int grp = cid; grp < n_groups; grp += ncl) {
+    const int m = a.table[(size_t)(grp * C + (int)rank) * (E + 1)];
+    const float* ow = a.opp + (size_t)m * L.net;
+    for (int s = 0; s < a.T; ++s) {
+      for (int i = 0; i < N_SEGS; ++i) {
+        const Seg g = segment(i, L, ow, a.learner, a.sigma, SF);
+        for (int r0 = 0; r0 < g.rows; r0 += g.rps, ++n) {
+          const int nr = min(g.rps, g.rows - r0);
+          const uint32_t st = n % (uint32_t)S.stages;
+          const uint32_t round = n / (uint32_t)S.stages;
+          mbar_wait(empty0 + 8 * st, (round & 1u) ^ 1u);
+          const uint32_t piece = (uint32_t)(nr * g.len) * 4u;
+          mbar_expect_tx(full0 + 8 * st, g.sg ? 2u * piece : piece);
+          float* dst = S.ring + (size_t)st * SF;
+          bulk_copy<C>(dst, g.mu + (size_t)r0 * g.len, piece, full0 + 8 * st,
+                       rank);
+          if (g.sg)
+            bulk_copy<C>(dst + nr * g.len, g.sg + (size_t)r0 * g.len, piece,
+                         full0 + 8 * st, rank);
+        }
+      }
     }
-    const float b = w[L.b1 + j];
-#pragma unroll
-    for (int e = 0; e < ENVS; ++e) sm.f1[j * ENVS + e] = fmaxf(acc[e] + b, 0.f);
   }
-  for (int o = tid; o < H * ENVS; o += THREADS) sm.x[F * ENVS + o] = h[o];
-  __syncthreads();
-  for (int j = tid; j < F; j += THREADS) {
-    float acc[ENVS] = {};
-#pragma unroll 32
-    for (int i = 0; i < F1; ++i) {
-      const float wv = w[L.w2 + i * F + j];
+}
+
+// ---- the consumers --------------------------------------------------------
+
+// Walk one streamed segment chunk by chunk: wait for the stage, fn(stage,
+// rows in it, first row), release the stage.
+template <int E, int C, class Fn>
+__device__ __forceinline__ void stream_rows(const Seg& g, const Smem<E>& S,
+                                            uint32_t full0, uint32_t empty0,
+                                            uint32_t& n, int lane, Fn fn) {
+  constexpr int SF = stage_floats<E>();
+  for (int r0 = 0; r0 < g.rows; r0 += g.rps, ++n) {
+    const int nr = min(g.rps, g.rows - r0);
+    const uint32_t st = n % (uint32_t)S.stages;
+    mbar_wait(full0 + 8 * st, (n / (uint32_t)S.stages) & 1u);
+    fn(S.ring + (size_t)st * SF, nr, r0);
+    release<C>(empty0 + 8 * st, lane);
+  }
+}
+
+// Per-thread consumer context: unit (or output) j = 32 (warp % 4) + lane,
+// envs ebase + 4 q + [0, 4) for q < E / 8, ebase = E / 2 (warp / 4).
+struct Ctx {
+  int t, warp, lane, j, ebase;
+  uint32_t full0, empty0;
+};
+
+// Split of a product over the consumers. Thread (warp w, lane l) owns
+// output j = 32 (w % 4) + l; warp group g = w / 4. From 16 envs up, group
+// g takes envs [g E / 2, (g + 1) E / 2) over every row. At 8 envs, each
+// group takes all 8 envs over the rows of parity g (so each weight is read
+// once a block), and the two groups then trade halves: group g keeps envs
+// 4 g .. 4 g + 3 as (even rows) + (odd rows).
+template <int E>
+struct Split {
+  static constexpr bool KS = E == 8;            // split the rows
+  static constexpr int NQ = KS ? 2 : E / 8;     // float4 env groups summed
+  static constexpr int NQO = KS ? 1 : NQ;       // ... and finalized
+  static constexpr int UNROLL = NQ >= 4 ? 1 : 8;   // 168 registers at most
+};
+
+// At 8 envs: trade the row-parity partial sums of G outputs x 8 envs with
+// the other warp group through `xch`; acc[0] ends as the thread's 4 envs.
+template <int E, int G>
+__device__ __forceinline__ void trade_halves(float (&acc)[Split<E>::NQ][G][4],
+                                             float* xch, int j, int g) {
+  if constexpr (Split<E>::KS) {
+    float* give = xch + ((g * 128 + j) * G) * 4;
+    const float* from = xch + (((1 - g) * 128 + j) * G) * 4;
 #pragma unroll
-      for (int e = 0; e < ENVS; ++e) acc[e] = fmaf(wv, sm.f1[i * ENVS + e], acc[e]);
+    for (int o = 0; o < G; ++o) {
+      float v[4];   // the other group's envs: 4-7 from group 0, 0-3 from 1
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = g == 0 ? acc[1][o][e] : acc[0][o][e];
+      *reinterpret_cast<float4*>(give + o * 4) =
+          make_float4(v[0], v[1], v[2], v[3]);
     }
-    const float b = w[L.b2 + j];
+    consumers_sync();
 #pragma unroll
-    for (int e = 0; e < ENVS; ++e) sm.x[j * ENVS + e] = fmaxf(acc[e] + b, 0.f);
-  }
-  __syncthreads();
-  for (int r = tid; r < G4; r += THREADS) {  // gates = [w_ih | w_hh] [f2; h]
-    float acc[ENVS] = {};
-#pragma unroll 32
-    for (int k = 0; k < F + H; ++k) {
-      const float wv = w[L.wg + k * G4 + r];
+    for (int o = 0; o < G; ++o) {
+      const float4 t = ld4(from + o * 4);
+      const float tv[4] = {t.x, t.y, t.z, t.w};
 #pragma unroll
-      for (int e = 0; e < ENVS; ++e) acc[e] = fmaf(wv, sm.x[k * ENVS + e], acc[e]);
+      for (int e = 0; e < 4; ++e)
+        acc[0][o][e] = g == 0 ? acc[0][o][e] + tv[e] : tv[e] + acc[1][o][e];
     }
-    const float b = w[L.bg + r];
-#pragma unroll
-    for (int e = 0; e < ENVS; ++e) sm.g[r * ENVS + e] = acc[e] + b;
   }
-  __syncthreads();
-  for (int o = tid; o < H * ENVS; o += THREADS) {  // cell, gate order i f g o
-    const int j = o / ENVS, e = o % ENVS;
-    if (m >= 0 && sm.member[e] != m) continue;
-    const float gi = sigmoid(sm.g[j * ENVS + e]);
-    const float gf = sigmoid(sm.g[(H + j) * ENVS + e]);
-    const float gg = tanhf(sm.g[(2 * H + j) * ENVS + e]);
-    const float go = sigmoid(sm.g[(3 * H + j) * ENVS + e]);
-    const float cn = gf * c[o] + gi * gg;
-    c[o] = cn;
-    h[o] = go * tanhf(cn);
-  }
-  __syncthreads();
-  for (int j = tid; j < HH; j += THREADS) {  // shared head
-    float acc[ENVS] = {};
-    const float eo = noisy ? sm.eout_s[j] : 0.f;
-#pragma unroll 32
-    for (int i = 0; i < H; ++i) {
-      float wv = w[L.ws + i * HH + j];
-      if (noisy)
-        wv = __fadd_rn(wv, __fmul_rn(sig[L.sws + i * HH + j],
-                                     __fmul_rn(eo, sm.ein_s[i])));
-#pragma unroll
-      for (int e = 0; e < ENVS; ++e) acc[e] = fmaf(wv, h[i * ENVS + e], acc[e]);
-    }
-    float b = w[L.bs + j];
-    if (noisy) b = __fadd_rn(b, __fmul_rn(sig[L.sbs + j], eo));
-#pragma unroll
-    for (int e = 0; e < ENVS; ++e) sm.s[j * ENVS + e] = fmaxf(acc[e] + b, 0.f);
-  }
-  __syncthreads();
-  // A head: one warp per (action, env) output, lanes split the HH terms
-  const int warp = tid >> 5, lane = tid & 31;
-  for (int o = warp; o < 3 * ENVS; o += THREADS / 32) {
-    const int a = o / ENVS, e = o % ENVS;
-    const float eo = noisy ? sm.eout_a[a] : 0.f;
+}
+
+// One recurrent forward of a net (residents R, learner sigmas Rs when
+// NOISY) over the block's envs on LSTM stream `strm` (0 learner, 1
+// opponent): h is read from buffer p and written to buffer p ^ 1. Leaves
+// the advantages in S.adv. Ends at a consumer barrier.
+template <int E, int C, bool NOISY>
+__device__ __forceinline__ void net_pass(const Ctx& x, const Layout& L,
+                                         const Smem<E>& S, const float* R,
+                                         const float* Rs, const Seg* segs,
+                                         int strm, int p, uint32_t& n) {
+  using SP = Split<E>;
+  constexpr int NQ = SP::NQ, NQO = SP::NQO, KSTEP = SP::KS ? 2 : 1;
+  const int F1 = L.F1, F = L.F, H = L.H, HH = L.HH;
+  const int HE = H * E;
+  float* hold = S.h + (strm * 2 + p) * HE;
+  float* hnew = S.h + (strm * 2 + (p ^ 1)) * HE;
+  float* cs = S.c + strm * HE;
+  const int g = x.warp >> 2;
+  const int ein = SP::KS ? 0 : x.ebase;        // first env summed
+  const int eout = SP::KS ? 4 * g : x.ebase;   // first env finalized
+  // the first row of a stage this thread takes (rows of its parity at 8 envs)
+  auto kfirst = [&](int r0) { return SP::KS ? ((g ^ r0) & 1) : 0; };
+
+  // f1 = relu(w1 obs + b1), resident weights
+  for (int o = x.t; o < F1 * E; o += NC) {
+    const int jj = o / E, e = o % E;
     float acc = 0.f;
-    for (int j = lane; j < HH; j += 32) {
-      float wv = w[L.wa + a * HH + j];
-      if (noisy)
-        wv = __fadd_rn(wv, __fmul_rn(sig[L.swa + a * HH + j],
-                                     __fmul_rn(eo, sm.ein_a[j])));
-      acc = fmaf(wv, sm.s[j * ENVS + e], acc);
+#pragma unroll
+    for (int i = 0; i < 7; ++i)
+      acc = fmaf(R[L.w1 + jj * 8 + i], S.obs[i * E + e], acc);
+    S.f1s[o] = fmaxf(acc + R[L.b1 + jj], 0.f);
+  }
+  consumers_sync();  // phase: f1
+
+  // f2 = relu(w2 f1 + b2), w2 streamed
+  {
+    const int jj = x.j < F ? x.j : 0;
+    float acc[NQ][1][4] = {};
+    stream_rows<E, C>(segs[0], S, x.full0, x.empty0, n, x.lane,
+                      [&](const float* buf, int nr, int r0) {
+#pragma unroll (SP::UNROLL)
+      for (int k = kfirst(r0); k < nr; k += KSTEP) {
+        const float wv = buf[k * F + jj];
+        const float* xr = S.f1s + (r0 + k) * E + ein;
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          const float4 v = ld4(xr + q * 4);
+          acc[q][0][0] = fmaf(wv, v.x, acc[q][0][0]);
+          acc[q][0][1] = fmaf(wv, v.y, acc[q][0][1]);
+          acc[q][0][2] = fmaf(wv, v.z, acc[q][0][2]);
+          acc[q][0][3] = fmaf(wv, v.w, acc[q][0][3]);
+        }
+      }
+    });
+    trade_halves<E, 1>(acc, S.xch, x.j, g);
+    if (x.j < F) {
+      const float b = R[L.b2 + x.j];
+#pragma unroll
+      for (int q = 0; q < NQO; ++q)
+        *reinterpret_cast<float4*>(S.xf2 + x.j * E + q * 4 + eout) =
+            make_float4(fmaxf(acc[q][0][0] + b, 0.f),
+                        fmaxf(acc[q][0][1] + b, 0.f),
+                        fmaxf(acc[q][0][2] + b, 0.f),
+                        fmaxf(acc[q][0][3] + b, 0.f));
     }
+  }
+  consumers_sync();  // phase: f2
+
+  // gates = wg [f2; h] + bg, then the cell (gate order i f g o) in registers
+  {
+    const int jj = x.j < H ? x.j : 0;
+    const int len = 4 * H;
+    float acc[NQ][4][4] = {};
+    stream_rows<E, C>(segs[1], S, x.full0, x.empty0, n, x.lane,
+                      [&](const float* buf, int nr, int r0) {
+#pragma unroll (SP::UNROLL)
+      for (int k = kfirst(r0); k < nr; k += KSTEP) {
+        const int K = r0 + k;
+        const float4 w = ld4(buf + k * len + jj * 4);
+        const float* xr = (K < F ? S.xf2 + K * E : hold + (K - F) * E) + ein;
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          const float4 v = ld4(xr + q * 4);
+          const float ve[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[q][0][e] = fmaf(w.x, ve[e], acc[q][0][e]);
+            acc[q][1][e] = fmaf(w.y, ve[e], acc[q][1][e]);
+            acc[q][2][e] = fmaf(w.z, ve[e], acc[q][2][e]);
+            acc[q][3][e] = fmaf(w.w, ve[e], acc[q][3][e]);
+          }
+        }
+      }
+    });
+    trade_halves<E, 4>(acc, S.xch, x.j, g);
+    if (x.j < H) {
+      const float4 b = ld4(R + L.bg + x.j * 4);
+#pragma unroll
+      for (int q = 0; q < NQO; ++q) {
+        const int o = x.j * E + q * 4 + eout;
+        const float4 c4 = ld4(cs + o);
+        const float cin[4] = {c4.x, c4.y, c4.z, c4.w};
+        float cn[4], hn[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float gi = sigmoid(acc[q][0][e] + b.x);
+          const float gf = sigmoid(acc[q][1][e] + b.y);
+          const float gg = tanhf(acc[q][2][e] + b.z);
+          const float go = sigmoid(acc[q][3][e] + b.w);
+          cn[e] = gf * cin[e] + gi * gg;
+          hn[e] = go * tanhf(cn[e]);
+        }
+        *reinterpret_cast<float4*>(cs + o) = make_float4(cn[0], cn[1], cn[2], cn[3]);
+        *reinterpret_cast<float4*>(hnew + o) = make_float4(hn[0], hn[1], hn[2], hn[3]);
+      }
+    }
+  }
+  consumers_sync();  // phase: gates and cell
+
+  // shared head s = relu(ws h + bs), ws streamed (the learner's with noise)
+  {
+    const int jj = x.j < HH ? x.j : 0;
+    const float eo = NOISY ? S.eout_s[jj] : 0.f;
+    float acc[NQ][1][4] = {};
+    stream_rows<E, C>(segs[2], S, x.full0, x.empty0, n, x.lane,
+                      [&](const float* buf, int nr, int r0) {
+#pragma unroll (SP::UNROLL)
+      for (int k = kfirst(r0); k < nr; k += KSTEP) {
+        float wv = buf[k * HH + jj];
+        if (NOISY)
+          wv = __fadd_rn(wv, __fmul_rn(buf[(nr + k) * HH + jj],
+                                       __fmul_rn(eo, S.ein_s[r0 + k])));
+        const float* xr = hnew + (r0 + k) * E + ein;
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          const float4 v = ld4(xr + q * 4);
+          acc[q][0][0] = fmaf(wv, v.x, acc[q][0][0]);
+          acc[q][0][1] = fmaf(wv, v.y, acc[q][0][1]);
+          acc[q][0][2] = fmaf(wv, v.z, acc[q][0][2]);
+          acc[q][0][3] = fmaf(wv, v.w, acc[q][0][3]);
+        }
+      }
+    });
+    trade_halves<E, 1>(acc, S.xch, x.j, g);
+    if (x.j < HH) {
+      float b = R[L.bs + x.j];
+      if (NOISY) b = __fadd_rn(b, __fmul_rn(Rs[L.sbs + x.j], eo));
+#pragma unroll
+      for (int q = 0; q < NQO; ++q)
+        *reinterpret_cast<float4*>(S.f1s + x.j * E + q * 4 + eout) =
+            make_float4(fmaxf(acc[q][0][0] + b, 0.f),
+                        fmaxf(acc[q][0][1] + b, 0.f),
+                        fmaxf(acc[q][0][2] + b, 0.f),
+                        fmaxf(acc[q][0][3] + b, 0.f));
+    }
+  }
+  consumers_sync();  // phase: shared head
+
+  // A head: a warp per (action, group of 8 envs), lanes split the HH terms,
+  // a fixed xor butterfly sums them (every lane ends with the same sums)
+  for (int task = x.warp; task < 3 * (E / 8); task += NCW) {
+    const int a = task % 3, q = task / 3;
+    const float eo = NOISY ? S.eout_a[a] : 0.f;
+    float acc[8] = {};
+    for (int jh = x.lane; jh < HH; jh += 32) {
+      float wv = R[L.wa + a * HH + jh];
+      if (NOISY)
+        wv = __fadd_rn(wv, __fmul_rn(Rs[L.swa + a * HH + jh],
+                                     __fmul_rn(eo, S.ein_a[jh])));
+      const float4 s0 = ld4(S.f1s + jh * E + q * 8);
+      const float4 s1 = ld4(S.f1s + jh * E + q * 8 + 4);
+      acc[0] = fmaf(wv, s0.x, acc[0]); acc[1] = fmaf(wv, s0.y, acc[1]);
+      acc[2] = fmaf(wv, s0.z, acc[2]); acc[3] = fmaf(wv, s0.w, acc[3]);
+      acc[4] = fmaf(wv, s1.x, acc[4]); acc[5] = fmaf(wv, s1.y, acc[5]);
+      acc[6] = fmaf(wv, s1.z, acc[6]); acc[7] = fmaf(wv, s1.w, acc[7]);
+    }
+#pragma unroll
     for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_down_sync(0xffffffffu, acc, off);
-    if (lane == 0) {
-      float b = w[L.ba + a];
-      if (noisy) b = __fadd_rn(b, __fmul_rn(sig[L.sba + a], eo));
-      sm.adv[a * ENVS + e] = acc + b;
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], off);
+    if (x.lane == 0) {
+      float b = R[L.ba + a];
+      if (NOISY) b = __fadd_rn(b, __fmul_rn(Rs[L.sba + a], eo));
+      float* out = S.adv + a * E + q * 8;
+      *reinterpret_cast<float4*>(out) =
+          make_float4(acc[0] + b, acc[1] + b, acc[2] + b, acc[3] + b);
+      *reinterpret_cast<float4*>(out + 4) =
+          make_float4(acc[4] + b, acc[5] + b, acc[6] + b, acc[7] + b);
     }
+  }
+  consumers_sync();  // phase: A head
+}
+
+template <int E, int C>
+__device__ void consume(const Args& a, const Layout& L, const Smem<E>& S,
+                        const Ctx& x, uint32_t rank, int cid, int ncl) {
+  constexpr int SF = stage_floats<E>();
+  const int B = a.B, H = L.H, HH = L.HH, HE = L.H * E;
+  const int t = x.t;
+  const float eps = __fmul_rn(__int2float_rn(a.eps_i), 1e-6f);
+  uint32_t n = 0;   // chunks consumed
+  const int n_groups = a.info[2] / C;
+  for (int grp = cid; grp < n_groups; grp += ncl) {
+    const int* row = a.table + (size_t)(grp * C + (int)rank) * (E + 1);
+    const int m = row[0];
+    const float* ow = a.opp + (size_t)m * L.net;
+    Seg segs[N_SEGS];
+#pragma unroll
+    for (int i = 0; i < N_SEGS; ++i)
+      segs[i] = segment(i, L, ow, a.learner, a.sigma, SF);
+    if (t < E) S.env[t] = row[1 + t];
+    for (int i = t; i < L.w2; i += NC) {
+      S.res_o[i] = ow[i];
+      S.res_l[i] = a.learner[i];
+    }
+    for (int i = t; i < L.sws; i += NC) S.res_s[i] = a.sigma[i];
+    consumers_sync();  // phase: round start
+
+    // the block's tile (lanes fill from 0; an all-idle block uses tile 0)
+    const int env0 = S.env[0] < 0 ? 0 : S.env[0];
+    const uint32_t seed_mix =
+        a.seed ^ ((uint32_t)(env0 / a.tile_rows) * 747796405u);
+    // both streams in: hid rows [h_b; c_b; h_opp; c_opp], column = env
+    for (int o = t; o < HE; o += NC) {
+      const int j = o / E, env = S.env[o % E];
+      const bool v = env >= 0;
+      S.h[o] = v ? a.hid_in[(size_t)j * B + env] : 0.f;
+      S.c[o] = v ? a.hid_in[(size_t)(H + j) * B + env] : 0.f;
+      S.h[2 * HE + o] = v ? a.hid_in[(size_t)(2 * H + j) * B + env] : 0.f;
+      S.c[HE + o] = v ? a.hid_in[(size_t)(3 * H + j) * B + env] : 0.f;
+    }
+    EnvRow es = {};
+    float st[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    const int env = t < E ? S.env[t] : -1;
+    const bool valid = env >= 0;
+    const uint32_t lane = valid ? (uint32_t)(env % a.tile_rows) : 0u;
+    if (valid) es = load_env(a.f_in, a.i_in, B, env);
+    const float pool_f = m > 0 ? 1.f : 0.f;
+
+    int p = 0;
+    for (int s = 0; s < a.T; ++s) {
+      const uint32_t ctr = (uint32_t)s * 16u;
+      // this step's learner noise (the tile's draw) and the observations
+      for (int i = t; i < H + 2 * HH + 3; i += NC) {
+        if (i < H) S.ein_s[i] = hash_noise(a.p, seed_mix, ctr, 10, 11, 0, i);
+        else if (i < H + HH) S.ein_a[i - H] = hash_noise(a.p, seed_mix, ctr, 10, 11, 1, i - H);
+        else if (i < H + 2 * HH) S.eout_s[i - H - HH] = hash_noise(a.p, seed_mix, ctr, 12, 13, i - H - HH, 0);
+        else S.eout_a[i - H - 2 * HH] = hash_noise(a.p, seed_mix, ctr, 12, 13, i - H - 2 * HH, 1);
+      }
+      if (t < E) {
+        const float o7[7] = {es.x, es.y, es.vx, es.vy, es.bot, es.top, es.spin};
+#pragma unroll
+        for (int i = 0; i < 7; ++i) S.obs[i * E + t] = o7[i];
+      }
+      consumers_sync();  // phase: noise and obs
+
+      // the block's opponent, then the learner (noisy heads)
+      net_pass<E, C, false>(x, L, S, S.res_o, nullptr, segs, 1, p, n);
+      int act_a = 0;
+      if (t < E) {
+        const float a3[3] = {S.adv[t], S.adv[E + t], S.adv[2 * E + t]};
+        act_a = argmax3(a3);
+      }
+      net_pass<E, C, true>(x, L, S, S.res_l, S.res_s, segs + 3, 0, p, n);
+
+      if (t < E) {
+        int done = 0;
+        if (valid) {
+          const float a3[3] = {S.adv[t], S.adv[E + t], S.adv[2 * E + t]};
+          const int greedy_b = argmax3(a3);
+          const float u_expl = hash_u01(seed_mix, ctr, 5, 0, lane);
+          int rand_a = (int)__fmul_rn(hash_u01(seed_mix, ctr, 6, 0, lane), 3.0f);
+          rand_a = rand_a < 0 ? 0 : (rand_a > 2 ? 2 : rand_a);
+          const int act_b = u_expl < eps ? rand_a : greedy_b;
+          const StepOut o = env_transition(a.p, es, act_a, act_b);
+          if (a.tr_obs != nullptr) {
+            const size_t r = (size_t)s * B + env;
+            const float obs7[7] = {es.x, es.y, es.vx, es.vy, es.bot, es.top, es.spin};
+#pragma unroll
+            for (int i = 0; i < 7; ++i) a.tr_obs[r * 7 + i] = obs7[i];
+            a.tr_act[r] = act_b;
+            a.tr_rew[r] = o.reward_b;
+            a.tr_done[r] = o.done ? 1 : 0;
+          }
+          env_account_reset(a.p, es, o, seed_mix, ctr, lane, pool_f, st);
+          done = o.done ? 1 : 0;
+        }
+        S.done[t] = done;
+      }
+      consumers_sync();  // phase: env step
+      p ^= 1;
+      // a new episode starts both streams from zero
+      for (int o = t; o < HE; o += NC) {
+        if (S.done[o % E]) {
+          S.h[p * HE + o] = 0.f; S.c[o] = 0.f;
+          S.h[(2 + p) * HE + o] = 0.f; S.c[HE + o] = 0.f;
+        }
+      }
+    }
+    consumers_sync();
+
+    for (int o = t; o < HE; o += NC) {
+      const int j = o / E, e_env = S.env[o % E];
+      if (e_env < 0) continue;
+      a.hid_out[(size_t)j * B + e_env] = S.h[p * HE + o];
+      a.hid_out[(size_t)(H + j) * B + e_env] = S.c[o];
+      a.hid_out[(size_t)(2 * H + j) * B + e_env] = S.h[(2 + p) * HE + o];
+      a.hid_out[(size_t)(3 * H + j) * B + e_env] = S.c[HE + o];
+    }
+    if (valid) {
+      store_env(es, a.f_out, a.i_out, B, env);
+      a.i_out[4 * B + env] = m;
+#pragma unroll
+      for (int r = 0; r < 7; ++r) a.stats[r * B + env] = st[r];
+      a.stats[7 * B + env] = 0.f;
+    }
+    consumers_sync();  // phase: round end (the next rewrites the block)
+  }
+}
+
+template <int E, int C>
+__global__ void __launch_bounds__(THREADS, 1)
+recurrent_rollout_kernel(const __grid_constant__ Args a) {
+  extern __shared__ __align__(128) char smem_raw[];
+  const Layout L(a.F1, a.F, a.H, a.HH);
+  const Smem<E> S(smem_raw, L);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const uint32_t full0 = smem_u32(S.bar);
+  const uint32_t empty0 = full0 + 8 * MAX_STAGES;
+  const uint32_t rank = C > 1 ? cluster_rank() : 0u;
+  const int cid = blockIdx.x / C, ncl = gridDim.x / C;
+  if (tid == 0) {
+    for (int i = 0; i < S.stages; ++i) {
+      mbar_init(full0 + 8 * i, 1);
+      mbar_init(empty0 + 8 * i, NCW * C);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // every CTA's barriers exist before any peer copies or arrives
+  if (C > 1) cluster_sync_all(); else __syncthreads();
+
+  if (warp == NCW) {
+    if (lane == 0) produce<E, C>(a, L, S, full0, empty0, rank, cid, ncl);
+    __syncwarp();
+  } else {
+    Ctx x;
+    x.t = tid; x.warp = warp; x.lane = lane;
+    x.j = ((warp & 3) << 5) | lane;
+    x.ebase = (warp >> 2) * (E / 2);
+    x.full0 = full0; x.empty0 = empty0;
+    consume<E, C>(a, L, S, x, rank, cid, ncl);
+  }
+  // no CTA leaves while a peer may still signal its barriers
+  if (C > 1) cluster_sync_all();
+}
+
+template <int E, int C>
+cudaError_t prepare(const Layout& L, size_t* smem) {
+  const Smem<E> S(nullptr, L);
+  *smem = S.bytes;
+  if (S.stages < 2) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(recurrent_rollout_kernel<E, C>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)S.bytes);
+}
+
+cudaLaunchConfig_t launch_config(int clusters, int C, int threads,
+                                 size_t smem, cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * C);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// out: threads, smem bytes, ring stages, blocks an SM, clusters resident
+// at once, floats a stage
+template <int E, int C>
+int config_t(const Layout& L, int* out) {
+  size_t smem;
+  cudaError_t err = prepare<E, C>(L, &smem);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0, clusters = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, recurrent_rollout_kernel<E, C>, THREADS, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      launch_config(1, C, THREADS, smem, nullptr, attr);
+  err = cudaOccupancyMaxActiveClusters(&clusters,
+                                       recurrent_rollout_kernel<E, C>, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  const Smem<E> S(nullptr, L);
+  out[0] = THREADS; out[1] = (int)smem; out[2] = S.stages;
+  out[3] = per_sm; out[4] = clusters; out[5] = stage_floats<E>();
+  return 0;
+}
+
+template <int E, int C>
+int launch_t(const Args& a, int clusters, cudaStream_t stream) {
+  size_t smem;
+  cudaError_t err = prepare<E, C>(Layout(a.F1, a.F, a.H, a.HH), &smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      launch_config(clusters, C, THREADS, smem, stream, attr);
+  err = cudaLaunchKernelEx(&cfg, recurrent_rollout_kernel<E, C>, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// ---- the block table --------------------------------------------------------
+
+constexpr int BT_THREADS = 1024;
+
+// The kernel's env lists on the card, in one block (the plain version is
+// ops/recurrent_rollout.py::block_table): row r of `table` (n_rows x (1 +
+// E)) = [member, env ids in lane order, -1 on idle lanes] for r < the
+// block count, which goes to info[2] with the least and the greatest
+// opp_idx (info[0], info[1]). Envs go in (member, tile, index) order: a
+// warp walks a tile 32 envs at a time, ranking each env among the tile's
+// envs of its member (__match_any_sync); each member's segments then take
+// consecutive blocks of E, and each member's block count is padded to a
+// multiple of C. scratch: B + n_slots * n_tiles ints. Integer work only,
+// in a fixed order: the table does not depend on the schedule.
+__global__ void __launch_bounds__(BT_THREADS)
+block_table_kernel(const int* __restrict__ opp, int B, int tile_rows,
+                   int n_slots, int E, int C, int n_rows,
+                   int* __restrict__ table, int* __restrict__ info,
+                   int* __restrict__ scratch) {
+  extern __shared__ int bt_smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nw = BT_THREADS / 32, n_tiles = B / tile_rows;
+  int* cnt = bt_smem + warp * n_slots;            // a warp's running counts
+  int* member_end = bt_smem + nw * n_slots;       // n_slots
+  int* red = member_end + n_slots;                // lo, hi
+  int* rank = scratch;                            // B
+  int* seg0 = scratch + B;                        // first block of (m, t)
+  if (tid == 0) { red[0] = 0x7fffffff; red[1] = -0x7fffffff - 1; }
+  __syncthreads();
+  int lo = 0x7fffffff, hi = -0x7fffffff - 1;
+  for (int i = tid; i < B; i += BT_THREADS) {
+    lo = min(lo, opp[i]);
+    hi = max(hi, opp[i]);
+  }
+  atomicMin(&red[0], lo);
+  atomicMax(&red[1], hi);
+  // ranks within each (member, tile) segment, and the segments' sizes
+  for (int t = warp; t < n_tiles; t += nw) {
+    for (int m = lane; m < n_slots; m += 32) cnt[m] = 0;
+    __syncwarp();
+    for (int e0 = t * tile_rows; e0 < (t + 1) * tile_rows; e0 += 32) {
+      const int i = e0 + lane;
+      const bool on = i < (t + 1) * tile_rows;
+      const int m = on ? min(max(opp[i], 0), n_slots - 1) : -1;
+      const unsigned peers = __match_any_sync(0xffffffffu, m);
+      const int before = __popc(peers & ((1u << lane) - 1u));
+      const int base = on ? cnt[m] : 0;
+      __syncwarp();
+      if (on) {
+        rank[i] = base + before;
+        if (before == 0) cnt[m] = base + __popc(peers);
+      }
+      __syncwarp();
+    }
+    for (int m = lane; m < n_slots; m += 32) seg0[m * n_tiles + t] = cnt[m];
+    __syncwarp();
   }
   __syncthreads();
-}
-
-__global__ void __launch_bounds__(THREADS)
-recurrent_rollout_kernel(EnvP p, const float* __restrict__ f_in,
-                         const int* __restrict__ i_in,
-                         const float* __restrict__ hid_in,
-                         const float* __restrict__ learner,
-                         const float* __restrict__ sigma,
-                         const float* __restrict__ opp,
-                         float* __restrict__ f_out, int* __restrict__ i_out,
-                         float* __restrict__ hid_out,
-                         float* __restrict__ tr_obs, int* __restrict__ tr_act,
-                         float* __restrict__ tr_rew, int* __restrict__ tr_done,
-                         float* __restrict__ stats, int B, int T,
-                         int tile_rows, uint32_t seed, int eps_i, int F1,
-                         int F, int H, int HH) {
-  extern __shared__ float smem[];
-  const Layout L(F1, F, H, HH);
-  Smem sm;
-  float* q = smem;
-  sm.obs = q; q += 8 * ENVS;
-  sm.f1 = q; q += F1 * ENVS;
-  sm.x = q; q += (F + H) * ENVS;
-  sm.g = q; q += 4 * H * ENVS;
-  sm.h = q; q += 2 * H * ENVS;
-  sm.c = q; q += 2 * H * ENVS;
-  sm.s = q; q += HH * ENVS;
-  sm.adv = q; q += 3 * ENVS;
-  sm.ein_s = q; q += H;
-  sm.eout_s = q; q += HH;
-  sm.ein_a = q; q += HH;
-  sm.eout_a = q; q += 4;
-  sm.member = (int*)q;
-  sm.act_a = sm.member + ENVS;
-
-  const int tid = threadIdx.x;
-  const int env0 = blockIdx.x * ENVS;
-  // every env of a block lies in one tile (tile_rows % ENVS == 0)
-  const uint32_t seed_mix = seed ^ ((uint32_t)(env0 / tile_rows) * 747796405u);
-  const float eps = __fmul_rn(__int2float_rn(eps_i), 1e-6f);
-
-  // both streams: hid rows [h_b; c_b; h_opp; c_opp], column = env
-  for (int o = tid; o < H * ENVS; o += THREADS) {
-    const int j = o / ENVS, e = o % ENVS;
-    const size_t col = (size_t)env0 + e;
-    sm.h[o] = hid_in[(size_t)j * B + col];
-    sm.c[o] = hid_in[(size_t)(H + j) * B + col];
-    sm.h[H * ENVS + o] = hid_in[(size_t)(2 * H + j) * B + col];
-    sm.c[H * ENVS + o] = hid_in[(size_t)(3 * H + j) * B + col];
-  }
-  EnvRow es;
-  float st[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  const int env = env0 + (tid < ENVS ? tid : 0);
-  const uint32_t lane = (uint32_t)(env % tile_rows);
-  if (tid < ENVS) {
-    es = load_env(f_in, i_in, B, env);
-    sm.member[tid] = i_in[4 * B + env];
+  // each member's first blocks of its segments (a thread a member), then
+  // the members' padded runs in order
+  for (int m = tid; m < n_slots; m += BT_THREADS) {
+    int acc = 0;
+    for (int t = 0; t < n_tiles; ++t) {
+      const int k = seg0[m * n_tiles + t];
+      seg0[m * n_tiles + t] = acc;
+      acc += (k + E - 1) / E;
+    }
+    member_end[m] = (acc + C - 1) / C * C;
   }
   __syncthreads();
-  int lo = sm.member[0], hi = sm.member[0];
-  for (int e = 1; e < ENVS; ++e) {
-    lo = min(lo, sm.member[e]);
-    hi = max(hi, sm.member[e]);
+  if (tid == 0) {
+    for (int m = 1; m < n_slots; ++m) member_end[m] += member_end[m - 1];
+    info[0] = red[0]; info[1] = red[1]; info[2] = member_end[n_slots - 1];
   }
-  const float pool_f = (tid < ENVS && sm.member[tid] > 0) ? 1.f : 0.f;
-
-  for (int s = 0; s < T; ++s) {
-    const uint32_t ctr = (uint32_t)s * 16u;
-    // this step's learner noise (the tile's draw) and the observations
-    for (int i = tid; i < H + 2 * HH + 3; i += THREADS) {
-      if (i < H) sm.ein_s[i] = hash_noise(p, seed_mix, ctr, 10, 11, 0, i);
-      else if (i < H + HH) sm.ein_a[i - H] = hash_noise(p, seed_mix, ctr, 10, 11, 1, i - H);
-      else if (i < H + 2 * HH) sm.eout_s[i - H - HH] = hash_noise(p, seed_mix, ctr, 12, 13, i - H - HH, 0);
-      else sm.eout_a[i - H - 2 * HH] = hash_noise(p, seed_mix, ctr, 12, 13, i - H - 2 * HH, 1);
-    }
-    if (tid < ENVS) {
-      const float o7[7] = {es.x, es.y, es.vx, es.vy, es.bot, es.top, es.spin};
-#pragma unroll
-      for (int i = 0; i < 7; ++i) sm.obs[i * ENVS + tid] = o7[i];
-    }
-    __syncthreads();
-
-    // the bound opponent: one pass per member present in the block
-    for (int m = lo; m <= hi; ++m) {
-      bool present = false;
-      for (int e = 0; e < ENVS; ++e) present |= sm.member[e] == m;
-      if (!present) continue;
-      rnn_forward(L, opp + (size_t)m * L.net, nullptr, false, 1, m, sm);
-      if (tid < ENVS && sm.member[tid] == m) {
-        const float a3[3] = {sm.adv[tid], sm.adv[ENVS + tid], sm.adv[2 * ENVS + tid]};
-        sm.act_a[tid] = argmax3(a3);
-      }
-    }
-    // the learner: noisy heads, epsilon-greedy
-    rnn_forward(L, learner, sigma, true, 0, -1, sm);
-
-    if (tid < ENVS) {
-      const float a3[3] = {sm.adv[tid], sm.adv[ENVS + tid], sm.adv[2 * ENVS + tid]};
-      const int greedy_b = argmax3(a3);
-      const float u_expl = hash_u01(seed_mix, ctr, 5, 0, lane);
-      int rand_a = (int)__fmul_rn(hash_u01(seed_mix, ctr, 6, 0, lane), 3.0f);
-      rand_a = rand_a < 0 ? 0 : (rand_a > 2 ? 2 : rand_a);
-      const int act_b = u_expl < eps ? rand_a : greedy_b;
-      const StepOut o = env_transition(p, es, sm.act_a[tid], act_b);
-      if (tr_obs != nullptr) {
-        const size_t r = (size_t)s * B + env;
-        const float obs7[7] = {es.x, es.y, es.vx, es.vy, es.bot, es.top, es.spin};
-#pragma unroll
-        for (int i = 0; i < 7; ++i) tr_obs[r * 7 + i] = obs7[i];
-        tr_act[r] = act_b;
-        tr_rew[r] = o.reward_b;
-        tr_done[r] = o.done ? 1 : 0;
-      }
-      env_account_reset(p, es, o, seed_mix, ctr, lane, pool_f, st);
-      sm.act_a[tid] = o.done ? 1 : 0;   // reused as this step's done flag
-    }
-    __syncthreads();
-    // a new episode starts both streams from zero
-    for (int o = tid; o < H * ENVS; o += THREADS) {
-      if (sm.act_a[o % ENVS]) {
-        sm.h[o] = 0.f; sm.c[o] = 0.f;
-        sm.h[H * ENVS + o] = 0.f; sm.c[H * ENVS + o] = 0.f;
-      }
-    }
-    __syncthreads();
+  __syncthreads();
+  for (int r = tid; r < n_rows; r += BT_THREADS) {
+    int m = 0;
+    while (m < n_slots && member_end[m] <= r) ++m;
+    table[r * (E + 1)] = m;
+    for (int l = 1; l <= E; ++l) table[r * (E + 1) + l] = -1;
   }
-
-  for (int o = tid; o < H * ENVS; o += THREADS) {
-    const int j = o / ENVS, e = o % ENVS;
-    const size_t col = (size_t)env0 + e;
-    hid_out[(size_t)j * B + col] = sm.h[o];
-    hid_out[(size_t)(H + j) * B + col] = sm.c[o];
-    hid_out[(size_t)(2 * H + j) * B + col] = sm.h[H * ENVS + o];
-    hid_out[(size_t)(3 * H + j) * B + col] = sm.c[H * ENVS + o];
-  }
-  if (tid < ENVS) {
-    store_env(es, f_out, i_out, B, env);
-    i_out[4 * B + env] = sm.member[tid];
-#pragma unroll
-    for (int r = 0; r < 7; ++r) stats[r * B + env] = st[r];
-    stats[7 * B + env] = 0.f;
+  __syncthreads();
+  for (int i = tid; i < B; i += BT_THREADS) {
+    const int m = min(max(opp[i], 0), n_slots - 1), t = i / tile_rows;
+    const int start = m == 0 ? 0 : member_end[m - 1];
+    const int blk = start + seg0[m * n_tiles + t] + rank[i] / E;
+    table[blk * (E + 1) + 1 + rank[i] % E] = i;
   }
 }
 
-size_t smem_bytes(int F1, int F, int H, int HH) {
-  const size_t floats = 8 * ENVS + (size_t)(F1 + F + H + 4 * H + 4 * H + HH + 3) * ENVS +
-                        H + 2 * HH + 4;
-  return floats * sizeof(float) + 2 * ENVS * sizeof(int);
-}
+#define RR_DISPATCH(FN, ...)                                          \
+  switch (envs * 8 + cluster) {                                       \
+    case 8 * 8 + 1: return FN<8, 1>(__VA_ARGS__);                     \
+    case 8 * 8 + 2: return FN<8, 2>(__VA_ARGS__);                     \
+    case 8 * 8 + 4: return FN<8, 4>(__VA_ARGS__);                     \
+    case 16 * 8 + 1: return FN<16, 1>(__VA_ARGS__);                   \
+    case 16 * 8 + 2: return FN<16, 2>(__VA_ARGS__);                   \
+    case 16 * 8 + 4: return FN<16, 4>(__VA_ARGS__);                   \
+    case 32 * 8 + 1: return FN<32, 1>(__VA_ARGS__);                   \
+    case 32 * 8 + 2: return FN<32, 2>(__VA_ARGS__);                   \
+    case 32 * 8 + 4: return FN<32, 4>(__VA_ARGS__);                   \
+    default: return (int)cudaErrorInvalidValue;                       \
+  }
 
 }  // namespace
 
 extern "C" {
 
-// Launch one recurrent rollout chunk on `stream`. B % 8 == 0,
-// tile_rows % 8 == 0, every width <= 128 (checked by the Python wrapper).
-// Transition pointers may all be null (eval mode). Returns the
-// cudaError_t of the launch.
+// The launch shape of E = envs envs a block in clusters of `cluster` CTAs
+// at these widths: out[6] = threads, dynamic shared memory bytes, ring
+// stages, blocks an SM, clusters resident at once, floats a ring stage.
+// Returns a cudaError_t.
+int recurrent_rollout_config(int envs, int cluster, int F1, int F, int H,
+                             int HH, int* out) {
+  const Layout L(F1, F, H, HH);
+  RR_DISPATCH(config_t, L, out)
+}
+
+// Launch one recurrent rollout chunk on `stream` as `clusters` clusters of
+// `cluster` CTAs, each walking the table's groups of `cluster` blocks in
+// turn; the block count (a multiple of `cluster`) is read on the card from
+// info[2], where recurrent_rollout_table put it, and clusters beyond it
+// have nothing to do. Widths multiples of 4 and <= 128, tile_rows a
+// multiple of 8, envs in {8, 16, 32} (checked by the Python wrapper).
+// Transition pointers may all be null (eval mode). Returns the cudaError_t
+// of the launch.
 int recurrent_rollout_launch(const EnvP* p, const float* f_in, const int* i_in,
                              const float* hid_in, const float* learner,
                              const float* sigma, const float* opp,
                              float* f_out, int* i_out, float* hid_out,
                              float* tr_obs, int* tr_act, float* tr_rew,
-                             int* tr_done, float* stats, int B, int T,
-                             int tile_rows, unsigned int seed, int eps_i,
-                             int F1, int F, int H, int HH,
+                             int* tr_done, float* stats, const int* table,
+                             const int* info, int envs, int cluster,
+                             int clusters,
+                             int B, int T, int tile_rows, unsigned int seed,
+                             int eps_i, int F1, int F, int H, int HH,
                              cudaStream_t stream) {
-  const size_t smem = smem_bytes(F1, F, H, HH);
-  cudaError_t err = cudaFuncSetAttribute(
-      recurrent_rollout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  recurrent_rollout_kernel<<<B / ENVS, THREADS, smem, stream>>>(
-      *p, f_in, i_in, hid_in, learner, sigma, opp, f_out, i_out, hid_out,
-      tr_obs, tr_act, tr_rew, tr_done, stats, B, T, tile_rows, seed, eps_i,
-      F1, F, H, HH);
+  if (cluster < 1 || clusters < 1) return (int)cudaErrorInvalidValue;
+  Args a;
+  a.p = *p;
+  a.f_in = f_in; a.i_in = i_in; a.hid_in = hid_in; a.learner = learner;
+  a.sigma = sigma; a.opp = opp; a.f_out = f_out; a.i_out = i_out;
+  a.hid_out = hid_out; a.tr_obs = tr_obs; a.tr_act = tr_act;
+  a.tr_rew = tr_rew; a.tr_done = tr_done; a.stats = stats; a.table = table;
+  a.info = info;
+  a.B = B; a.T = T; a.tile_rows = tile_rows; a.seed = seed; a.eps_i = eps_i;
+  a.F1 = F1; a.F = F; a.H = H; a.HH = HH;
+  RR_DISPATCH(launch_t, a, clusters, stream)
+}
+
+// Build the block table on `stream` (block_table_kernel): table n_rows x
+// (1 + envs), info[3] = least and greatest opp_idx and the block count,
+// scratch B + n_slots * (B / tile_rows) ints. Returns a cudaError_t.
+int recurrent_rollout_table(const int* opp, int B, int tile_rows, int n_slots,
+                            int envs, int cluster, int n_rows, int* table,
+                            int* info, int* scratch, cudaStream_t stream) {
+  const size_t smem = (size_t)((BT_THREADS / 32 + 1) * n_slots + 2) * 4;
+  if (smem > 48 * 1024 || B % tile_rows) return (int)cudaErrorInvalidValue;
+  block_table_kernel<<<1, BT_THREADS, smem, stream>>>(
+      opp, B, tile_rows, n_slots, envs, cluster, n_rows, table, info,
+      scratch);
   return (int)cudaGetLastError();
 }
 

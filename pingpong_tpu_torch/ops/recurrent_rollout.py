@@ -21,6 +21,11 @@ Two versions compute the same function:
 * the CUDA kernel ``csrc/recurrent_rollout.cu``, launched for tensors on
   the card. There is no fallback between the two.
 
+The kernel runs blocks of one opponent each: :func:`launch_plan` picks the
+envs a block and builds the block table (the env list of every block, on
+the card; :func:`block_table` is its plain version), and the nets travel
+in the flat layouts of :func:`net_layout` and :func:`sigma_layout`.
+
 Random draws follow the JAX kernel's interpret path (``_rnn_kernel``):
 the counter hash with ``seed_mix = seed ^ (tile * 747796405)`` and
 ``ctr = 16 * step``; the learner noise of a step is one factorized draw
@@ -54,7 +59,14 @@ from pingpong_tpu_torch.ops.build import (
 from pingpong_tpu_torch.ops.pong_kernel import _M32, EnvConsts, tile_seed_mix
 
 MAX_WIDTH = 128       # every width the kernel takes
-CUDA_ENVS = 8         # envs per CUDA block; tile_rows must be a multiple
+CUDA_ENVS = 8         # the fewest envs a CUDA block takes; tile_rows must be
+                      # a multiple
+ENVS_CHOICES = (8, 16, 32)   # envs a block the kernel is built for
+CUDA_CLUSTER = 1      # CTAs a cluster, fed by one multicast weight stream
+                      # (the kernel is built for 1, 2 and 4; 1 measured
+                      # fastest on an H100, PERF.md)
+FLAT_ALIGN = 32       # floats: each section of the kernel's flat layouts
+                      # starts on 128 bytes (bulk copies need 16)
 
 
 class PackedQNetRNN(NamedTuple):
@@ -133,8 +145,10 @@ def pack_rnn_sigma(params: QNetRNN) -> RNNSigma:
 
 
 def supports_kernel(dims) -> bool:
-    """Whether the kernel takes these (F1, F, H, HH) widths."""
-    return max(dims) <= MAX_WIDTH and min(dims) > 0
+    """Whether the kernel takes these (F1, F, H, HH) widths: at most 128,
+    and multiples of 4 (a streamed row is a whole number of 16 bytes)."""
+    return max(dims) <= MAX_WIDTH and min(dims) > 0 and all(
+        d % 4 == 0 for d in dims)
 
 
 def packed_dims(p: PackedQNetRNN):
@@ -143,23 +157,149 @@ def packed_dims(p: PackedQNetRNN):
             p.wst.shape[-2])
 
 
+def _sections(fields):
+    """``{name: (offset, size)}`` and the padded length of sections laid
+    end to end, each starting on ``FLAT_ALIGN`` floats."""
+    out, off = {}, 0
+    for name, size in fields:
+        out[name] = (off, size)
+        off += -(-size // FLAT_ALIGN) * FLAT_ALIGN
+    return out, off
+
+
+def net_layout(dims):
+    """The kernel's flat net (``csrc/recurrent_rollout.cu::Layout``): the
+    part it keeps resident (w1 (F1, 8), b1, b2, bg (H, 4), bs, wa (3, HH),
+    ba (3)), then the part it streams (w2 (F1 in, F out), wg (F+H in, H
+    units, 4 gates), ws (H in, HH out)). Returns ``({name: (offset,
+    size)}, length)``; every section and the length are multiples of 128
+    bytes, so slot m of a stack starts on 128 bytes too."""
+    F1, F, H, HH = dims
+    return _sections([("w1", F1 * 8), ("b1", F1), ("b2", F), ("bg", 4 * H),
+                      ("bs", HH), ("wa", 3 * HH), ("ba", 3), ("w2", F1 * F),
+                      ("wg", (F + H) * 4 * H), ("ws", H * HH)])
+
+
+def sigma_layout(dims):
+    """The learner's sigmas in the kernel's layout: bs, wa (3, HH), ba (3)
+    resident, ws (H in, HH out) streamed."""
+    _, _, H, HH = dims
+    return _sections([("bs", HH), ("wa", 3 * HH), ("ba", 3), ("ws", H * HH)])
+
+
+def _cat_flat(layout, lead, fields, device):
+    """The sections of ``fields`` in ``layout``'s order, each followed by
+    zeros up to its padded length: one ``cat``."""
+    zeros = torch.zeros(lead + (FLAT_ALIGN,), dtype=torch.float32,
+                        device=device)
+    parts = []
+    for name, (_, size) in layout.items():
+        parts.append(fields[name].reshape(lead + (size,)))
+        pad = -size % FLAT_ALIGN
+        if pad:
+            parts.append(zeros[..., :pad])
+    return torch.cat(parts, dim=-1)
+
+
 def rnn_kernel_flat(p: PackedQNetRNN) -> torch.Tensor:
-    """``(..., NET)`` contiguous vector per net in the CUDA kernel's layout:
-    w1 (F1, 8), b1, w2 (F1, F), b2, wg (F+H, 4H), bg, ws (H, HH), bs,
-    wa (3, HH), ba (3) (see ``csrc/recurrent_rollout.cu``)."""
+    """``(..., NET)`` contiguous vector per net in the CUDA kernel's layout
+    (:func:`net_layout`). The gates matrix is stored input-major and
+    unit-major, ``wg[k, j, q] = wght[q H + j, k]``, so one 16-byte load
+    gives unit j's four gates (i, f, g, o); ``bg`` likewise."""
+    dims = packed_dims(p)
+    H = dims[2]
     lead = p.w1t.shape[:-2]
     t = lambda x: x.transpose(-1, -2)
-    fields = [p.w1t, p.b1t, t(p.w2t), p.b2t, t(p.wght), p.bgt, t(p.wst),
-              p.bst, p.wat[..., :3, :], p.bat[..., :3, :]]
-    return torch.cat([f.reshape(lead + (-1,)) for f in fields],
-                     dim=-1).contiguous()
+    wg = p.wght.reshape(lead + (4, H, -1)).permute(
+        *range(len(lead)), -1, -2, -3)
+    bg = t(p.bgt[..., 0].reshape(lead + (4, H)))
+    layout, _ = net_layout(dims)
+    return _cat_flat(layout, lead, dict(
+        w1=p.w1t, b1=p.b1t, b2=p.b2t, bg=bg, bs=p.bst,
+        wa=p.wat[..., :3, :], ba=p.bat[..., :3, :], w2=t(p.w2t), wg=wg,
+        ws=t(p.wst)), p.w1t.device)
 
 
 def sigma_kernel_flat(s: RNNSigma) -> torch.Tensor:
-    """The learner's sigmas in the kernel's layout: ws (H, HH), bs,
-    wa (3, HH), ba (3)."""
-    fields = [s.wst_sigma.T, s.bst_sigma, s.wat_sigma[:3], s.bat_sigma[:3]]
-    return torch.cat([f.reshape(-1) for f in fields]).contiguous()
+    """The learner's sigmas in the kernel's layout (:func:`sigma_layout`)."""
+    HH, H = s.wst_sigma.shape
+    layout, _ = sigma_layout((0, 0, H, HH))
+    return _cat_flat(layout, (), dict(
+        bs=s.bst_sigma, wa=s.wat_sigma[:3], ba=s.bat_sigma[:3],
+        ws=s.wst_sigma.T), s.wst_sigma.device)
+
+
+# ---------------------------------------------------------------------------
+# Blocks of one opponent: the kernel's env lists
+# ---------------------------------------------------------------------------
+
+def segment_counts(opp_idx: torch.Tensor, tile_rows: int,
+                   n_slots: int) -> torch.Tensor:
+    """``(n_slots, tiles)`` env count of every (member, tile) segment
+    (without a host synchronization)."""
+    B = opp_idx.shape[0]
+    n_tiles = B // tile_rows
+    env = torch.arange(B, device=opp_idx.device)
+    key = opp_idx.long() * n_tiles + env // tile_rows
+    counts = torch.zeros(n_slots * n_tiles, dtype=torch.long,
+                         device=opp_idx.device)
+    return counts.index_add_(0, key, torch.ones_like(key)).view(
+        n_slots, n_tiles)
+
+
+def member_blocks(counts: torch.Tensor, envs: int, cluster: int):
+    """Blocks of each member: every (member, tile) segment cut into blocks
+    of at most ``envs`` envs, each member's count padded to a multiple of
+    ``cluster`` (a cluster streams one member)."""
+    blocks = ((counts + envs - 1) // envs).sum(dim=1)
+    return (blocks + cluster - 1) // cluster * cluster
+
+
+def blocks_bound(B: int, tile_rows: int, n_slots: int, envs: int,
+                 cluster: int) -> int:
+    """The most blocks any binding of ``n_slots`` members can need: a tile
+    split among k members needs at most ``tile_rows / envs + k - 1``
+    blocks (``envs`` divides the tile), and each member adds at most
+    ``cluster - 1`` idle blocks to fill its clusters."""
+    return (B // envs + B // tile_rows * (min(n_slots, tile_rows) - 1)
+            + n_slots * (cluster - 1))
+
+
+def block_table(opp_idx: torch.Tensor, tile_rows: int, envs: int,
+                cluster: int, counts: torch.Tensor,
+                n_rows: int) -> torch.Tensor:
+    """The kernel's env lists, ``(n_rows, 1 + envs)`` i32 on the device of
+    ``opp_idx``, without a host synchronization: row = [member, env ids in
+    lane order], -1 on an idle lane. Envs go in order of (member, tile,
+    index); each (member, tile) segment is cut into blocks of ``envs`` (the
+    last one padded with idle lanes), and each member's blocks are padded
+    with idle blocks to a multiple of ``cluster``, so a block holds one tile
+    and one member and a cluster one member. ``counts`` is
+    :func:`segment_counts`; the first ``member_blocks(counts).sum()`` rows
+    are the blocks, ``n_rows`` at least that many (:func:`blocks_bound`)."""
+    B = opp_idx.shape[0]
+    dev = opp_idx.device
+    n_slots, n_tiles = counts.shape
+    env = torch.arange(B, device=dev)
+    key = opp_idx.long() * n_tiles + env // tile_rows
+    order = torch.argsort(key * B + env)
+    seg_n = counts.reshape(-1).to(dev)
+    seg_blocks = ((seg_n + envs - 1) // envs).view(n_slots, n_tiles)
+    padded = member_blocks(counts.to(dev), envs, cluster)
+    member_end = torch.cumsum(padded, 0)
+    member_start = member_end - padded
+    seg_block0 = (member_start[:, None] + torch.cumsum(seg_blocks, 1)
+                  - seg_blocks).reshape(-1)
+    seg_env0 = torch.cumsum(seg_n, 0) - seg_n
+    k = key[order]
+    rank = env - seg_env0[k]
+    table = torch.full((n_rows, 1 + envs), -1, dtype=torch.int32,
+                       device=dev)
+    table[:, 0] = torch.searchsorted(
+        member_end, torch.arange(n_rows, device=dev), right=True)
+    table[seg_block0[k] + rank // envs, 1 + rank % envs] = order.to(
+        torch.int32)
+    return table
 
 
 # ---------------------------------------------------------------------------
@@ -280,9 +420,125 @@ def recurrent_rollout_plain(env_params: EnvParams, state: EnvState, opp_idx,
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
     "recurrent_rollout", "recurrent_rollout_launch",
-    [ctypes.POINTER(EnvConsts)] + [_vp] * 14 + [_i, _i, _i, ctypes.c_uint,
-                                                 _i, _i, _i, _i, _i, _vp],
+    [ctypes.POINTER(EnvConsts)] + [_vp] * 16 + [_i] * 6 + [ctypes.c_uint]
+    + [_i] * 5 + [_vp],
 )
+
+
+class KernelConfig(NamedTuple):
+    """The launch shape of one (envs, cluster) build at given widths, as
+    the CUDA runtime reports it for the card."""
+
+    threads: int
+    smem: int             # dynamic shared memory bytes a block
+    stages: int           # weight-ring stages
+    blocks_per_sm: int
+    clusters: int         # clusters resident at once
+    stage_floats: int
+
+
+_CONFIGS = {}
+
+
+def kernel_config(envs: int, cluster: int, dims) -> KernelConfig:
+    """:class:`KernelConfig` of the kernel built for ``envs`` envs a block
+    in clusters of ``cluster`` CTAs (cached)."""
+    key = (envs, cluster, tuple(dims))
+    if key not in _CONFIGS:
+        fn = KERNEL.library_fn("recurrent_rollout_config",
+                               [_i] * 6 + [ctypes.POINTER(ctypes.c_int)],
+                               ctypes.c_int)
+        out = (ctypes.c_int * 6)()
+        rc = fn(envs, cluster, *dims, out)
+        if rc != 0:
+            raise RuntimeError(f"recurrent_rollout config ({envs} envs, "
+                               f"cluster {cluster}) failed: cudaError {rc}")
+        _CONFIGS[key] = KernelConfig(*out)
+    return _CONFIGS[key]
+
+
+def check_tile_rows(tile_rows: int):
+    """The kernel's one tile rule: ``tile_rows`` a multiple of
+    ``CUDA_ENVS``. Returns the envs-a-block sizes that divide a tile, so a
+    tile bound to one member fills its blocks."""
+    if tile_rows % CUDA_ENVS:
+        raise ValueError(f"tile_rows {tile_rows} must be a multiple of "
+                         f"{CUDA_ENVS} on the card")
+    return [e for e in ENVS_CHOICES if tile_rows % e == 0]
+
+
+class LaunchPlan(NamedTuple):
+    """How a chunk runs: ``envs`` envs a block, ``grid`` clusters of
+    ``cluster`` CTAs walking the block table's groups of ``cluster`` blocks
+    in turn, and the table itself with ``info`` = [least opp_idx, greatest
+    opp_idx, block count] (int32 on the card; :func:`plan_counts`)."""
+
+    envs: int
+    cluster: int
+    grid: int
+    config: KernelConfig
+    table: torch.Tensor
+    info: torch.Tensor
+
+
+def launch_plan(opp_idx: torch.Tensor, tile_rows: int, n_slots: int,
+                dims) -> LaunchPlan:
+    """Choose the envs a block: the fewest of :func:`check_tile_rows`'s
+    whose :func:`blocks_bound` fits the ``CUDA_CLUSTER`` build's resident
+    clusters, else the most (the clusters then walk several rounds); and
+    build the block table on the card (``block_table_kernel``, whose plain
+    version is :func:`block_table`). The grid covers the bound; the kernel
+    reads the exact block count from ``info``. No host synchronization."""
+    choices = check_tile_rows(tile_rows)
+    B, C, dev = opp_idx.shape[0], CUDA_CLUSTER, opp_idx.device
+    for envs in choices:
+        cfg = kernel_config(envs, C, dims)
+        bound = blocks_bound(B, tile_rows, n_slots, envs, C)
+        if bound <= cfg.clusters * C:
+            break
+    if cfg.clusters < 1:
+        raise RuntimeError(f"recurrent_rollout: a cluster of {C} CTAs of "
+                           f"{cfg.smem} bytes cannot be resident")
+    table = torch.empty((bound, 1 + envs), dtype=torch.int32, device=dev)
+    info = torch.empty(3, dtype=torch.int32, device=dev)
+    scratch = torch.empty(B + n_slots * (B // tile_rows), dtype=torch.int32,
+                          device=dev)
+    build = KERNEL.library_fn("recurrent_rollout_table",
+                              [_vp] + [_i] * 6 + [_vp] * 4, ctypes.c_int)
+    rc = build(ptr(opp_idx), B, tile_rows, n_slots, envs, C, bound,
+               ptr(table), ptr(info), ptr(scratch), stream_ptr(dev))
+    if rc != 0:
+        raise RuntimeError(f"recurrent_rollout table build failed: "
+                           f"cudaError {rc}")
+    return LaunchPlan(envs, C, min(bound // C, cfg.clusters), cfg, table,
+                      info)
+
+
+def plan_counts(plan: LaunchPlan):
+    """``(least opp_idx, greatest opp_idx, blocks, rounds)`` of a plan
+    (synchronizes)."""
+    lo, hi, n_blocks = plan.info.tolist()
+    groups = n_blocks // plan.cluster
+    return lo, hi, n_blocks, -(-groups // plan.grid)
+
+
+_PINNED = {}   # device -> a pinned host copy of a plan's info
+
+
+_OPP_FLAT = []   # [(tensor, version) of each field, flat] of the last stack
+
+
+def opponents_flat(p: PackedQNetRNN) -> torch.Tensor:
+    """:func:`rnn_kernel_flat` of an opponent stack, reused while the
+    stack's tensors are the same, unmodified objects (a learner packs its
+    stack once per generation block)."""
+    key = [(t, t._version) for t in p]
+    if _OPP_FLAT and all(a is b and v == w for (a, v), (b, w)
+                         in zip(_OPP_FLAT[0], key)):
+        return _OPP_FLAT[1]
+    flat = rnn_kernel_flat(p)
+    _OPP_FLAT[:] = [key, flat]
+    return flat
 
 
 def recurrent_rollout_cuda(env_params: EnvParams, state: EnvState, opp_idx,
@@ -298,22 +554,17 @@ def recurrent_rollout_cuda(env_params: EnvParams, state: EnvState, opp_idx,
     dims = packed_dims(learner)
     F1, F, H, HH = dims
     if not supports_kernel(dims):
-        raise ValueError(f"recurrent kernel takes widths <= {MAX_WIDTH}, "
-                         f"got {dims}")
-    if tile_rows % CUDA_ENVS:
-        raise ValueError(f"tile_rows {tile_rows} must be a multiple of "
-                         f"{CUDA_ENVS} on the card")
+        raise ValueError(f"recurrent kernel takes widths <= {MAX_WIDTH} "
+                         f"that are multiples of 4, got {dims}")
+    check_tile_rows(tile_rows)
     lw = rnn_kernel_flat(learner)
     sw = sigma_kernel_flat(sigma)
-    ow = rnn_kernel_flat(opponents)
+    ow = opponents_flat(opponents)
     n_slots, net = ow.shape
     check_cuda("learner", lw, torch.float32, (net,))
-    check_cuda("sigma", sw, torch.float32, (H * HH + HH + 3 * HH + 3,))
+    check_cuda("sigma", sw, torch.float32, (sigma_layout(dims)[1],))
     check_cuda("opp_idx", opp_idx, torch.int32, (B,))
     check_cuda("hid", hid, torch.float32, (4 * H, B))
-    lo, hi = torch.aminmax(opp_idx)
-    if int(lo) < 0 or int(hi) >= n_slots:
-        raise ValueError(f"opp_idx outside [0, {n_slots})")
     f_in = torch.stack([state.ball_x, state.ball_y, state.ball_vx,
                         state.ball_vy, state.bottom_paddle_x,
                         state.top_paddle_x, state.spin, ep_return])
@@ -334,10 +585,25 @@ def recurrent_rollout_cuda(env_params: EnvParams, state: EnvState, opp_idx,
     else:
         tr_ptrs = [None] * 4
     consts = EnvConsts.build(env_params, max_episode_steps)
+    plan = launch_plan(opp_idx, tile_rows, n_slots, dims)
+    # the table's members are clamped into the stack, so the chunk reads no
+    # weights outside it; the range check waits for the table's counts only
+    if dev not in _PINNED:
+        _PINNED[dev] = torch.empty(3, dtype=torch.int32, pin_memory=True)
+    info = _PINNED[dev]
+    info.copy_(plan.info, non_blocking=True)
+    copied = torch.cuda.Event()
+    copied.record(torch.cuda.current_stream(dev))
     KERNEL.launch(ctypes.byref(consts), ptr(f_in), ptr(i_in), ptr(hid),
                   ptr(lw), ptr(sw), ptr(ow), ptr(f_out), ptr(i_out),
-                  ptr(hid_out), *tr_ptrs, ptr(stats), B, steps, tile_rows,
-                  seed & _M32, eps_i, F1, F, H, HH, stream_ptr(dev))
+                  ptr(hid_out), *tr_ptrs, ptr(stats), ptr(plan.table),
+                  ptr(plan.info), plan.envs, plan.cluster, plan.grid, B,
+                  steps, tile_rows, seed & _M32, eps_i, F1, F, H, HH,
+                  stream_ptr(dev))
+    copied.synchronize()
+    lo, hi, _ = info.tolist()
+    if lo < 0 or hi >= n_slots:
+        raise ValueError(f"opp_idx outside [0, {n_slots})")
     new_state = EnvState(
         ball_x=f_out[0], ball_y=f_out[1], ball_vx=f_out[2], ball_vy=f_out[3],
         bottom_paddle_x=f_out[4], top_paddle_x=f_out[5], spin=f_out[6],

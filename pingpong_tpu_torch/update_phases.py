@@ -1,7 +1,8 @@
-"""Phase split of the two update-block kernels on the card.
+"""Phase split of the two update-block kernels and of the recurrent
+rollout kernel on the card.
 
-    python -m pingpong_tpu_torch.update_phases {drqn,dqn} [--source FILE]
-        [--reps N]
+    python -m pingpong_tpu_torch.update_phases {drqn,dqn,rnn} [--source FILE]
+        [--reps N] [--envs B] [--slots N]
 
 Writes an instrumented copy of the kernel's source (default: the port's
 own ``csrc/drqn_update.cu`` or ``csrc/dqn_update.cu``) under
@@ -20,6 +21,11 @@ port's wrapper, with random weights and data from a seed:
   stamps after every line tagged ``// phase: NAME`` (the cluster barriers
   and the top of the update loop); it prints the time from each tag to the
   next, summed by pair of tags.
+- ``rnn`` (``configs/rnn.yaml``'s train chunk: ``--envs`` 1024 envs, 128
+  steps, ``--slots`` 2 opponent slots in the learner's buckets): consumer
+  thread 0 of block 0 stamps after every line tagged ``// phase: NAME``
+  (the consumers' barriers; a net pass's tags count the opponent's and
+  the learner's passes together), printed as for ``dqn``.
 
 Times are microseconds summed over one launch, averaged over ``--reps``
 launches, with the card's name and power limit. The committed kernels are
@@ -134,8 +140,13 @@ extern "C" int st_read(unsigned long long* t, int* id, int* n) {
 """
 
 
-def instrument_dqn(src: str):
-    """The instrumented DQN source (a stamp after each ``// phase:`` line)
+RNN_HEADER = DQN_HEADER.replace(
+    "cg::this_cluster().block_rank() == 0", "blockIdx.x == 0")
+
+
+def instrument_dqn(src: str, anchor="namespace cg = cooperative_groups;\n",
+                   header=DQN_HEADER):
+    """The instrumented source (a stamp after each ``// phase:`` line)
     and each site's name by id."""
     names, out = {}, []
     for line in src.splitlines():
@@ -145,20 +156,24 @@ def instrument_dqn(src: str):
             names[len(names)] = tag.group(1)
             out.append(f"STAMP({len(names) - 1});")
     text = "\n".join(out)
-    anchor = "namespace cg = cooperative_groups;\n"
-    return (text.replace(anchor, anchor + DQN_HEADER, 1) + "\n" + DQN_FOOTER,
+    return (text.replace(anchor, anchor + header, 1) + "\n" + DQN_FOOTER,
             names)
+
+
+def instrument_rnn(src: str):
+    return instrument_dqn(src, '#include "pong_env.cuh"\n', RNN_HEADER)
 
 
 def build(source: Path, kernel: str) -> tuple:
     from pingpong_tpu_torch.ops.build import NVCC_FLAGS, nvcc_path
 
     OUT.mkdir(parents=True, exist_ok=True)
-    instrument = instrument_drqn if kernel == "drqn" else instrument_dqn
+    instrument = {"drqn": instrument_drqn, "dqn": instrument_dqn,
+                  "rnn": instrument_rnn}[kernel]
     text, names = instrument(source.read_text())
-    cu = OUT / f"{kernel}_update_phases.cu"
+    cu = OUT / f"{kernel}_phases.cu"
     cu.write_text(text)
-    lib = OUT / f"lib{kernel}_update_phases.so"
+    lib = OUT / f"lib{kernel}_phases.so"
     res = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-I", str(source.parent),
                           "-o", str(lib), str(cu)],
                          capture_output=True, text=True)
@@ -242,6 +257,74 @@ def inputs_dqn(dev, seed=7, bs=256, K=64, cap=1 << 20):
                 data=buf.data, K=K, bs=bs, lr=2.5e-4, gamma=0.99,
                 interval=1000, tau=0.0, alpha=0.6, per_eps=1e-6,
                 beta_start=0.4, beta_frames=100_000, heads_only=True)
+
+
+def inputs_rnn(dev, B=1024, n_slots=2, seed=500):
+    """``configs/rnn.yaml``'s train chunk with random nets from ``seed``:
+    ``(args, kw)`` of ``recurrent_rollout_cuda``, ``n_slots`` opponents in
+    the learner's buckets."""
+    from pingpong_tpu_torch.config import load_config
+    from pingpong_tpu_torch.env.pong import env_params_from_config, reset
+    from pingpong_tpu_torch.models.qnet_rnn import qnet_rnn_init
+    from pingpong_tpu_torch.ops import recurrent_rollout as rr
+    from pingpong_tpu_torch.train.dqn import bucket_opp_idx
+
+    cfg = load_config(ROOT / "configs" / "rnn.yaml")
+    c = cfg.drqn
+    gen = torch.Generator().manual_seed(seed)
+    learner, *members = (qnet_rnn_init(
+        gen, feature_dim=c.feature_dim, lstm_hidden_dim=c.lstm_hidden_dim,
+        head_hidden_dim=c.head_hidden_dim).to(dev) for _ in range(1 + n_slots))
+    env = env_params_from_config(cfg.env)
+    hid = torch.rand((4 * c.lstm_hidden_dim, B), generator=torch.Generator(
+        dev).manual_seed(seed), device=dev) - 0.5
+    args = (env, reset(env, B, gen, dev), bucket_opp_idx(
+        B, c.selfplay.opponent_pool_ratio, n_slots - 1, device=dev),
+        torch.zeros(B, device=dev), hid, rr.pack_qnet_rnn(learner),
+        rr.pack_rnn_sigma(learner), rr.pack_qnet_rnn(members, mirror=True))
+    kw = dict(seed=11, eps_i=300000, steps=c.rollout_length,
+              max_episode_steps=c.max_episode_steps,
+              tile_rows=min(c.pallas_tile_rows, B), emit_transitions=True)
+    return args, kw
+
+
+def split_rnn(lib, names, args, kw, reps):
+    """As :func:`split_dqn`, for the recurrent rollout kernel."""
+    import numpy as np
+
+    from pingpong_tpu_torch.ops import recurrent_rollout as rr
+
+    saved, rr.KERNEL = rr.KERNEL, kernel_from(
+        lib, rr.KERNEL.argtypes, "recurrent_rollout",
+        "recurrent_rollout_launch")
+    cdll = ctypes.CDLL(str(lib))
+    t = np.zeros(8192, np.uint64)
+    ids = np.zeros(8192, np.int32)
+    n = np.zeros(1, np.int32)
+    ptrs = [x.ctypes.data_as(ctypes.c_void_p) for x in (t, ids, n)]
+    acc, ev_ms = OrderedDict(), []
+    run = lambda: rr.recurrent_rollout_cuda(*args, **kw)
+    try:
+        run()                                     # warm
+        torch.cuda.synchronize()
+        assert cdll.st_read(*ptrs) == 0
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            run()
+            b.record()
+            torch.cuda.synchronize()
+            ev_ms.append(a.elapsed_time(b))
+            assert cdll.st_read(*ptrs) == 0
+            for i in range(1, int(n[0])):
+                key = f"{names[int(ids[i - 1])]} -> {names[int(ids[i])]}"
+                c, us = acc.get(key, (0, 0.0))
+                acc[key] = (c + 1, us + (int(t[i]) - int(t[i - 1])) / 1e3)
+    finally:
+        rr.KERNEL = saved
+    return ({key: (c / reps, us / reps, 0.0) for key, (c, us) in acc.items()},
+            ev_ms, 1)
 
 
 def fresh(kw):
@@ -342,18 +425,26 @@ def split(lib, names, kw, reps):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("kernel", choices=("drqn", "dqn"))
+    ap.add_argument("kernel", choices=("drqn", "dqn", "rnn"))
     ap.add_argument("--source", type=Path)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--envs", type=int, default=1024)
+    ap.add_argument("--slots", type=int, default=2)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("update_phases: no CUDA device")
         return 1
     dev = torch.device("cuda")
-    source = args.source or (ROOT / "pingpong_tpu_torch" / "csrc" /
-                             f"{args.kernel}_update.cu")
+    source = args.source or (ROOT / "pingpong_tpu_torch" / "csrc" / (
+        "recurrent_rollout.cu" if args.kernel == "rnn"
+        else f"{args.kernel}_update.cu"))
     lib, names = build(source, args.kernel)
-    if args.kernel == "drqn":
+    if args.kernel == "rnn":
+        rargs, rkw = inputs_rnn(dev, args.envs, args.slots)
+        table, ev_ms, nb = split_rnn(lib, names, rargs, rkw, args.reps)
+        shape = (f"B {args.envs}, T {rkw['steps']}, {args.slots} slots, "
+                 f"block 0")
+    elif args.kernel == "drqn":
         kw = inputs_drqn(dev)
         table, ev_ms, nb = split(lib, names, kw, args.reps)
         shape = f"K {kw['K']}, bs {kw['bs']}, T {kw['T']}, dims {kw['dims']}"

@@ -279,8 +279,16 @@ RNN_WIDTHS = dict(feature_dim=64, lstm_hidden_dim=32, head_hidden_dim=32)
 RNN_DIMS = (32, 64, 32, 32)
 
 
+def rebind_binding(n_envs, pool_size, seed):
+    """A pool change mid-training: a seeded random half of the envs on the
+    buckets of ``pool_size`` members, the rest on those of one fewer."""
+    moved = np.random.default_rng(seed).permutation(n_envs) < n_envs // 2
+    return np.where(moved, bucket_opp_idx(n_envs, 0.4, pool_size).numpy(),
+                    bucket_opp_idx(n_envs, 0.4, pool_size - 1).numpy())
+
+
 def rnn_args(n_slots, eval_mode, dev, seed=5, n_envs=B, tile_rows=TILE,
-             widths=RNN_WIDTHS, bucketed=False):
+             widths=RNN_WIDTHS, bucketed=False, opp=None):
     cfg = load_config(RNN_CONFIG)
     gen = torch.Generator().manual_seed(seed)
     learner, *members = (qnet_rnn_init(gen, **widths).to(dev)
@@ -290,12 +298,14 @@ def rnn_args(n_slots, eval_mode, dev, seed=5, n_envs=B, tile_rows=TILE,
             layer.w_sigma.data.zero_()
             layer.b_sigma.data.zero_()
     rng = np.random.default_rng(seed)
-    opp = opp_binding(n_slots, n_envs, seed, bucketed)
+    if opp is None:
+        opp = opp_binding(n_slots, n_envs, seed, bucketed)
     hid = rng.uniform(-0.5, 0.5, (4 * widths["lstm_hidden_dim"], n_envs)
                       ).astype(np.float32)
     env_params = env_params_from_config(cfg.env)
     args = (env_params, reset(env_params, n_envs, gen, dev),
-            torch.from_numpy(opp).to(dev), torch.zeros(n_envs, device=dev),
+            torch.from_numpy(opp.astype(np.int32)).to(dev),
+            torch.zeros(n_envs, device=dev),
             torch.from_numpy(hid).to(dev), trr.pack_qnet_rnn(learner),
             trr.pack_rnn_sigma(learner),
             trr.pack_qnet_rnn(members, mirror=True))
@@ -312,14 +322,21 @@ def test_recurrent_kernel_matches_plain(cuda, n_slots, eval_mode):
     check_recurrent_kernel(cuda, *rnn_args(n_slots, eval_mode, cuda))
 
 
+CONFIG_WIDTHS = dict(feature_dim=128, lstm_hidden_dim=128,
+                     head_hidden_dim=128)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["b1000_tile40", "small_widths",
-                                  "3slot_bucketed_mixed", "b4096"])
+@pytest.mark.parametrize("case", [
+    "b1000_tile40", "small_widths", "3slot_bucketed_mixed", "b4096",
+    "17slot_bucketed", "17slot_rebind", "b1000_tile40_3slot"])
 def test_recurrent_kernel_matches_plain_at_other_shapes(cuda, case):
-    """1000 envs in tiles of 40 (125 blocks of 8 envs, 5 a tile); the
-    smallest widths (F1 16, F 32, H 16, HH 16: most of a row's lanes
-    idle); 3 slots bound in buckets, so blocks mix members; the bench's
-    4096 envs at the configs' widths (512 blocks, several a SM)."""
+    """1000 envs in tiles of 40; the smallest widths (F1 16, F 32, H 16, HH
+    16: most of a row's lanes idle); 3 slots bound in buckets, so 8-env
+    runs of envs mix members; the bench's 4096 envs at the configs' widths
+    (32 envs a block, 128 blocks); 17 slots in buckets and after a pool
+    change (half the envs on the buckets of 16 members); 1000 envs in
+    tiles of 40 bound to 3 slots in buckets."""
     if case == "b1000_tile40":
         args, kw = rnn_args(2, False, cuda, n_envs=1000, tile_rows=40)
     elif case == "small_widths":
@@ -329,12 +346,87 @@ def test_recurrent_kernel_matches_plain_at_other_shapes(cuda, case):
         args, kw = rnn_args(3, False, cuda, bucketed=True)
         per_block = args[2].view(-1, 8)
         assert bool((per_block.amin(1) != per_block.amax(1)).any())
-    else:
-        widths = dict(feature_dim=128, lstm_hidden_dim=128,
-                      head_hidden_dim=128)
+    elif case == "b4096":
         args, kw = rnn_args(1, False, cuda, n_envs=4096, tile_rows=512,
-                            widths=widths)
+                            widths=CONFIG_WIDTHS)
+        plan = trr.launch_plan(args[2], 512, 1, trr.packed_dims(args[5]))
+        assert plan.envs == 32
+        assert trr.plan_counts(plan) == (0, 0, 128, 1)
+    elif case == "17slot_bucketed":
+        args, kw = rnn_args(17, False, cuda, n_envs=1024, tile_rows=512,
+                            bucketed=True)
+    elif case == "17slot_rebind":
+        args, kw = rnn_args(17, False, cuda, n_envs=1024, tile_rows=512,
+                            opp=rebind_binding(1024, 16, 9))
+    else:
+        args, kw = rnn_args(3, False, cuda, n_envs=1000, tile_rows=40,
+                            bucketed=True)
     check_recurrent_kernel(cuda, args, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [2, 4])
+def test_recurrent_kernel_clusters_match_plain(cuda, monkeypatch, cluster):
+    """The kernel built for clusters of 2 and 4 CTAs (one multicast weight
+    stream a cluster): 1000 envs in tiles of 40 bound to 3 slots, whose
+    members' blocks are no multiple of the cluster size, so idle blocks
+    pad their clusters; and 17 slots after a pool change."""
+    monkeypatch.setattr(trr, "CUDA_CLUSTER", cluster)
+    args, kw = rnn_args(3, False, cuda, n_envs=1000, tile_rows=40,
+                        bucketed=True)
+    plan = trr.launch_plan(args[2], 40, 3, trr.packed_dims(args[5]))
+    counts = trr.segment_counts(args[2], 40, 3).cpu()
+    unpadded = int(((counts + plan.envs - 1) // plan.envs).sum())
+    assert plan.cluster == cluster
+    assert trr.plan_counts(plan)[2] > unpadded
+    check_recurrent_kernel(cuda, args, kw)
+    check_recurrent_kernel(cuda, *rnn_args(
+        17, False, cuda, n_envs=1024, tile_rows=512,
+        opp=rebind_binding(1024, 16, 9)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("binding", ["17slot_rebind", "b1000_tile40"])
+def test_block_table_kernel_matches_plain(cuda, binding):
+    """The wrapper's block table, built on the card, equals the plain
+    ``block_table``'s, with the block count and the range of opp_idx."""
+    if binding == "17slot_rebind":
+        opp, tile, n_slots = rebind_binding(1024, 16, 3), 512, 17
+    else:
+        opp, tile, n_slots = opp_binding(3, 1000, 4, True), 40, 3
+    opp = torch.from_numpy(opp.astype(np.int32)).to(cuda)
+    plan = trr.launch_plan(opp, tile, n_slots, RNN_DIMS)
+    counts = trr.segment_counts(opp, tile, n_slots)
+    want = trr.block_table(opp, tile, plan.envs, plan.cluster, counts,
+                           plan.table.shape[0])
+    assert torch.equal(plan.table, want)
+    lo, hi, n_blocks, _ = trr.plan_counts(plan)
+    assert (lo, hi) == (int(opp.min()), int(opp.max()))
+    assert n_blocks == int(trr.member_blocks(counts, plan.envs,
+                                             plan.cluster).sum())
+
+
+@pytest.mark.cuda
+def test_recurrent_kernel_env_result_does_not_depend_on_its_block(cuda):
+    """Two bindings that put the same envs (same member, same tile) in
+    other blocks and lanes: those envs' outputs are bit-equal."""
+    opp1 = np.zeros(B, dtype=np.int32)
+    opp2 = opp1.copy()
+    opp2[:5] = 1          # shifts tile 0's member-0 envs by 5 lanes
+    opp2[TILE:TILE + 3] = 1
+    args1, kw = rnn_args(2, False, cuda, opp=opp1)
+    args2, _ = rnn_args(2, False, cuda, opp=opp2)
+    s1, r1, h1, t1, st1 = trr.recurrent_rollout_cuda(*args1, **kw)
+    s2, r2, h2, t2, st2 = trr.recurrent_rollout_cuda(*args2, **kw)
+    torch.cuda.synchronize()
+    same = torch.from_numpy(opp1 == opp2).to(cuda)
+    for f in EnvState._fields[:-1]:
+        assert torch.equal(getattr(s1, f)[same], getattr(s2, f)[same]), f
+    assert torch.equal(r1[same], r2[same])
+    assert torch.equal(h1[:, same], h2[:, same])
+    assert torch.equal(st1[:, same], st2[:, same])
+    for k in ("obs", "action", "reward", "done"):
+        assert torch.equal(t1[k][:, same], t2[k][:, same]), k
 
 
 def check_recurrent_kernel(dev, args, kw):
@@ -411,10 +503,16 @@ def test_drqn_update_kernel_matches_plain(cuda, ts0, interval, tau, bs):
 @pytest.mark.cuda
 def test_recurrent_wrappers_check_their_arguments(cuda):
     args, kw = rnn_args(1, False, cuda)
-    with pytest.raises(ValueError, match="tile_rows"):
-        trr.recurrent_rollout_cuda(*args, **{**kw, "tile_rows": 12})
+    for tile_rows in (12, 36):   # not multiples of 8 envs a block
+        with pytest.raises(ValueError, match="tile_rows"):
+            trr.recurrent_rollout_cuda(*args, **{**kw, "tile_rows": tile_rows})
     with pytest.raises(ValueError, match="hid"):
         trr.recurrent_rollout_cuda(*args[:4], args[4][:8], *args[5:], **kw)
+    bad = args[2].clone()
+    bad[7] = 1           # one slot only
+    with pytest.raises(ValueError, match="opp_idx"):
+        trr.recurrent_rollout_cuda(*args[:2], bad, *args[3:], **kw)
+    torch.cuda.synchronize()
     kk = drqn_update_kwargs(cuda, 0, 1000, 0.0)
     with pytest.raises(ValueError, match="noise"):
         tdru.drqn_update_cuda(**{**kk, "noise": kk["noise"][:, 1:]})

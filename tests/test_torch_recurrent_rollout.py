@@ -20,6 +20,7 @@ from pingpong_tpu.ops.recurrent_rollout import pallas_recurrent_rollout
 from pingpong_tpu_torch.checkpoint.serialize import qnet_rnn_from_numpy
 from pingpong_tpu_torch.env import pong as tpong
 from pingpong_tpu_torch.ops import recurrent_rollout as trr
+from pingpong_tpu_torch.train.dqn import bucket_opp_idx
 
 B, TILE, T = 64, 32, 20
 DIMS = dict(feature_dim=32, lstm_hidden_dim=16, head_hidden_dim=16)
@@ -126,11 +127,122 @@ def test_pack_qnet_rnn_matches_jax(mirror):
         np.testing.assert_array_equal(
             getattr(trr.pack_rnn_sigma(ports[0]), name).numpy(),
             np.asarray(a), err_msg=name)
-    # the kernel's flat layout: one vector per net, widths recovered
+    # the kernel's flat layout: one vector per net, widths recovered, each
+    # of its ten sections padded to 32 floats (128 bytes)
     flat = trr.rnn_kernel_flat(got)
     F1, F, Hd, HH = trr.packed_dims(got)
     assert (F1, F, Hd, HH) == (16, 32, 16, 16)
-    assert flat.shape == (2, F1 * 9 + F1 * F + F + (F + Hd) * 4 * Hd
-                          + 4 * Hd + Hd * HH + HH + 3 * HH + 3)
+    pad = lambda n: -(-n // 32) * 32
+    assert flat.shape == (2, sum(pad(n) for n in (
+        F1 * 8, F1, F, 4 * Hd, HH, 3 * HH, 3, F1 * F, (F + Hd) * 4 * Hd,
+        Hd * HH)))
     assert trr.supports_kernel((64, 128, 128, 128))
     assert not trr.supports_kernel((64, 256, 128, 128))
+    assert not trr.supports_kernel((64, 128, 126, 128))   # 16-byte rows
+
+
+def unpack_kernel_flat(flat, dims):
+    """Inverse of ``rnn_kernel_flat`` for one net, from ``net_layout``."""
+    F1, F, H, HH = dims
+    layout, length = trr.net_layout(dims)
+    assert flat.shape == (length,)
+    sec = lambda name, *shape: flat[layout[name][0]:layout[name][0]
+                                    + layout[name][1]].reshape(shape)
+    wat = torch.zeros((8, HH))
+    wat[:3] = sec("wa", 3, HH)
+    bat = torch.full((8, 1), trr.NEG_BIG)
+    bat[:3] = sec("ba", 3, 1)
+    return trr.PackedQNetRNN(
+        w1t=sec("w1", F1, 8), b1t=sec("b1", F1, 1),
+        w2t=sec("w2", F1, F).T, b2t=sec("b2", F, 1),
+        wght=sec("wg", F + H, H, 4).permute(2, 1, 0).reshape(4 * H, F + H),
+        bgt=sec("bg", H, 4).T.reshape(4 * H, 1),
+        wst=sec("ws", H, HH).T, bst=sec("bs", HH, 1), wat=wat, bat=bat)
+
+
+@pytest.mark.parametrize("mirror,widths", [
+    (False, DIMS), (True, DIMS),
+    (True, dict(feature_dim=128, lstm_hidden_dim=128, head_hidden_dim=128))])
+def test_kernel_flat_layout_round_trip(mirror, widths):
+    """Every field of a packed net (and of the learner's sigmas) comes
+    back exactly from the kernel's flat vector; sections start on 128
+    bytes; padding is zero."""
+    gen = torch.Generator().manual_seed(3)
+    from pingpong_tpu_torch.models.qnet_rnn import qnet_rnn_init
+
+    nets = [qnet_rnn_init(gen, **widths) for _ in range(3)]
+    packed = trr.pack_qnet_rnn(nets, mirror=mirror)
+    dims = trr.packed_dims(packed)
+    flat = trr.rnn_kernel_flat(packed)
+    layout, length = trr.net_layout(dims)
+    assert flat.shape == (3, length) and length % 32 == 0
+    assert all(off % 32 == 0 for off, _ in layout.values())
+    used = torch.zeros(length, dtype=torch.bool)
+    for off, size in layout.values():
+        used[off:off + size] = True
+    assert not flat[:, ~used].any()
+    for m in range(3):
+        back = unpack_kernel_flat(flat[m], dims)
+        for name in trr.PackedQNetRNN._fields:
+            assert torch.equal(getattr(back, name),
+                               getattr(packed, name)[m]), name
+    sig = trr.pack_rnn_sigma(nets[0])
+    sflat = trr.sigma_kernel_flat(sig)
+    slay, slen = trr.sigma_layout(dims)
+    assert sflat.shape == (slen,)
+    ssec = lambda name: sflat[slay[name][0]:slay[name][0] + slay[name][1]]
+    assert torch.equal(ssec("ws").view(dims[2], dims[3]).T, sig.wst_sigma)
+    assert torch.equal(ssec("bs"), sig.bst_sigma[:, 0])
+    assert torch.equal(ssec("wa").view(3, -1), sig.wat_sigma[:3])
+    assert torch.equal(ssec("ba"), sig.bat_sigma[:3, 0])
+
+
+def rebind(n_envs, pool_size, seed):
+    """Half the envs (seeded) on the buckets of ``pool_size`` members, the
+    rest on those of one fewer: the binding a pool change leaves."""
+    moved = torch.from_numpy(
+        np.random.default_rng(seed).permutation(n_envs) < n_envs // 2)
+    return torch.where(moved, bucket_opp_idx(n_envs, 0.4, pool_size),
+                       bucket_opp_idx(n_envs, 0.4, pool_size - 1))
+
+
+@pytest.mark.parametrize("envs", [8, 16, 32])
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+@pytest.mark.parametrize("binding,n_slots,blocks_at_8", [
+    ("train_2slot", 2, 129), ("pool16", 17, 141), ("rebind", 17, 136)])
+def test_block_table(binding, n_slots, blocks_at_8, envs, cluster):
+    """The kernel's env lists at the shipped train chunk (1024 envs, tiles
+    of 512): every env in exactly one lane; a block holds one tile and one
+    member, a cluster one member; the block count is the sum over members
+    of their segments' ceil(n / envs), each padded to the cluster size
+    (with clusters of 1, the sum over segments of ceil(n / envs))."""
+    B, tile = 1024, 512
+    opp = {"train_2slot": bucket_opp_idx(B, 0.4, 1),
+           "pool16": bucket_opp_idx(B, 0.4, 16),
+           "rebind": rebind(B, 16, 0)}[binding].to(torch.int32)
+    counts = trr.segment_counts(opp, tile, n_slots)
+    assert int(counts.sum()) == B
+    per_member = ((counts + envs - 1) // envs).sum(dim=1)
+    want = int(((per_member + cluster - 1) // cluster * cluster).sum())
+    n_blocks = int(trr.member_blocks(counts, envs, cluster).sum())
+    assert n_blocks == want
+    if cluster == 1:
+        assert n_blocks == int(((counts + envs - 1) // envs).sum())
+    if (envs, cluster) == (8, 1):
+        assert n_blocks == blocks_at_8
+    assert n_blocks <= trr.blocks_bound(B, tile, n_slots, envs, cluster)
+    table = trr.block_table(opp, tile, envs, cluster, counts, n_blocks)
+    assert table.shape == (n_blocks, 1 + envs)
+    lanes = table[:, 1:]
+    valid = lanes >= 0
+    assert torch.equal(lanes[valid].sort().values,
+                       torch.arange(B, dtype=torch.int32))
+    member = table[:, :1].expand_as(lanes)
+    assert torch.equal(opp[lanes[valid].long()], member[valid])
+    tiles = torch.where(valid, lanes // tile, -1)
+    first = tiles[:, :1].expand_as(tiles)
+    assert bool((tiles == first)[valid].all())
+    # lanes fill from 0, and only a segment's last block has idle lanes
+    assert bool((valid[:, 1:] <= valid[:, :-1]).all())
+    assert bool((table[:, 0].view(-1, cluster)
+                 == table[::cluster, :1]).all())
