@@ -22,7 +22,7 @@
    (``torch.profiler``); for kernel 3 it prints, at each timed binding,
    the L2 weight bytes of a chunk under the parent design's and the
    one-member design's stream counts, the launch plan (envs a block,
-   blocks, clusters, rounds, residency) and checks that the card's block
+   blocks, rounds, residency) and checks that the card's block
    table equals ``block_table``'s and holds one member a block;
 5. prints the ``kernels`` JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.
@@ -30,15 +30,13 @@
 Any failed check exits non-zero before the last line. Without a CUDA card
 it exits 1 and prints no result.
 
-    python3 chip_smoke.py --rollout-times DIR [--clusters C ...]
+    python3 chip_smoke.py --rollout-times DIR
 
 times only the two training rollout kernels (kernels 1 and 3) of the
 checkout at DIR, at every shape their paths launch them at, with this
 script's inputs and yardstick (``time_rollouts``), and prints one JSON
-line; ``--clusters 1 2 4`` also times kernel 3 built for each cluster size
-(where DIR's kernel has clusters). Run it on a parent commit unpacked
-under ``build/`` and on this checkout, in one call, to compare the two on
-one card.
+line. Run it on a parent commit unpacked under ``build/`` and on this
+checkout, in one call, to compare the two on one card.
 """
 
 from __future__ import annotations
@@ -519,9 +517,9 @@ def rnn_weight_bytes(opp_idx, T):
     widths under two stream counts. Parent: 8 contiguous envs a block,
     each block-step reading the whole flat net of every member present
     (157,379 floats), the learner's and its sigmas (16,899 floats). Blocks
-    of one member: each cluster's step reads the streamed matrices (w2, wg,
-    ws of both nets and the learner's ws sigmas) once for its C CTAs, and
-    each block reads the resident parts once. Returns ``(parent bytes,
+    of one member: each block-step reads the streamed matrices (w2, wg, ws
+    of both nets and the learner's ws sigmas), and each block reads the
+    resident parts once. Returns ``(parent bytes,
     parent's most members in a block, None)``, or for a checkout whose
     kernel has block tables ``(..., dict(bytes, plan, n_blocks,
     rounds))`` after checking the card's table against ``block_table``."""
@@ -540,18 +538,17 @@ def rnn_weight_bytes(opp_idx, T):
     n_slots = int(opp_idx.max()) + 1
     plan = rr.launch_plan(opp_idx, tile, n_slots, (F1, F, H, HH))
     counts = rr.segment_counts(opp_idx, tile, n_slots)
-    plain = rr.block_table(opp_idx, tile, plan.envs, plan.cluster, counts,
+    plain = rr.block_table(opp_idx, tile, plan.envs, counts,
                            plan.table.shape[0])
     _, _, n_blocks, rounds = rr.plan_counts(plan)
     check(torch.equal(plain, plan.table) and n_blocks == int(
-        rr.member_blocks(counts, plan.envs, plan.cluster).sum()),
+        rr.member_blocks(counts, plan.envs).sum()),
           "the card's block table differs from block_table")
     lay, _ = rr.net_layout((F1, F, H, HH))
     slay, _ = rr.sigma_layout((F1, F, H, HH))
     streamed = 2 * (F1 * F + (F + H) * 4 * H + H * HH) + H * HH
     resident = 2 * lay["w2"][0] + slay["ws"][0]
-    change = 4 * (T * streamed * n_blocks // plan.cluster
-                  + resident * n_blocks)
+    change = 4 * (T * streamed + resident) * n_blocks
     return parent, max(members), dict(bytes=change, plan=plan,
                                       n_blocks=n_blocks, rounds=rounds)
 
@@ -1012,10 +1009,9 @@ def report_rnn_stream(name, inp, steps, ms, resident_check):
         line += (f"; blocks of one member (1 opponent pass a block-step) "
                  f"{change / 1e9:.4f} GB, {change / ms / 1e9:.3f} TB/s; "
                  f"{plan.envs} envs a block, {n_blocks} blocks "
-                 f"({idle} idle lanes) in {plan.grid} clusters of "
-                 f"{plan.cluster} launched, {rounds} round(s); "
-                 f"{cfg.blocks_per_sm} block(s) an SM and {cfg.clusters} "
-                 f"clusters resident at once, ring {cfg.stages} x "
+                 f"({idle} idle lanes) in {plan.grid} launched, "
+                 f"{rounds} round(s); {cfg.blocks_per_sm} block(s) an SM "
+                 f"and {cfg.resident} resident at once, ring {cfg.stages} x "
                  f"{4 * cfg.stage_floats} B, {cfg.smem} B shared, "
                  f"{cfg.threads} threads")
         if resident_check:
@@ -1023,15 +1019,14 @@ def report_rnn_stream(name, inp, steps, ms, resident_check):
     print(line + f" | {CARD}", flush=True)
 
 
-def time_rollouts(clusters=(), resident_check=False):
+def time_rollouts(resident_check=False):
     """CUDA-event means (warm launches) of kernels 1 and 3 at every shape
     their paths launch them at: kernel 1 at ``configs/qnet.yaml``'s train
     chunk (2 slots sharing a trunk, transitions), its 256-step gate chunk
     (1 slot, no transitions) and the bench's pool-16 chunk (8192 x 128, 17
     slots of one trunk); kernel 3 at ``rnn_time_rows``, each with its
-    weight-stream report. ``clusters``: kernel 3 again with each of these
-    cluster sizes built in (``name@clusterC``). Uses whichever checkout's
-    package was imported first."""
+    weight-stream report. Uses whichever checkout's package was imported
+    first."""
     from pingpong_tpu_torch.ops import actor_rollout as ar
     from pingpong_tpu_torch.ops import recurrent_rollout as rr
 
@@ -1047,22 +1042,11 @@ def time_rollouts(clusters=(), resident_check=False):
     times = {name: cuda_ms(lambda: run_actor(ar.actor_rollout_cuda, inp,
                                              steps), reps)
              for name, inp, steps, reps in rows}
-    rnn_rows = rnn_time_rows()
-    shipped = getattr(rr, "CUDA_CLUSTER", None)
-    for suffix, C in [("", shipped)] + [(f"@cluster{c}", c)
-                                        for c in clusters]:
-        if C is not None:
-            rr.CUDA_CLUSTER = C
-        try:
-            for name, inp, steps, reps in rnn_rows:
-                ms = cuda_ms(lambda: run_rnn(rr.recurrent_rollout_cuda, inp,
-                                             steps), reps)
-                times[name + suffix] = ms
-                report_rnn_stream(name + suffix, inp, steps, ms,
-                                  resident_check and not suffix)
-        finally:
-            if shipped is not None:
-                rr.CUDA_CLUSTER = shipped
+    for name, inp, steps, reps in rnn_time_rows():
+        ms = cuda_ms(lambda: run_rnn(rr.recurrent_rollout_cuda, inp, steps),
+                     reps)
+        times[name] = ms
+        report_rnn_stream(name, inp, steps, ms, resident_check)
     return times
 
 
@@ -1101,17 +1085,15 @@ def setup(root: Path):
     return cfg, rcfg
 
 
-def rollout_times_only(root: Path, clusters) -> int:
-    """``--rollout-times``: kernels 1 and 3 of the checkout at ``root``
-    (kernel 3 also at each of ``clusters``, where that checkout has
-    clusters)."""
+def rollout_times_only(root: Path) -> int:
+    """``--rollout-times``: kernels 1 and 3 of the checkout at ``root``."""
     setup(root)
     from pingpong_tpu_torch.ops import actor_rollout as ar
     from pingpong_tpu_torch.ops import recurrent_rollout as rr
     from pingpong_tpu_torch.ops.build import build_all
 
     build_all([ar.KERNEL, rr.KERNEL])
-    times = time_rollouts(clusters if hasattr(rr, "CUDA_CLUSTER") else ())
+    times = time_rollouts()
     print(json.dumps({"rollout_times": str(root), "card": CARD, "ms": times}))
     return 0
 
@@ -1119,15 +1101,12 @@ def rollout_times_only(root: Path, clusters) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rollout-times", type=Path, metavar="DIR")
-    ap.add_argument("--clusters", type=int, nargs="*", default=[],
-                    metavar="C", help="with --rollout-times: also time "
-                    "kernel 3 built for clusters of C CTAs (1, 2 or 4)")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     if a.rollout_times is not None:
-        return rollout_times_only(a.rollout_times.resolve(), a.clusters)
+        return rollout_times_only(a.rollout_times.resolve())
     cfg, rcfg = setup(ROOT)
     from pingpong_tpu_torch import cli
     from pingpong_tpu_torch.models.policy import (

@@ -34,11 +34,9 @@
 //   and steps. The 8 consumer warps meet at a named barrier (bar.sync 1,
 //   256), never at one that waits for the producer. The small tensors (w1,
 //   the biases, the A heads) stay resident for the round.
-// * Clusters of C CTAs bound to one member (C = 1, 2 or 4, built in; the
-//   table pads each member's blocks to a multiple of C): each CTA copies
-//   1/C of every stage with .multicast::cluster into all C CTAs, so one L2
-//   read feeds C blocks; every consumer warp releases a stage in all C CTAs.
-//   On an H100 the L2 is not what bounds the kernel, and C = 1 ships.
+// * Each block streams the weights for itself. On an H100 the L2 is not
+//   what bounds the kernel: clusters of 2 and 4 CTAs fed by one multicast
+//   stream were measured slower than single blocks (PERF.md).
 // * E envs a block (8, 16 or 32; the wrapper picks the smallest whose
 //   blocks are all resident at once), so a 4096-env chunk is 128 blocks of
 //   32 envs in one wave, not 512 blocks of 8 in four. A grid larger than
@@ -55,9 +53,11 @@
 //
 // The learner's noisy head weights are formed on the fly (mu + sigma *
 // eps_out * eps_in) from the streamed mu and sigma with each block's own
-// tile noise. Semantics kept from the TPU kernel's interpret path:
-// seed_mix = seed ^ (tile * 747796405), ctr = 16 * step; the learner noise
-// of a step is one factorized draw shared by a tile of tile_rows envs:
+// tile noise; a launch whose sigmas are all zero (a gate's greedy
+// evaluation) streams no sigmas and draws no noise, with the same result.
+// Semantics kept from the TPU kernel's interpret path: seed_mix = seed ^
+// (tile * 747796405), ctr = 16 * step; the learner noise of a step is one
+// factorized draw shared by a tile of tile_rows envs:
 // eps_in of the shared head at hash (k 10, 11) row 0 cols 0..H-1, eps_in
 // of the A head row 1 cols 0..HH-1, eps_out of the shared head at (k 12,
 // 13) col 0 rows 0..HH-1, eps_out of the A head col 1 rows 0..2;
@@ -90,8 +90,9 @@ __host__ __device__ constexpr int stage_floats() {
   return E <= 16 ? 16384 : 8192;
 }
 
-// Flat net (ops/recurrent_rollout.py::net_layout), each section padded to
-// 128 bytes: the resident part w1 (F1, 8) b1 (F1) b2 (F) bg (H, 4: unit-
+// Flat net (ops/recurrent_rollout.py::net_layout) at widths that are
+// multiples of 4 (the wrapper adds zero units), each section padded to 128
+// bytes: the resident part w1 (F1, 8) b1 (F1) b2 (F) bg (H, 4: unit-
 // major) bs (HH) wa (3, HH) ba (3), then the streamed part w2 (F1 in, F
 // out) wg (F+H in, H units, 4 gates) ws (H in, HH out). Learner sigmas
 // (sigma_layout): sbs (HH) swa (3, HH) sba (3), then sws (H in, HH out).
@@ -119,10 +120,12 @@ struct Seg {
 };
 
 // Segment i of a step: 0-2 the opponent's w2, wg, ws; 3-5 the learner's,
-// the last with its sigmas. Producer and consumers walk the same list.
+// the last with its sigmas when they are not all zero (`noisy`). Producer
+// and consumers walk the same list.
 __device__ __forceinline__ Seg segment(int i, const Layout& L,
                                        const float* ow, const float* lw,
-                                       const float* sig, int sf) {
+                                       const float* sig, int sf,
+                                       bool noisy) {
   const float* w = i < 3 ? ow : lw;
   Seg g;
   g.sg = nullptr;
@@ -132,7 +135,7 @@ __device__ __forceinline__ Seg segment(int i, const Layout& L,
     g.mu = w + L.wg; g.rows = L.F + L.H; g.len = 4 * L.H;
   } else {
     g.mu = w + L.ws; g.rows = L.H; g.len = L.HH;
-    if (i == 5) g.sg = sig + L.sws;
+    if (i == 5 && noisy) g.sg = sig + L.sws;
   }
   g.rps = sf / (g.len * (g.sg ? 2 : 1));
   return g;
@@ -251,73 +254,28 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
                : "memory");
 }
 
-__device__ __forceinline__ void cluster_sync_all() {
-  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
 // the consumers' barrier (named barrier 1, the producer warp not counted)
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(NC) : "memory");
 }
 
-// Copy `bytes` (a multiple of 16) from global to the same offset of the
-// ring in every CTA of the cluster: this CTA sends its 1/C share, and each
-// destination's `bar` counts the bytes.
-template <int C>
+// Copy `bytes` (a multiple of 16) from global to the ring; `bar` counts
+// the bytes.
 __device__ __forceinline__ void bulk_copy(float* dst, const float* src,
-                                          uint32_t bytes, uint32_t bar,
-                                          uint32_t rank) {
-  uint32_t lo = 0, hi = bytes;
-  if (C > 1) {
-    lo = (bytes * rank / C) & ~15u;
-    hi = rank + 1 == C ? bytes : (bytes * (rank + 1) / C) & ~15u;
-  }
-  if (hi <= lo) return;
-  const uint32_t d = smem_u32(dst) + lo;
-  const char* s = reinterpret_cast<const char*>(src) + lo;
-  if (C == 1) {
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];\n" ::"r"(d),
-        "l"(s), "r"(hi - lo), "r"(bar)
-        : "memory");
-  } else {
-    const uint16_t mask = (uint16_t)((1u << C) - 1u);
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes."
-        "multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(d),
-        "l"(s), "r"(hi - lo), "r"(bar), "h"(mask)
-        : "memory");
-  }
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
-// A consumer warp is done with a stage: release it in every CTA of the
-// cluster (each CTA's producer writes into all of them).
-template <int C>
+// A consumer warp is done with a stage.
 __device__ __forceinline__ void release(uint32_t bar, int lane) {
   __syncwarp();
-  if (lane == 0) {
-    if (C == 1) {
-      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-                   : "memory");
-    } else {
-#pragma unroll
-      for (uint32_t q = 0; q < (uint32_t)C; ++q)
-        asm volatile(
-            "{\n .reg .b32 ra;\n"
-            " mapa.shared::cluster.u32 ra, %0, %1;\n"
-            " mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::"r"(bar),
-            "r"(q)
-            : "memory");
-    }
-  }
+  if (lane == 0)
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+                 : "memory");
 }
 
 __device__ __forceinline__ float sigmoid(float v) {
@@ -330,19 +288,17 @@ __device__ __forceinline__ float4 ld4(const float* p) {
 
 // ---- the producer --------------------------------------------------------
 
-template <int E, int C>
+template <int E>
 __device__ void produce(const Args& a, const Layout& L, const Smem<E>& S,
-                        uint32_t full0, uint32_t empty0, uint32_t rank,
-                        int cid, int ncl) {
+                        uint32_t full0, uint32_t empty0, bool noisy) {
   constexpr int SF = stage_floats<E>();
   uint32_t n = 0;   // chunks issued
-  const int n_groups = a.info[2] / C;
-  for (int grp = cid; grp < n_groups; grp += ncl) {
-    const int m = a.table[(size_t)(grp * C + (int)rank) * (E + 1)];
+  for (int blk = blockIdx.x; blk < a.info[2]; blk += gridDim.x) {
+    const int m = a.table[(size_t)blk * (E + 1)];
     const float* ow = a.opp + (size_t)m * L.net;
     for (int s = 0; s < a.T; ++s) {
       for (int i = 0; i < N_SEGS; ++i) {
-        const Seg g = segment(i, L, ow, a.learner, a.sigma, SF);
+        const Seg g = segment(i, L, ow, a.learner, a.sigma, SF, noisy);
         for (int r0 = 0; r0 < g.rows; r0 += g.rps, ++n) {
           const int nr = min(g.rps, g.rows - r0);
           const uint32_t st = n % (uint32_t)S.stages;
@@ -351,11 +307,10 @@ __device__ void produce(const Args& a, const Layout& L, const Smem<E>& S,
           const uint32_t piece = (uint32_t)(nr * g.len) * 4u;
           mbar_expect_tx(full0 + 8 * st, g.sg ? 2u * piece : piece);
           float* dst = S.ring + (size_t)st * SF;
-          bulk_copy<C>(dst, g.mu + (size_t)r0 * g.len, piece, full0 + 8 * st,
-                       rank);
+          bulk_copy(dst, g.mu + (size_t)r0 * g.len, piece, full0 + 8 * st);
           if (g.sg)
-            bulk_copy<C>(dst + nr * g.len, g.sg + (size_t)r0 * g.len, piece,
-                         full0 + 8 * st, rank);
+            bulk_copy(dst + nr * g.len, g.sg + (size_t)r0 * g.len, piece,
+                      full0 + 8 * st);
         }
       }
     }
@@ -366,7 +321,7 @@ __device__ void produce(const Args& a, const Layout& L, const Smem<E>& S,
 
 // Walk one streamed segment chunk by chunk: wait for the stage, fn(stage,
 // rows in it, first row), release the stage.
-template <int E, int C, class Fn>
+template <int E, class Fn>
 __device__ __forceinline__ void stream_rows(const Seg& g, const Smem<E>& S,
                                             uint32_t full0, uint32_t empty0,
                                             uint32_t& n, int lane, Fn fn) {
@@ -376,7 +331,7 @@ __device__ __forceinline__ void stream_rows(const Seg& g, const Smem<E>& S,
     const uint32_t st = n % (uint32_t)S.stages;
     mbar_wait(full0 + 8 * st, (n / (uint32_t)S.stages) & 1u);
     fn(S.ring + (size_t)st * SF, nr, r0);
-    release<C>(empty0 + 8 * st, lane);
+    release(empty0 + 8 * st, lane);
   }
 }
 
@@ -429,11 +384,11 @@ __device__ __forceinline__ void trade_halves(float (&acc)[Split<E>::NQ][G][4],
   }
 }
 
-// One recurrent forward of a net (residents R, learner sigmas Rs when
-// NOISY) over the block's envs on LSTM stream `strm` (0 learner, 1
-// opponent): h is read from buffer p and written to buffer p ^ 1. Leaves
-// the advantages in S.adv. Ends at a consumer barrier.
-template <int E, int C, bool NOISY>
+// One recurrent forward of a net (residents R, learner sigmas Rs and this
+// step's noise when NOISY) over the block's envs on LSTM stream `strm` (0
+// learner, 1 opponent): h is read from buffer p and written to buffer p ^
+// 1. Leaves the advantages in S.adv. Ends at a consumer barrier.
+template <int E, bool NOISY>
 __device__ __forceinline__ void net_pass(const Ctx& x, const Layout& L,
                                          const Smem<E>& S, const float* R,
                                          const float* Rs, const Seg* segs,
@@ -466,7 +421,7 @@ __device__ __forceinline__ void net_pass(const Ctx& x, const Layout& L,
   {
     const int jj = x.j < F ? x.j : 0;
     float acc[NQ][1][4] = {};
-    stream_rows<E, C>(segs[0], S, x.full0, x.empty0, n, x.lane,
+    stream_rows<E>(segs[0], S, x.full0, x.empty0, n, x.lane,
                       [&](const float* buf, int nr, int r0) {
 #pragma unroll (SP::UNROLL)
       for (int k = kfirst(r0); k < nr; k += KSTEP) {
@@ -501,7 +456,7 @@ __device__ __forceinline__ void net_pass(const Ctx& x, const Layout& L,
     const int jj = x.j < H ? x.j : 0;
     const int len = 4 * H;
     float acc[NQ][4][4] = {};
-    stream_rows<E, C>(segs[1], S, x.full0, x.empty0, n, x.lane,
+    stream_rows<E>(segs[1], S, x.full0, x.empty0, n, x.lane,
                       [&](const float* buf, int nr, int r0) {
 #pragma unroll (SP::UNROLL)
       for (int k = kfirst(r0); k < nr; k += KSTEP) {
@@ -552,7 +507,7 @@ __device__ __forceinline__ void net_pass(const Ctx& x, const Layout& L,
     const int jj = x.j < HH ? x.j : 0;
     const float eo = NOISY ? S.eout_s[jj] : 0.f;
     float acc[NQ][1][4] = {};
-    stream_rows<E, C>(segs[2], S, x.full0, x.empty0, n, x.lane,
+    stream_rows<E>(segs[2], S, x.full0, x.empty0, n, x.lane,
                       [&](const float* buf, int nr, int r0) {
 #pragma unroll (SP::UNROLL)
       for (int k = kfirst(r0); k < nr; k += KSTEP) {
@@ -622,23 +577,22 @@ __device__ __forceinline__ void net_pass(const Ctx& x, const Layout& L,
   consumers_sync();  // phase: A head
 }
 
-template <int E, int C>
+template <int E>
 __device__ void consume(const Args& a, const Layout& L, const Smem<E>& S,
-                        const Ctx& x, uint32_t rank, int cid, int ncl) {
+                        const Ctx& x, bool noisy) {
   constexpr int SF = stage_floats<E>();
   const int B = a.B, H = L.H, HH = L.HH, HE = L.H * E;
   const int t = x.t;
   const float eps = __fmul_rn(__int2float_rn(a.eps_i), 1e-6f);
   uint32_t n = 0;   // chunks consumed
-  const int n_groups = a.info[2] / C;
-  for (int grp = cid; grp < n_groups; grp += ncl) {
-    const int* row = a.table + (size_t)(grp * C + (int)rank) * (E + 1);
+  for (int blk = blockIdx.x; blk < a.info[2]; blk += gridDim.x) {
+    const int* row = a.table + (size_t)blk * (E + 1);
     const int m = row[0];
     const float* ow = a.opp + (size_t)m * L.net;
     Seg segs[N_SEGS];
 #pragma unroll
     for (int i = 0; i < N_SEGS; ++i)
-      segs[i] = segment(i, L, ow, a.learner, a.sigma, SF);
+      segs[i] = segment(i, L, ow, a.learner, a.sigma, SF, noisy);
     if (t < E) S.env[t] = row[1 + t];
     for (int i = t; i < L.w2; i += NC) {
       S.res_o[i] = ow[i];
@@ -672,7 +626,7 @@ __device__ void consume(const Args& a, const Layout& L, const Smem<E>& S,
     for (int s = 0; s < a.T; ++s) {
       const uint32_t ctr = (uint32_t)s * 16u;
       // this step's learner noise (the tile's draw) and the observations
-      for (int i = t; i < H + 2 * HH + 3; i += NC) {
+      for (int i = t; noisy && i < H + 2 * HH + 3; i += NC) {
         if (i < H) S.ein_s[i] = hash_noise(a.p, seed_mix, ctr, 10, 11, 0, i);
         else if (i < H + HH) S.ein_a[i - H] = hash_noise(a.p, seed_mix, ctr, 10, 11, 1, i - H);
         else if (i < H + 2 * HH) S.eout_s[i - H - HH] = hash_noise(a.p, seed_mix, ctr, 12, 13, i - H - HH, 0);
@@ -685,14 +639,18 @@ __device__ void consume(const Args& a, const Layout& L, const Smem<E>& S,
       }
       consumers_sync();  // phase: noise and obs
 
-      // the block's opponent, then the learner (noisy heads)
-      net_pass<E, C, false>(x, L, S, S.res_o, nullptr, segs, 1, p, n);
+      // the block's opponent
+      net_pass<E, false>(x, L, S, S.res_o, nullptr, segs, 1, p, n);
       int act_a = 0;
       if (t < E) {
         const float a3[3] = {S.adv[t], S.adv[E + t], S.adv[2 * E + t]};
         act_a = argmax3(a3);
       }
-      net_pass<E, C, true>(x, L, S, S.res_l, S.res_s, segs + 3, 0, p, n);
+      // the learner, its heads noisy unless its sigmas are all zero
+      if (noisy)
+        net_pass<E, true>(x, L, S, S.res_l, S.res_s, segs + 3, 0, p, n);
+      else
+        net_pass<E, false>(x, L, S, S.res_l, nullptr, segs + 3, 0, p, n);
 
       if (t < E) {
         int done = 0;
@@ -749,7 +707,7 @@ __device__ void consume(const Args& a, const Layout& L, const Smem<E>& S,
   }
 }
 
-template <int E, int C>
+template <int E>
 __global__ void __launch_bounds__(THREADS, 1)
 recurrent_rollout_kernel(const __grid_constant__ Args a) {
   extern __shared__ __align__(128) char smem_raw[];
@@ -758,20 +716,23 @@ recurrent_rollout_kernel(const __grid_constant__ Args a) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const uint32_t full0 = smem_u32(S.bar);
   const uint32_t empty0 = full0 + 8 * MAX_STAGES;
-  const uint32_t rank = C > 1 ? cluster_rank() : 0u;
-  const int cid = blockIdx.x / C, ncl = gridDim.x / C;
   if (tid == 0) {
     for (int i = 0; i < S.stages; ++i) {
       mbar_init(full0 + 8 * i, 1);
-      mbar_init(empty0 + 8 * i, NCW * C);
+      mbar_init(empty0 + 8 * i, NCW);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // every CTA's barriers exist before any peer copies or arrives
-  if (C > 1) cluster_sync_all(); else __syncthreads();
+  // All-zero sigmas (a greedy evaluation) make the noisy heads the mu
+  // heads exactly (mu + 0 * eps == mu): the launch then streams no sigmas
+  // and draws no noise. The barriers exist before any copy or arrival.
+  int nonzero = 0;
+  for (int i = tid; i < L.sig && !nonzero; i += THREADS)
+    nonzero = a.sigma[i] != 0.f;
+  const bool noisy = __syncthreads_or(nonzero) != 0;
 
   if (warp == NCW) {
-    if (lane == 0) produce<E, C>(a, L, S, full0, empty0, rank, cid, ncl);
+    if (lane == 0) produce<E>(a, L, S, full0, empty0, noisy);
     __syncwarp();
   } else {
     Ctx x;
@@ -779,72 +740,46 @@ recurrent_rollout_kernel(const __grid_constant__ Args a) {
     x.j = ((warp & 3) << 5) | lane;
     x.ebase = (warp >> 2) * (E / 2);
     x.full0 = full0; x.empty0 = empty0;
-    consume<E, C>(a, L, S, x, rank, cid, ncl);
+    consume<E>(a, L, S, x, noisy);
   }
-  // no CTA leaves while a peer may still signal its barriers
-  if (C > 1) cluster_sync_all();
 }
 
-template <int E, int C>
+template <int E>
 cudaError_t prepare(const Layout& L, size_t* smem) {
   const Smem<E> S(nullptr, L);
   *smem = S.bytes;
   if (S.stages < 2) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(recurrent_rollout_kernel<E, C>,
+  return cudaFuncSetAttribute(recurrent_rollout_kernel<E>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)S.bytes);
 }
 
-cudaLaunchConfig_t launch_config(int clusters, int C, int threads,
-                                 size_t smem, cudaStream_t stream,
-                                 cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(clusters * C);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-// out: threads, smem bytes, ring stages, blocks an SM, clusters resident
-// at once, floats a stage
-template <int E, int C>
+// out: threads, smem bytes, ring stages, blocks an SM, blocks resident at
+// once on the current card, floats a stage
+template <int E>
 int config_t(const Layout& L, int* out) {
   size_t smem;
-  cudaError_t err = prepare<E, C>(L, &smem);
+  cudaError_t err = prepare<E>(L, &smem);
   if (err != cudaSuccess) return (int)err;
-  int per_sm = 0, clusters = 0;
+  int per_sm = 0, dev = 0, sms = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, recurrent_rollout_kernel<E, C>, THREADS, smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg =
-      launch_config(1, C, THREADS, smem, nullptr, attr);
-  err = cudaOccupancyMaxActiveClusters(&clusters,
-                                       recurrent_rollout_kernel<E, C>, &cfg);
+      &per_sm, recurrent_rollout_kernel<E>, THREADS, smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
   const Smem<E> S(nullptr, L);
   out[0] = THREADS; out[1] = (int)smem; out[2] = S.stages;
-  out[3] = per_sm; out[4] = clusters; out[5] = stage_floats<E>();
+  out[3] = per_sm; out[4] = per_sm * sms; out[5] = stage_floats<E>();
   return 0;
 }
 
-template <int E, int C>
-int launch_t(const Args& a, int clusters, cudaStream_t stream) {
+template <int E>
+int launch_t(const Args& a, int grid, cudaStream_t stream) {
   size_t smem;
-  cudaError_t err = prepare<E, C>(Layout(a.F1, a.F, a.H, a.HH), &smem);
+  cudaError_t err = prepare<E>(Layout(a.F1, a.F, a.H, a.HH), &smem);
   if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg =
-      launch_config(clusters, C, THREADS, smem, stream, attr);
-  err = cudaLaunchKernelEx(&cfg, recurrent_rollout_kernel<E, C>, a);
-  if (err != cudaSuccess) return (int)err;
+  recurrent_rollout_kernel<E><<<grid, THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -859,12 +794,11 @@ constexpr int BT_THREADS = 1024;
 // opp_idx (info[0], info[1]). Envs go in (member, tile, index) order: a
 // warp walks a tile 32 envs at a time, ranking each env among the tile's
 // envs of its member (__match_any_sync); each member's segments then take
-// consecutive blocks of E, and each member's block count is padded to a
-// multiple of C. scratch: B + n_slots * n_tiles ints. Integer work only,
+// consecutive blocks of E. scratch: B + n_slots * n_tiles ints. Integer work only,
 // in a fixed order: the table does not depend on the schedule.
 __global__ void __launch_bounds__(BT_THREADS)
 block_table_kernel(const int* __restrict__ opp, int B, int tile_rows,
-                   int n_slots, int E, int C, int n_rows,
+                   int n_slots, int E, int n_rows,
                    int* __restrict__ table, int* __restrict__ info,
                    int* __restrict__ scratch) {
   extern __shared__ int bt_smem[];
@@ -907,7 +841,7 @@ block_table_kernel(const int* __restrict__ opp, int B, int tile_rows,
   }
   __syncthreads();
   // each member's first blocks of its segments (a thread a member), then
-  // the members' padded runs in order
+  // the members' runs in order
   for (int m = tid; m < n_slots; m += BT_THREADS) {
     int acc = 0;
     for (int t = 0; t < n_tiles; ++t) {
@@ -915,7 +849,7 @@ block_table_kernel(const int* __restrict__ opp, int B, int tile_rows,
       seg0[m * n_tiles + t] = acc;
       acc += (k + E - 1) / E;
     }
-    member_end[m] = (acc + C - 1) / C * C;
+    member_end[m] = acc;
   }
   __syncthreads();
   if (tid == 0) {
@@ -939,16 +873,10 @@ block_table_kernel(const int* __restrict__ opp, int B, int tile_rows,
 }
 
 #define RR_DISPATCH(FN, ...)                                          \
-  switch (envs * 8 + cluster) {                                       \
-    case 8 * 8 + 1: return FN<8, 1>(__VA_ARGS__);                     \
-    case 8 * 8 + 2: return FN<8, 2>(__VA_ARGS__);                     \
-    case 8 * 8 + 4: return FN<8, 4>(__VA_ARGS__);                     \
-    case 16 * 8 + 1: return FN<16, 1>(__VA_ARGS__);                   \
-    case 16 * 8 + 2: return FN<16, 2>(__VA_ARGS__);                   \
-    case 16 * 8 + 4: return FN<16, 4>(__VA_ARGS__);                   \
-    case 32 * 8 + 1: return FN<32, 1>(__VA_ARGS__);                   \
-    case 32 * 8 + 2: return FN<32, 2>(__VA_ARGS__);                   \
-    case 32 * 8 + 4: return FN<32, 4>(__VA_ARGS__);                   \
+  switch (envs) {                                                     \
+    case 8: return FN<8>(__VA_ARGS__);                                \
+    case 16: return FN<16>(__VA_ARGS__);                              \
+    case 32: return FN<32>(__VA_ARGS__);                              \
     default: return (int)cudaErrorInvalidValue;                       \
   }
 
@@ -956,22 +884,22 @@ block_table_kernel(const int* __restrict__ opp, int B, int tile_rows,
 
 extern "C" {
 
-// The launch shape of E = envs envs a block in clusters of `cluster` CTAs
-// at these widths: out[6] = threads, dynamic shared memory bytes, ring
-// stages, blocks an SM, clusters resident at once, floats a ring stage.
-// Returns a cudaError_t.
-int recurrent_rollout_config(int envs, int cluster, int F1, int F, int H,
-                             int HH, int* out) {
+// The launch shape of E = envs envs a block at these widths: out[6] =
+// threads, dynamic shared memory bytes, ring stages, blocks an SM, blocks
+// resident at once on the current card, floats a ring stage. Returns a
+// cudaError_t.
+int recurrent_rollout_config(int envs, int F1, int F, int H, int HH,
+                             int* out) {
   const Layout L(F1, F, H, HH);
   RR_DISPATCH(config_t, L, out)
 }
 
-// Launch one recurrent rollout chunk on `stream` as `clusters` clusters of
-// `cluster` CTAs, each walking the table's groups of `cluster` blocks in
-// turn; the block count (a multiple of `cluster`) is read on the card from
-// info[2], where recurrent_rollout_table put it, and clusters beyond it
-// have nothing to do. Widths multiples of 4 and <= 128, tile_rows a
-// multiple of 8, envs in {8, 16, 32} (checked by the Python wrapper).
+// Launch one recurrent rollout chunk on `stream` as `grid` blocks, each
+// walking the table's blocks in turn; the block count is read on the card
+// from info[2], where recurrent_rollout_table put it, and blocks beyond it
+// have nothing to do. Widths multiples of 4 and <= 128 (the Python wrapper
+// pads others with zero units), tile_rows a multiple of 8, envs in {8, 16,
+// 32} (checked by the Python wrapper).
 // Transition pointers may all be null (eval mode). Returns the cudaError_t
 // of the launch.
 int recurrent_rollout_launch(const EnvP* p, const float* f_in, const int* i_in,
@@ -980,12 +908,10 @@ int recurrent_rollout_launch(const EnvP* p, const float* f_in, const int* i_in,
                              float* f_out, int* i_out, float* hid_out,
                              float* tr_obs, int* tr_act, float* tr_rew,
                              int* tr_done, float* stats, const int* table,
-                             const int* info, int envs, int cluster,
-                             int clusters,
-                             int B, int T, int tile_rows, unsigned int seed,
+                             const int* info, int envs, int grid, int B, int T, int tile_rows, unsigned int seed,
                              int eps_i, int F1, int F, int H, int HH,
                              cudaStream_t stream) {
-  if (cluster < 1 || clusters < 1) return (int)cudaErrorInvalidValue;
+  if (grid < 1) return (int)cudaErrorInvalidValue;
   Args a;
   a.p = *p;
   a.f_in = f_in; a.i_in = i_in; a.hid_in = hid_in; a.learner = learner;
@@ -995,20 +921,19 @@ int recurrent_rollout_launch(const EnvP* p, const float* f_in, const int* i_in,
   a.info = info;
   a.B = B; a.T = T; a.tile_rows = tile_rows; a.seed = seed; a.eps_i = eps_i;
   a.F1 = F1; a.F = F; a.H = H; a.HH = HH;
-  RR_DISPATCH(launch_t, a, clusters, stream)
+  RR_DISPATCH(launch_t, a, grid, stream)
 }
 
 // Build the block table on `stream` (block_table_kernel): table n_rows x
 // (1 + envs), info[3] = least and greatest opp_idx and the block count,
 // scratch B + n_slots * (B / tile_rows) ints. Returns a cudaError_t.
 int recurrent_rollout_table(const int* opp, int B, int tile_rows, int n_slots,
-                            int envs, int cluster, int n_rows, int* table,
+                            int envs, int n_rows, int* table,
                             int* info, int* scratch, cudaStream_t stream) {
   const size_t smem = (size_t)((BT_THREADS / 32 + 1) * n_slots + 2) * 4;
   if (smem > 48 * 1024 || B % tile_rows) return (int)cudaErrorInvalidValue;
   block_table_kernel<<<1, BT_THREADS, smem, stream>>>(
-      opp, B, tile_rows, n_slots, envs, cluster, n_rows, table, info,
-      scratch);
+      opp, B, tile_rows, n_slots, envs, n_rows, table, info, scratch);
   return (int)cudaGetLastError();
 }
 

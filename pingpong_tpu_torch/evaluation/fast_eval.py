@@ -24,6 +24,7 @@ from pingpong_tpu_torch.ops.recurrent_rollout import (
     pack_qnet_rnn,
     pack_rnn_sigma,
     recurrent_rollout,
+    rnn_kernel_flat,
 )
 
 
@@ -117,6 +118,7 @@ def _stream_seat_rnn(env_params, bottom, top, generator, min_episodes,
     learner = _zero_rnn_sigma(bottom).to(device)
     lw, sig = pack_qnet_rnn(learner), pack_rnn_sigma(learner)
     opp = pack_qnet_rnn([qnet_rnn_copy(top).to(device)], mirror=True)
+    opp_flat = rnn_kernel_flat(opp) if opp.w1t.is_cuda else None
     state = reset(env_params, n_envs, generator, device)
     H = bottom.lstm[0].w_hh.shape[0]
     hid = torch.zeros((4 * H, n_envs), dtype=torch.float32, device=device)
@@ -129,7 +131,7 @@ def _stream_seat_rnn(env_params, bottom, top, generator, min_episodes,
             env_params, state, opp_idx, ep_ret, hid, lw, sig, opp, seed=seed,
             epsilon=0.0, steps=chunk_steps,
             max_episode_steps=max_episode_steps, tile_rows=tile_rows,
-            emit_transitions=False)
+            emit_transitions=False, opponents_flat=opp_flat)
         s = stats.tolist()
         episodes += s[0] + s[2]
         wins += s[1] + s[3]

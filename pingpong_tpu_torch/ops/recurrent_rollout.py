@@ -24,7 +24,8 @@ Two versions compute the same function:
 The kernel runs blocks of one opponent each: :func:`launch_plan` picks the
 envs a block and builds the block table (the env list of every block, on
 the card; :func:`block_table` is its plain version), and the nets travel
-in the flat layouts of :func:`net_layout` and :func:`sigma_layout`.
+in the flat layouts of :func:`net_layout` and :func:`sigma_layout`, each
+width padded with zero units to a multiple of 4 (:func:`kernel_dims`).
 
 Random draws follow the JAX kernel's interpret path (``_rnn_kernel``):
 the counter hash with ``seed_mix = seed ^ (tile * 747796405)`` and
@@ -35,7 +36,7 @@ shared by a tile of ``tile_rows`` envs (``_draw_noise``).
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Sequence, Union
+from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
 
@@ -62,9 +63,6 @@ MAX_WIDTH = 128       # every width the kernel takes
 CUDA_ENVS = 8         # the fewest envs a CUDA block takes; tile_rows must be
                       # a multiple
 ENVS_CHOICES = (8, 16, 32)   # envs a block the kernel is built for
-CUDA_CLUSTER = 1      # CTAs a cluster, fed by one multicast weight stream
-                      # (the kernel is built for 1, 2 and 4; 1 measured
-                      # fastest on an H100, PERF.md)
 FLAT_ALIGN = 32       # floats: each section of the kernel's flat layouts
                       # starts on 128 bytes (bulk copies need 16)
 
@@ -145,10 +143,17 @@ def pack_rnn_sigma(params: QNetRNN) -> RNNSigma:
 
 
 def supports_kernel(dims) -> bool:
-    """Whether the kernel takes these (F1, F, H, HH) widths: at most 128,
-    and multiples of 4 (a streamed row is a whole number of 16 bytes)."""
-    return max(dims) <= MAX_WIDTH and min(dims) > 0 and all(
-        d % 4 == 0 for d in dims)
+    """Whether the kernel takes these (F1, F, H, HH) widths."""
+    return max(dims) <= MAX_WIDTH and min(dims) > 0
+
+
+def kernel_dims(dims):
+    """The widths the kernel runs at: each rounded up to a multiple of 4,
+    so a streamed row is a whole number of 16 bytes. The added units have
+    zero weights and biases: their features and shared-head outputs are 0,
+    their LSTM state stays 0 (c' = 0.5 c + 0.5 tanh 0), and they add
+    nothing to any sum, so the result is that of the unpadded net."""
+    return tuple(-(-d // 4) * 4 for d in dims)
 
 
 def packed_dims(p: PackedQNetRNN):
@@ -168,22 +173,23 @@ def _sections(fields):
 
 
 def net_layout(dims):
-    """The kernel's flat net (``csrc/recurrent_rollout.cu::Layout``): the
-    part it keeps resident (w1 (F1, 8), b1, b2, bg (H, 4), bs, wa (3, HH),
-    ba (3)), then the part it streams (w2 (F1 in, F out), wg (F+H in, H
-    units, 4 gates), ws (H in, HH out)). Returns ``({name: (offset,
-    size)}, length)``; every section and the length are multiples of 128
-    bytes, so slot m of a stack starts on 128 bytes too."""
-    F1, F, H, HH = dims
+    """The kernel's flat net (``csrc/recurrent_rollout.cu::Layout``) at the
+    kernel's widths (:func:`kernel_dims` of ``dims``): the part it keeps
+    resident (w1 (F1, 8), b1, b2, bg (H, 4), bs, wa (3, HH), ba (3)), then
+    the part it streams (w2 (F1 in, F out), wg (F+H in, H units, 4 gates),
+    ws (H in, HH out)). Returns ``({name: (offset, size)}, length)``; every
+    section and the length are multiples of 128 bytes, so slot m of a stack
+    starts on 128 bytes too."""
+    F1, F, H, HH = kernel_dims(dims)
     return _sections([("w1", F1 * 8), ("b1", F1), ("b2", F), ("bg", 4 * H),
                       ("bs", HH), ("wa", 3 * HH), ("ba", 3), ("w2", F1 * F),
                       ("wg", (F + H) * 4 * H), ("ws", H * HH)])
 
 
 def sigma_layout(dims):
-    """The learner's sigmas in the kernel's layout: bs, wa (3, HH), ba (3)
-    resident, ws (H in, HH out) streamed."""
-    _, _, H, HH = dims
+    """The learner's sigmas in the kernel's layout, at the kernel's widths:
+    bs, wa (3, HH), ba (3) resident, ws (H in, HH out) streamed."""
+    _, _, H, HH = kernel_dims(dims)
     return _sections([("bs", HH), ("wa", 3 * HH), ("ba", 3), ("ws", H * HH)])
 
 
@@ -201,32 +207,49 @@ def _cat_flat(layout, lead, fields, device):
     return torch.cat(parts, dim=-1)
 
 
+def _zero_pad(x, shape):
+    """``x`` with its trailing dims zero-padded up to ``shape``."""
+    if tuple(x.shape[-len(shape):]) == tuple(shape):
+        return x
+    out = x.new_zeros(x.shape[:-len(shape)] + tuple(shape))
+    out[(...,) + tuple(slice(0, n) for n in x.shape[-len(shape):])] = x
+    return out
+
+
 def rnn_kernel_flat(p: PackedQNetRNN) -> torch.Tensor:
     """``(..., NET)`` contiguous vector per net in the CUDA kernel's layout
-    (:func:`net_layout`). The gates matrix is stored input-major and
-    unit-major, ``wg[k, j, q] = wght[q H + j, k]``, so one 16-byte load
-    gives unit j's four gates (i, f, g, o); ``bg`` likewise."""
-    dims = packed_dims(p)
-    H = dims[2]
+    (:func:`net_layout`), each width padded with zero units to the
+    kernel's (:func:`kernel_dims`). The gates matrix is stored input-major
+    and unit-major, ``wg[k, j, q] = wght[q H + j, k]``, so one 16-byte
+    load gives unit j's four gates (i, f, g, o); ``bg`` likewise."""
+    F1, F, H, HH = packed_dims(p)
+    F1p, Fp, Hp, HHp = dims = kernel_dims((F1, F, H, HH))
     lead = p.w1t.shape[:-2]
     t = lambda x: x.transpose(-1, -2)
-    wg = p.wght.reshape(lead + (4, H, -1)).permute(
-        *range(len(lead)), -1, -2, -3)
-    bg = t(p.bgt[..., 0].reshape(lead + (4, H)))
+    gates = p.wght.reshape(lead + (4, H, F + H))
+    gates = torch.cat([_zero_pad(gates[..., :F], (4, Hp, Fp)),
+                       _zero_pad(gates[..., F:], (4, Hp, Hp))], dim=-1)
+    wg = gates.permute(*range(len(lead)), -1, -2, -3)
+    bg = t(_zero_pad(p.bgt[..., 0].reshape(lead + (4, H)), (4, Hp)))
     layout, _ = net_layout(dims)
     return _cat_flat(layout, lead, dict(
-        w1=p.w1t, b1=p.b1t, b2=p.b2t, bg=bg, bs=p.bst,
-        wa=p.wat[..., :3, :], ba=p.bat[..., :3, :], w2=t(p.w2t), wg=wg,
-        ws=t(p.wst)), p.w1t.device)
+        w1=_zero_pad(p.w1t, (F1p, 8)), b1=_zero_pad(p.b1t, (F1p, 1)),
+        b2=_zero_pad(p.b2t, (Fp, 1)), bg=bg, bs=_zero_pad(p.bst, (HHp, 1)),
+        wa=_zero_pad(p.wat[..., :3, :], (3, HHp)), ba=p.bat[..., :3, :],
+        w2=t(_zero_pad(p.w2t, (Fp, F1p))), wg=wg,
+        ws=t(_zero_pad(p.wst, (HHp, Hp)))), p.w1t.device)
 
 
 def sigma_kernel_flat(s: RNNSigma) -> torch.Tensor:
-    """The learner's sigmas in the kernel's layout (:func:`sigma_layout`)."""
+    """The learner's sigmas in the kernel's layout (:func:`sigma_layout`),
+    zero-padded to the kernel's widths."""
     HH, H = s.wst_sigma.shape
-    layout, _ = sigma_layout((0, 0, H, HH))
+    _, _, Hp, HHp = dims = kernel_dims((1, 1, H, HH))
+    layout, _ = sigma_layout(dims)
     return _cat_flat(layout, (), dict(
-        bs=s.bst_sigma, wa=s.wat_sigma[:3], ba=s.bat_sigma[:3],
-        ws=s.wst_sigma.T), s.wst_sigma.device)
+        bs=_zero_pad(s.bst_sigma, (HHp, 1)),
+        wa=_zero_pad(s.wat_sigma[:3], (3, HHp)), ba=s.bat_sigma[:3],
+        ws=_zero_pad(s.wst_sigma, (HHp, Hp)).T), s.wst_sigma.device)
 
 
 # ---------------------------------------------------------------------------
@@ -247,36 +270,29 @@ def segment_counts(opp_idx: torch.Tensor, tile_rows: int,
         n_slots, n_tiles)
 
 
-def member_blocks(counts: torch.Tensor, envs: int, cluster: int):
+def member_blocks(counts: torch.Tensor, envs: int):
     """Blocks of each member: every (member, tile) segment cut into blocks
-    of at most ``envs`` envs, each member's count padded to a multiple of
-    ``cluster`` (a cluster streams one member)."""
-    blocks = ((counts + envs - 1) // envs).sum(dim=1)
-    return (blocks + cluster - 1) // cluster * cluster
+    of at most ``envs`` envs."""
+    return ((counts + envs - 1) // envs).sum(dim=1)
 
 
-def blocks_bound(B: int, tile_rows: int, n_slots: int, envs: int,
-                 cluster: int) -> int:
+def blocks_bound(B: int, tile_rows: int, n_slots: int, envs: int) -> int:
     """The most blocks any binding of ``n_slots`` members can need: a tile
     split among k members needs at most ``tile_rows / envs + k - 1``
-    blocks (``envs`` divides the tile), and each member adds at most
-    ``cluster - 1`` idle blocks to fill its clusters."""
-    return (B // envs + B // tile_rows * (min(n_slots, tile_rows) - 1)
-            + n_slots * (cluster - 1))
+    blocks (``envs`` divides the tile)."""
+    return B // envs + B // tile_rows * (min(n_slots, tile_rows) - 1)
 
 
 def block_table(opp_idx: torch.Tensor, tile_rows: int, envs: int,
-                cluster: int, counts: torch.Tensor,
-                n_rows: int) -> torch.Tensor:
+                counts: torch.Tensor, n_rows: int) -> torch.Tensor:
     """The kernel's env lists, ``(n_rows, 1 + envs)`` i32 on the device of
     ``opp_idx``, without a host synchronization: row = [member, env ids in
     lane order], -1 on an idle lane. Envs go in order of (member, tile,
     index); each (member, tile) segment is cut into blocks of ``envs`` (the
-    last one padded with idle lanes), and each member's blocks are padded
-    with idle blocks to a multiple of ``cluster``, so a block holds one tile
-    and one member and a cluster one member. ``counts`` is
-    :func:`segment_counts`; the first ``member_blocks(counts).sum()`` rows
-    are the blocks, ``n_rows`` at least that many (:func:`blocks_bound`)."""
+    last one padded with idle lanes), so a block holds one tile and one
+    member. ``counts`` is :func:`segment_counts`; the first
+    ``member_blocks(counts).sum()`` rows are the blocks, ``n_rows`` at
+    least that many (:func:`blocks_bound`)."""
     B = opp_idx.shape[0]
     dev = opp_idx.device
     n_slots, n_tiles = counts.shape
@@ -285,9 +301,9 @@ def block_table(opp_idx: torch.Tensor, tile_rows: int, envs: int,
     order = torch.argsort(key * B + env)
     seg_n = counts.reshape(-1).to(dev)
     seg_blocks = ((seg_n + envs - 1) // envs).view(n_slots, n_tiles)
-    padded = member_blocks(counts.to(dev), envs, cluster)
-    member_end = torch.cumsum(padded, 0)
-    member_start = member_end - padded
+    blocks = member_blocks(counts.to(dev), envs)
+    member_end = torch.cumsum(blocks, 0)
+    member_start = member_end - blocks
     seg_block0 = (member_start[:, None] + torch.cumsum(seg_blocks, 1)
                   - seg_blocks).reshape(-1)
     seg_env0 = torch.cumsum(seg_n, 0) - seg_n
@@ -420,39 +436,39 @@ def recurrent_rollout_plain(env_params: EnvParams, state: EnvState, opp_idx,
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
     "recurrent_rollout", "recurrent_rollout_launch",
-    [ctypes.POINTER(EnvConsts)] + [_vp] * 16 + [_i] * 6 + [ctypes.c_uint]
+    [ctypes.POINTER(EnvConsts)] + [_vp] * 16 + [_i] * 5 + [ctypes.c_uint]
     + [_i] * 5 + [_vp],
 )
 
 
 class KernelConfig(NamedTuple):
-    """The launch shape of one (envs, cluster) build at given widths, as
-    the CUDA runtime reports it for the card."""
+    """The launch shape of the kernel built for one envs-a-block size at
+    given widths, as the CUDA runtime reports it for the card."""
 
     threads: int
     smem: int             # dynamic shared memory bytes a block
     stages: int           # weight-ring stages
     blocks_per_sm: int
-    clusters: int         # clusters resident at once
+    resident: int         # blocks resident at once on the card
     stage_floats: int
 
 
 _CONFIGS = {}
 
 
-def kernel_config(envs: int, cluster: int, dims) -> KernelConfig:
+def kernel_config(envs: int, dims) -> KernelConfig:
     """:class:`KernelConfig` of the kernel built for ``envs`` envs a block
-    in clusters of ``cluster`` CTAs (cached)."""
-    key = (envs, cluster, tuple(dims))
+    at the kernel's widths ``dims`` (cached)."""
+    key = (envs, tuple(dims))
     if key not in _CONFIGS:
         fn = KERNEL.library_fn("recurrent_rollout_config",
-                               [_i] * 6 + [ctypes.POINTER(ctypes.c_int)],
+                               [_i] * 5 + [ctypes.POINTER(ctypes.c_int)],
                                ctypes.c_int)
         out = (ctypes.c_int * 6)()
-        rc = fn(envs, cluster, *dims, out)
+        rc = fn(envs, *dims, out)
         if rc != 0:
-            raise RuntimeError(f"recurrent_rollout config ({envs} envs, "
-                               f"cluster {cluster}) failed: cudaError {rc}")
+            raise RuntimeError(f"recurrent_rollout config ({envs} envs) "
+                               f"failed: cudaError {rc}")
         _CONFIGS[key] = KernelConfig(*out)
     return _CONFIGS[key]
 
@@ -468,13 +484,12 @@ def check_tile_rows(tile_rows: int):
 
 
 class LaunchPlan(NamedTuple):
-    """How a chunk runs: ``envs`` envs a block, ``grid`` clusters of
-    ``cluster`` CTAs walking the block table's groups of ``cluster`` blocks
-    in turn, and the table itself with ``info`` = [least opp_idx, greatest
-    opp_idx, block count] (int32 on the card; :func:`plan_counts`)."""
+    """How a chunk runs: ``envs`` envs a block, ``grid`` blocks walking the
+    block table's rows in turn, and the table itself with ``info`` =
+    [least opp_idx, greatest opp_idx, block count] (int32 on the card;
+    :func:`plan_counts`)."""
 
     envs: int
-    cluster: int
     grid: int
     config: KernelConfig
     table: torch.Tensor
@@ -484,61 +499,41 @@ class LaunchPlan(NamedTuple):
 def launch_plan(opp_idx: torch.Tensor, tile_rows: int, n_slots: int,
                 dims) -> LaunchPlan:
     """Choose the envs a block: the fewest of :func:`check_tile_rows`'s
-    whose :func:`blocks_bound` fits the ``CUDA_CLUSTER`` build's resident
-    clusters, else the most (the clusters then walk several rounds); and
-    build the block table on the card (``block_table_kernel``, whose plain
-    version is :func:`block_table`). The grid covers the bound; the kernel
-    reads the exact block count from ``info``. No host synchronization."""
+    whose :func:`blocks_bound` fits the card at once, else the most (the
+    blocks then walk several rounds); and build the block table on the
+    card (``block_table_kernel``, whose plain version is
+    :func:`block_table`). ``dims``: the kernel's widths. The grid covers
+    the bound; the kernel reads the exact block count from ``info``. No
+    host synchronization."""
     choices = check_tile_rows(tile_rows)
-    B, C, dev = opp_idx.shape[0], CUDA_CLUSTER, opp_idx.device
+    B, dev = opp_idx.shape[0], opp_idx.device
     for envs in choices:
-        cfg = kernel_config(envs, C, dims)
-        bound = blocks_bound(B, tile_rows, n_slots, envs, C)
-        if bound <= cfg.clusters * C:
+        cfg = kernel_config(envs, dims)
+        bound = blocks_bound(B, tile_rows, n_slots, envs)
+        if bound <= cfg.resident:
             break
-    if cfg.clusters < 1:
-        raise RuntimeError(f"recurrent_rollout: a cluster of {C} CTAs of "
-                           f"{cfg.smem} bytes cannot be resident")
+    if cfg.resident < 1:
+        raise RuntimeError(f"recurrent_rollout: a block of {cfg.smem} "
+                           f"bytes cannot be resident")
     table = torch.empty((bound, 1 + envs), dtype=torch.int32, device=dev)
     info = torch.empty(3, dtype=torch.int32, device=dev)
     scratch = torch.empty(B + n_slots * (B // tile_rows), dtype=torch.int32,
                           device=dev)
     build = KERNEL.library_fn("recurrent_rollout_table",
-                              [_vp] + [_i] * 6 + [_vp] * 4, ctypes.c_int)
-    rc = build(ptr(opp_idx), B, tile_rows, n_slots, envs, C, bound,
+                              [_vp] + [_i] * 5 + [_vp] * 4, ctypes.c_int)
+    rc = build(ptr(opp_idx), B, tile_rows, n_slots, envs, bound,
                ptr(table), ptr(info), ptr(scratch), stream_ptr(dev))
     if rc != 0:
         raise RuntimeError(f"recurrent_rollout table build failed: "
                            f"cudaError {rc}")
-    return LaunchPlan(envs, C, min(bound // C, cfg.clusters), cfg, table,
-                      info)
+    return LaunchPlan(envs, min(bound, cfg.resident), cfg, table, info)
 
 
 def plan_counts(plan: LaunchPlan):
     """``(least opp_idx, greatest opp_idx, blocks, rounds)`` of a plan
     (synchronizes)."""
     lo, hi, n_blocks = plan.info.tolist()
-    groups = n_blocks // plan.cluster
-    return lo, hi, n_blocks, -(-groups // plan.grid)
-
-
-_PINNED = {}   # device -> a pinned host copy of a plan's info
-
-
-_OPP_FLAT = []   # [(tensor, version) of each field, flat] of the last stack
-
-
-def opponents_flat(p: PackedQNetRNN) -> torch.Tensor:
-    """:func:`rnn_kernel_flat` of an opponent stack, reused while the
-    stack's tensors are the same, unmodified objects (a learner packs its
-    stack once per generation block)."""
-    key = [(t, t._version) for t in p]
-    if _OPP_FLAT and all(a is b and v == w for (a, v), (b, w)
-                         in zip(_OPP_FLAT[0], key)):
-        return _OPP_FLAT[1]
-    flat = rnn_kernel_flat(p)
-    _OPP_FLAT[:] = [key, flat]
-    return flat
+    return lo, hi, n_blocks, -(-n_blocks // plan.grid)
 
 
 def recurrent_rollout_cuda(env_params: EnvParams, state: EnvState, opp_idx,
@@ -546,25 +541,34 @@ def recurrent_rollout_cuda(env_params: EnvParams, state: EnvState, opp_idx,
                            sigma: RNNSigma, opponents: PackedQNetRNN, *,
                            seed: int, eps_i: int, steps: int,
                            max_episode_steps: int, tile_rows: int,
-                           emit_transitions: bool):
+                           emit_transitions: bool,
+                           opponents_flat: Optional[torch.Tensor] = None):
     """Launch the CUDA kernel; same contract as
-    :func:`recurrent_rollout_plain`."""
+    :func:`recurrent_rollout_plain`. ``opponents_flat``:
+    :func:`rnn_kernel_flat` of ``opponents``, for a caller that keeps one
+    stack for many chunks (made here when None)."""
     dev = state.ball_x.device
     B = state.ball_x.shape[0]
     dims = packed_dims(learner)
-    F1, F, H, HH = dims
+    H = dims[2]
     if not supports_kernel(dims):
-        raise ValueError(f"recurrent kernel takes widths <= {MAX_WIDTH} "
-                         f"that are multiples of 4, got {dims}")
+        raise ValueError(f"recurrent kernel takes widths <= {MAX_WIDTH}, "
+                         f"got {dims}")
     check_tile_rows(tile_rows)
+    kdims = kernel_dims(dims)
+    Hp = kdims[2]
     lw = rnn_kernel_flat(learner)
     sw = sigma_kernel_flat(sigma)
-    ow = opponents_flat(opponents)
-    n_slots, net = ow.shape
+    ow = (rnn_kernel_flat(opponents) if opponents_flat is None
+          else opponents_flat)
+    n_slots, net = opponents.w1t.shape[0], net_layout(dims)[1]
     check_cuda("learner", lw, torch.float32, (net,))
     check_cuda("sigma", sw, torch.float32, (sigma_layout(dims)[1],))
+    check_cuda("opponents_flat", ow, torch.float32, (n_slots, net))
     check_cuda("opp_idx", opp_idx, torch.int32, (B,))
     check_cuda("hid", hid, torch.float32, (4 * H, B))
+    if Hp != H:   # the added units' streams are zero
+        hid = _zero_pad(hid.view(4, H, B), (Hp, B)).view(4 * Hp, B)
     f_in = torch.stack([state.ball_x, state.ball_y, state.ball_vx,
                         state.ball_vy, state.bottom_paddle_x,
                         state.top_paddle_x, state.spin, ep_return])
@@ -585,25 +589,24 @@ def recurrent_rollout_cuda(env_params: EnvParams, state: EnvState, opp_idx,
     else:
         tr_ptrs = [None] * 4
     consts = EnvConsts.build(env_params, max_episode_steps)
-    plan = launch_plan(opp_idx, tile_rows, n_slots, dims)
+    plan = launch_plan(opp_idx, tile_rows, n_slots, kdims)
     # the table's members are clamped into the stack, so the chunk reads no
     # weights outside it; the range check waits for the table's counts only
-    if dev not in _PINNED:
-        _PINNED[dev] = torch.empty(3, dtype=torch.int32, pin_memory=True)
-    info = _PINNED[dev]
+    info = torch.empty(3, dtype=torch.int32, pin_memory=True)
     info.copy_(plan.info, non_blocking=True)
     copied = torch.cuda.Event()
     copied.record(torch.cuda.current_stream(dev))
     KERNEL.launch(ctypes.byref(consts), ptr(f_in), ptr(i_in), ptr(hid),
                   ptr(lw), ptr(sw), ptr(ow), ptr(f_out), ptr(i_out),
                   ptr(hid_out), *tr_ptrs, ptr(stats), ptr(plan.table),
-                  ptr(plan.info), plan.envs, plan.cluster, plan.grid, B,
-                  steps, tile_rows, seed & _M32, eps_i, F1, F, H, HH,
-                  stream_ptr(dev))
+                  ptr(plan.info), plan.envs, plan.grid, B, steps, tile_rows,
+                  seed & _M32, eps_i, *kdims, stream_ptr(dev))
     copied.synchronize()
     lo, hi, _ = info.tolist()
     if lo < 0 or hi >= n_slots:
         raise ValueError(f"opp_idx outside [0, {n_slots})")
+    if Hp != H:
+        hid_out = hid_out.view(4, Hp, B)[:, :H].reshape(4 * H, B)
     new_state = EnvState(
         ball_x=f_out[0], ball_y=f_out[1], ball_vx=f_out[2], ball_vy=f_out[3],
         bottom_paddle_x=f_out[4], top_paddle_x=f_out[5], spin=f_out[6],
@@ -621,13 +624,16 @@ def recurrent_rollout(env_params: EnvParams, state: EnvState, opp_idx,
                       sigma: RNNSigma, opponents: PackedQNetRNN, *,
                       seed: int, epsilon: float, steps: int,
                       max_episode_steps: int = 0, tile_rows: int = 512,
-                      emit_transitions: bool = True):
+                      emit_transitions: bool = True,
+                      opponents_flat: Optional[torch.Tensor] = None):
     """One recurrent rollout chunk. ``state`` is batched ``(B,)``,
     ``opp_idx (B,)`` i32 binds each env to a slot of the stacked
     ``opponents`` (fixed for the chunk; callers bucket envs by slot and
     zero the opponent stream of re-bound envs), ``hid (4H, B)`` carries
     ``[h_b; c_b; h_opp; c_opp]``, ``learner`` is one unmirrored net with
-    its ``sigma``, ``opponents`` mirror-folded.
+    its ``sigma``, ``opponents`` mirror-folded; ``opponents_flat``, for
+    CUDA tensors, is :func:`rnn_kernel_flat` of ``opponents`` made once by
+    a caller that keeps the stack for many chunks (else made per call).
 
     Runs the CUDA kernel for CUDA tensors and the plain version for CPU
     tensors. Returns ``(state, opp_idx, ep_return, hid, transitions,
@@ -642,8 +648,11 @@ def recurrent_rollout(env_params: EnvParams, state: EnvState, opp_idx,
     kw = dict(seed=int(seed), eps_i=epsilon_to_int(epsilon), steps=steps,
               max_episode_steps=int(max_episode_steps), tile_rows=tile_rows,
               emit_transitions=emit_transitions)
-    run = (recurrent_rollout_cuda if state.ball_x.is_cuda
-           else recurrent_rollout_plain)
+    if state.ball_x.is_cuda:
+        kw["opponents_flat"] = opponents_flat
+        run = recurrent_rollout_cuda
+    else:
+        run = recurrent_rollout_plain
     new_state, ret, hid_out, trans, stats = run(
         env_params, state, opp_idx, ep_return, hid, learner, sigma,
         opponents, **kw)

@@ -61,6 +61,7 @@ from pingpong_tpu_torch.ops.recurrent_rollout import (
     pack_qnet_rnn,
     pack_rnn_sigma,
     recurrent_rollout,
+    rnn_kernel_flat,
 )
 from pingpong_tpu_torch.replay.sequence import (
     SeqReplay,
@@ -109,10 +110,12 @@ class DRQNMetrics(NamedTuple):
 
 class PreparedRNNOpponents(NamedTuple):
     """An opponent stack packed once per generation block
-    (mirror-folded for player A's seat)."""
+    (mirror-folded for player A's seat), with the CUDA kernel's flat copy
+    of it on the card (None on the CPU)."""
 
     packed: PackedQNetRNN
     n_slots: int
+    flat: Optional[torch.Tensor]
 
 
 def stack_rnn_opponents(params_a: QNetRNN, pool: Sequence[QNetRNN]
@@ -218,8 +221,10 @@ class DRQNLearner:
                           ) -> PreparedRNNOpponents:
         """Pack an opponent stack once per generation block."""
         members = [qnet_rnn_copy(p).to(self.device) for p in opp_stack]
-        return PreparedRNNOpponents(packed=pack_qnet_rnn(members, mirror=True),
-                                    n_slots=len(members))
+        packed = pack_qnet_rnn(members, mirror=True)
+        flat = rnn_kernel_flat(packed) if packed.w1t.is_cuda else None
+        return PreparedRNNOpponents(packed=packed, n_slots=len(members),
+                                    flat=flat)
 
     # -- rollout -------------------------------------------------------------
     def _rollout(self, state: DRQNTrainState, opp: PreparedRNNOpponents,
@@ -250,7 +255,8 @@ class DRQNLearner:
             self.env_params, state.env_state, opp_idx, state.ep_return, hid,
             pack_qnet_rnn(learner), pack_rnn_sigma(learner), opp.packed,
             seed=seed, epsilon=state.epsilon, steps=cfg.rollout_length,
-            max_episode_steps=cfg.max_episode_steps, tile_rows=tile)
+            max_episode_steps=cfg.max_episode_steps, tile_rows=tile,
+            opponents_flat=opp.flat)
         counts = [int(c) for c in counts.tolist()]
         n_done = counts[0] + counts[2]
         state.epsilon = float(max(

@@ -329,11 +329,13 @@ CONFIG_WIDTHS = dict(feature_dim=128, lstm_hidden_dim=128,
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [
     "b1000_tile40", "small_widths", "3slot_bucketed_mixed", "b4096",
-    "17slot_bucketed", "17slot_rebind", "b1000_tile40_3slot"])
+    "17slot_bucketed", "17slot_rebind", "b1000_tile40_3slot", "odd_widths"])
 def test_recurrent_kernel_matches_plain_at_other_shapes(cuda, case):
     """1000 envs in tiles of 40; the smallest widths (F1 16, F 32, H 16, HH
-    16: most of a row's lanes idle); 3 slots bound in buckets, so 8-env
-    runs of envs mix members; the bench's 4096 envs at the configs' widths
+    16: most of a row's lanes idle); widths off a multiple of 4 (F1 25, F
+    50, H 50, HH 30: the kernel adds zero units); 3 slots bound in
+    buckets, so 8-env runs of envs mix members; the bench's 4096 envs at
+    the configs' widths
     (32 envs a block, 128 blocks); 17 slots in buckets and after a pool
     change (half the envs on the buckets of 16 members); 1000 envs in
     tiles of 40 bound to 3 slots in buckets."""
@@ -342,6 +344,9 @@ def test_recurrent_kernel_matches_plain_at_other_shapes(cuda, case):
     elif case == "small_widths":
         args, kw = rnn_args(2, False, cuda, widths=dict(
             feature_dim=32, lstm_hidden_dim=16, head_hidden_dim=16))
+    elif case == "odd_widths":
+        args, kw = rnn_args(2, False, cuda, widths=dict(
+            feature_dim=50, lstm_hidden_dim=50, head_hidden_dim=30))
     elif case == "3slot_bucketed_mixed":
         args, kw = rnn_args(3, False, cuda, bucketed=True)
         per_block = args[2].view(-1, 8)
@@ -365,27 +370,6 @@ def test_recurrent_kernel_matches_plain_at_other_shapes(cuda, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cluster", [2, 4])
-def test_recurrent_kernel_clusters_match_plain(cuda, monkeypatch, cluster):
-    """The kernel built for clusters of 2 and 4 CTAs (one multicast weight
-    stream a cluster): 1000 envs in tiles of 40 bound to 3 slots, whose
-    members' blocks are no multiple of the cluster size, so idle blocks
-    pad their clusters; and 17 slots after a pool change."""
-    monkeypatch.setattr(trr, "CUDA_CLUSTER", cluster)
-    args, kw = rnn_args(3, False, cuda, n_envs=1000, tile_rows=40,
-                        bucketed=True)
-    plan = trr.launch_plan(args[2], 40, 3, trr.packed_dims(args[5]))
-    counts = trr.segment_counts(args[2], 40, 3).cpu()
-    unpadded = int(((counts + plan.envs - 1) // plan.envs).sum())
-    assert plan.cluster == cluster
-    assert trr.plan_counts(plan)[2] > unpadded
-    check_recurrent_kernel(cuda, args, kw)
-    check_recurrent_kernel(cuda, *rnn_args(
-        17, False, cuda, n_envs=1024, tile_rows=512,
-        opp=rebind_binding(1024, 16, 9)))
-
-
-@pytest.mark.cuda
 @pytest.mark.parametrize("binding", ["17slot_rebind", "b1000_tile40"])
 def test_block_table_kernel_matches_plain(cuda, binding):
     """The wrapper's block table, built on the card, equals the plain
@@ -397,19 +381,19 @@ def test_block_table_kernel_matches_plain(cuda, binding):
     opp = torch.from_numpy(opp.astype(np.int32)).to(cuda)
     plan = trr.launch_plan(opp, tile, n_slots, RNN_DIMS)
     counts = trr.segment_counts(opp, tile, n_slots)
-    want = trr.block_table(opp, tile, plan.envs, plan.cluster, counts,
-                           plan.table.shape[0])
+    want = trr.block_table(opp, tile, plan.envs, counts, plan.table.shape[0])
     assert torch.equal(plan.table, want)
     lo, hi, n_blocks, _ = trr.plan_counts(plan)
     assert (lo, hi) == (int(opp.min()), int(opp.max()))
-    assert n_blocks == int(trr.member_blocks(counts, plan.envs,
-                                             plan.cluster).sum())
+    assert n_blocks == int(trr.member_blocks(counts, plan.envs).sum())
 
 
 @pytest.mark.cuda
 def test_recurrent_kernel_env_result_does_not_depend_on_its_block(cuda):
     """Two bindings that put the same envs (same member, same tile) in
-    other blocks and lanes: those envs' outputs are bit-equal."""
+    other blocks and lanes: those envs' outputs are bit-equal (the second
+    call gets the opponents' flat stack from the caller, as the trainer
+    and the gates pass it)."""
     opp1 = np.zeros(B, dtype=np.int32)
     opp2 = opp1.copy()
     opp2[:5] = 1          # shifts tile 0's member-0 envs by 5 lanes
@@ -417,7 +401,8 @@ def test_recurrent_kernel_env_result_does_not_depend_on_its_block(cuda):
     args1, kw = rnn_args(2, False, cuda, opp=opp1)
     args2, _ = rnn_args(2, False, cuda, opp=opp2)
     s1, r1, h1, t1, st1 = trr.recurrent_rollout_cuda(*args1, **kw)
-    s2, r2, h2, t2, st2 = trr.recurrent_rollout_cuda(*args2, **kw)
+    s2, r2, h2, t2, st2 = trr.recurrent_rollout_cuda(
+        *args2, **kw, opponents_flat=trr.rnn_kernel_flat(args2[7]))
     torch.cuda.synchronize()
     same = torch.from_numpy(opp1 == opp2).to(cuda)
     for f in EnvState._fields[:-1]:
@@ -508,6 +493,9 @@ def test_recurrent_wrappers_check_their_arguments(cuda):
             trr.recurrent_rollout_cuda(*args, **{**kw, "tile_rows": tile_rows})
     with pytest.raises(ValueError, match="hid"):
         trr.recurrent_rollout_cuda(*args[:4], args[4][:8], *args[5:], **kw)
+    flat = trr.rnn_kernel_flat(args[7])
+    with pytest.raises(ValueError, match="opponents_flat"):
+        trr.recurrent_rollout_cuda(*args, **kw, opponents_flat=flat[:, 1:])
     bad = args[2].clone()
     bad[7] = 1           # one slot only
     with pytest.raises(ValueError, match="opp_idx"):

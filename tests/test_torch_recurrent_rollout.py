@@ -138,12 +138,16 @@ def test_pack_qnet_rnn_matches_jax(mirror):
         Hd * HH)))
     assert trr.supports_kernel((64, 128, 128, 128))
     assert not trr.supports_kernel((64, 256, 128, 128))
-    assert not trr.supports_kernel((64, 128, 126, 128))   # 16-byte rows
+    # widths off a multiple of 4 run with zero units added
+    assert trr.supports_kernel((64, 128, 126, 128))
+    assert trr.kernel_dims((25, 50, 126, 30)) == (28, 52, 128, 32)
 
 
-def unpack_kernel_flat(flat, dims):
-    """Inverse of ``rnn_kernel_flat`` for one net, from ``net_layout``."""
-    F1, F, H, HH = dims
+def unpack_kernel_flat(flat, dims, trim=True):
+    """Inverse of ``rnn_kernel_flat`` for one net, from ``net_layout``: the
+    fields at the kernel's widths or, with ``trim``, at ``dims``, after
+    checking that the units the kernel adds are zero."""
+    F1, F, H, HH = trr.kernel_dims(dims)
     layout, length = trr.net_layout(dims)
     assert flat.shape == (length,)
     sec = lambda name, *shape: flat[layout[name][0]:layout[name][0]
@@ -152,21 +156,57 @@ def unpack_kernel_flat(flat, dims):
     wat[:3] = sec("wa", 3, HH)
     bat = torch.full((8, 1), trr.NEG_BIG)
     bat[:3] = sec("ba", 3, 1)
-    return trr.PackedQNetRNN(
+    full = trr.PackedQNetRNN(
         w1t=sec("w1", F1, 8), b1t=sec("b1", F1, 1),
         w2t=sec("w2", F1, F).T, b2t=sec("b2", F, 1),
         wght=sec("wg", F + H, H, 4).permute(2, 1, 0).reshape(4 * H, F + H),
         bgt=sec("bg", H, 4).T.reshape(4 * H, 1),
         wst=sec("ws", H, HH).T, bst=sec("bs", HH, 1), wat=wat, bat=bat)
+    if not trim:
+        return full
+    f1, f, h, hh = dims
+    cols = torch.cat([torch.arange(f), F + torch.arange(h)])
+    out = trr.PackedQNetRNN(
+        w1t=full.w1t[:f1], b1t=full.b1t[:f1], w2t=full.w2t[:f, :f1],
+        b2t=full.b2t[:f],
+        wght=full.wght.view(4, H, F + H)[:, :h][:, :, cols].reshape(
+            4 * h, f + h),
+        bgt=full.bgt.view(4, H, 1)[:, :h].reshape(4 * h, 1),
+        wst=full.wst[:hh, :h], bst=full.bst[:hh], wat=full.wat[:, :hh],
+        bat=full.bat)
+    for name, a, b in zip(trr.PackedQNetRNN._fields, full, out):
+        assert torch.count_nonzero(a) == torch.count_nonzero(b), name
+    return out
+
+
+def unpack_sigma_flat(sflat, dims):
+    """The learner's sigmas back from ``sigma_kernel_flat``, at the
+    kernel's widths."""
+    _, _, H, HH = trr.kernel_dims(dims)
+    slay, slen = trr.sigma_layout(dims)
+    assert sflat.shape == (slen,)
+    sec = lambda name, *shape: sflat[slay[name][0]:slay[name][0]
+                                     + slay[name][1]].reshape(shape)
+    wat, bat = torch.zeros((8, HH)), torch.zeros((8, 1))
+    wat[:3] = sec("wa", 3, HH)
+    bat[:3] = sec("ba", 3, 1)
+    return trr.RNNSigma(wst_sigma=sec("ws", H, HH).T,
+                        bst_sigma=sec("bs", HH, 1), wat_sigma=wat,
+                        bat_sigma=bat)
+
+
+ODD_WIDTHS = dict(feature_dim=50, lstm_hidden_dim=50, head_hidden_dim=30)
 
 
 @pytest.mark.parametrize("mirror,widths", [
     (False, DIMS), (True, DIMS),
-    (True, dict(feature_dim=128, lstm_hidden_dim=128, head_hidden_dim=128))])
+    (True, dict(feature_dim=128, lstm_hidden_dim=128, head_hidden_dim=128)),
+    (True, ODD_WIDTHS)])
 def test_kernel_flat_layout_round_trip(mirror, widths):
     """Every field of a packed net (and of the learner's sigmas) comes
     back exactly from the kernel's flat vector; sections start on 128
-    bytes; padding is zero."""
+    bytes; padding, and the units added to widths off a multiple of 4, are
+    zero."""
     gen = torch.Generator().manual_seed(3)
     from pingpong_tpu_torch.models.qnet_rnn import qnet_rnn_init
 
@@ -187,14 +227,69 @@ def test_kernel_flat_layout_round_trip(mirror, widths):
             assert torch.equal(getattr(back, name),
                                getattr(packed, name)[m]), name
     sig = trr.pack_rnn_sigma(nets[0])
-    sflat = trr.sigma_kernel_flat(sig)
-    slay, slen = trr.sigma_layout(dims)
-    assert sflat.shape == (slen,)
-    ssec = lambda name: sflat[slay[name][0]:slay[name][0] + slay[name][1]]
-    assert torch.equal(ssec("ws").view(dims[2], dims[3]).T, sig.wst_sigma)
-    assert torch.equal(ssec("bs"), sig.bst_sigma[:, 0])
-    assert torch.equal(ssec("wa").view(3, -1), sig.wat_sigma[:3])
-    assert torch.equal(ssec("ba"), sig.bat_sigma[:3, 0])
+    back = unpack_sigma_flat(trr.sigma_kernel_flat(sig), dims)
+    _, _, Hd, HH = dims
+    assert torch.equal(back.wst_sigma[:HH, :Hd], sig.wst_sigma)
+    assert torch.equal(back.bst_sigma[:HH], sig.bst_sigma)
+    assert torch.equal(back.wat_sigma[:, :HH], sig.wat_sigma)
+    assert torch.equal(back.bat_sigma, sig.bat_sigma)
+    assert torch.count_nonzero(back.wst_sigma) == torch.count_nonzero(
+        sig.wst_sigma)
+
+
+@pytest.mark.parametrize("widths", [
+    ODD_WIDTHS, dict(feature_dim=36, lstm_hidden_dim=18, head_hidden_dim=22)])
+def test_added_zero_units_leave_the_rollout_unchanged(widths):
+    """The kernel runs widths off a multiple of 4 with zero units added
+    (``kernel_dims``). The plain rollout of the padded nets, read back from
+    the kernel's flat vectors, gives the unpadded nets' result: the same
+    discrete outputs, floats within 1e-5, and the added units' LSTM
+    streams stay zero."""
+    from pingpong_tpu_torch.models.qnet_rnn import qnet_rnn_init
+
+    gen = torch.Generator().manual_seed(7)
+    learner, *members = (qnet_rnn_init(gen, **widths) for _ in range(3))
+    lw, sig = trr.pack_qnet_rnn(learner), trr.pack_rnn_sigma(learner)
+    opp = trr.pack_qnet_rnn(members, mirror=True)
+    dims = trr.packed_dims(lw)
+    Hd, Hp = dims[2], trr.kernel_dims(dims)[2]
+    assert trr.kernel_dims(dims) != dims
+    lw_p = unpack_kernel_flat(trr.rnn_kernel_flat(lw), dims, trim=False)
+    sig_p = unpack_sigma_flat(trr.sigma_kernel_flat(sig), dims)
+    opp_flat = trr.rnn_kernel_flat(opp)
+    opp_p = trr.PackedQNetRNN(*(torch.stack(f) for f in zip(*(
+        unpack_kernel_flat(opp_flat[m], dims, trim=False)
+        for m in range(2)))))
+    params = tpong.env_params_from_config(CFG)
+    state = tpong.reset(params, B, gen, torch.device("cpu"))
+    rng = np.random.default_rng(7)
+    opp_idx = torch.from_numpy(np.sort(rng.integers(0, 2, B)).astype(
+        np.int32))
+    hid = torch.from_numpy(rng.uniform(-0.5, 0.5, (4, Hd, B)).astype(
+        np.float32))
+    hid_p = torch.zeros((4, Hp, B))
+    hid_p[:, :Hd] = hid
+    kw = dict(seed=99, eps_i=300000, steps=T, max_episode_steps=10,
+              tile_rows=TILE, emit_transitions=True)
+    ret = torch.zeros(B)
+    s0, r0, h0, t0, st0 = trr.recurrent_rollout_plain(
+        params, state, opp_idx, ret, hid.reshape(4 * Hd, B), lw, sig, opp,
+        **kw)
+    s1, r1, h1, t1, st1 = trr.recurrent_rollout_plain(
+        params, state, opp_idx, ret, hid_p.reshape(4 * Hp, B), lw_p, sig_p,
+        opp_p, **kw)
+    for k in ("action", "reward", "done"):
+        assert torch.equal(t0[k], t1[k]), k
+    assert int(t0["done"].sum()) > 0
+    torch.testing.assert_close(t1["obs"], t0["obs"], rtol=0, atol=1e-5)
+    assert torch.equal(st0, st1)
+    h1 = h1.view(4, Hp, B)
+    assert not h1[:, Hd:].any()
+    torch.testing.assert_close(h1[:, :Hd].reshape(4 * Hd, B), h0, rtol=0,
+                               atol=1e-5)
+    for f in tpong.EnvState._fields[:-1]:
+        torch.testing.assert_close(getattr(s1, f), getattr(s0, f), rtol=0,
+                                   atol=1e-5)
 
 
 def rebind(n_envs, pool_size, seed):
@@ -207,31 +302,24 @@ def rebind(n_envs, pool_size, seed):
 
 
 @pytest.mark.parametrize("envs", [8, 16, 32])
-@pytest.mark.parametrize("cluster", [1, 2, 4])
 @pytest.mark.parametrize("binding,n_slots,blocks_at_8", [
     ("train_2slot", 2, 129), ("pool16", 17, 141), ("rebind", 17, 136)])
-def test_block_table(binding, n_slots, blocks_at_8, envs, cluster):
+def test_block_table(binding, n_slots, blocks_at_8, envs):
     """The kernel's env lists at the shipped train chunk (1024 envs, tiles
     of 512): every env in exactly one lane; a block holds one tile and one
-    member, a cluster one member; the block count is the sum over members
-    of their segments' ceil(n / envs), each padded to the cluster size
-    (with clusters of 1, the sum over segments of ceil(n / envs))."""
+    member; the block count is the sum over segments of ceil(n / envs)."""
     B, tile = 1024, 512
     opp = {"train_2slot": bucket_opp_idx(B, 0.4, 1),
            "pool16": bucket_opp_idx(B, 0.4, 16),
            "rebind": rebind(B, 16, 0)}[binding].to(torch.int32)
     counts = trr.segment_counts(opp, tile, n_slots)
     assert int(counts.sum()) == B
-    per_member = ((counts + envs - 1) // envs).sum(dim=1)
-    want = int(((per_member + cluster - 1) // cluster * cluster).sum())
-    n_blocks = int(trr.member_blocks(counts, envs, cluster).sum())
-    assert n_blocks == want
-    if cluster == 1:
-        assert n_blocks == int(((counts + envs - 1) // envs).sum())
-    if (envs, cluster) == (8, 1):
+    n_blocks = int(trr.member_blocks(counts, envs).sum())
+    assert n_blocks == int(((counts + envs - 1) // envs).sum())
+    if envs == 8:
         assert n_blocks == blocks_at_8
-    assert n_blocks <= trr.blocks_bound(B, tile, n_slots, envs, cluster)
-    table = trr.block_table(opp, tile, envs, cluster, counts, n_blocks)
+    assert n_blocks <= trr.blocks_bound(B, tile, n_slots, envs)
+    table = trr.block_table(opp, tile, envs, counts, n_blocks)
     assert table.shape == (n_blocks, 1 + envs)
     lanes = table[:, 1:]
     valid = lanes >= 0
@@ -244,5 +332,3 @@ def test_block_table(binding, n_slots, blocks_at_8, envs, cluster):
     assert bool((tiles == first)[valid].all())
     # lanes fill from 0, and only a segment's last block has idle lanes
     assert bool((valid[:, 1:] <= valid[:, :-1]).all())
-    assert bool((table[:, 0].view(-1, cluster)
-                 == table[::cluster, :1]).all())
