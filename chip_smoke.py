@@ -4,12 +4,14 @@
 
 1. builds every CUDA kernel from ``pingpong_tpu_torch/csrc`` (one ``nvcc``
    per source, all started together), prints ptxas' register/smem/spill
-   lines and fails if either rollout kernel spills;
+   lines and fails if a rollout kernel spills or kernel 5's rollout
+   function has a stack frame;
 2. holds each kernel against its plain PyTorch version on the card, at its
    paths' shapes (the training configs' and the bench's, and the update
    kernel at batch 512 too, update by update), with the stated
-   tolerances, and checks that the two update kernels and the two
-   training rollout kernels give bit-identical results run to run;
+   tolerances (kernel 5 also bit for bit), checks kernel 5's division and
+   sine and cosine against the card's own on every float they take, and
+   checks that every kernel gives bit-identical results run to run;
 3. drives the port's paths, each with the kernels' launch counters set
    to 0 just before it and read just after: ``cli train`` at
    ``configs/qnet.yaml``'s widths and batch, and ``cli train-rnn`` at
@@ -32,11 +34,11 @@ it exits 1 and prints no result.
 
     python3 chip_smoke.py --rollout-times DIR
 
-times only the two training rollout kernels (kernels 1 and 3) of the
-checkout at DIR, at every shape their paths launch them at, with this
-script's inputs and yardstick (``time_rollouts``), and prints one JSON
-line. Run it on a parent commit unpacked under ``build/`` and on this
-checkout, in one call, to compare the two on one card.
+times only the three rollout kernels (kernels 1, 3 and 5) of the checkout
+at DIR, at every shape their paths launch them at, with this script's
+inputs and yardstick (``time_rollouts``), and prints one JSON line. Run it
+on a parent commit unpacked under ``build/`` and on this checkout, in one
+call, to compare the two on one card.
 """
 
 from __future__ import annotations
@@ -366,6 +368,34 @@ def check_rollouts_reproducible(actor_inp, rnn_inp):
               f"bit-identical (state, return, transitions, hidden, stats): "
               f"{same} | {CARD}", flush=True)
         check(same, f"{name}: two runs on the same inputs differ")
+
+
+def check_pong_reproducible(params, state):
+    """Kernel 5 twice on the same inputs: final state and reward sums
+    bit-identical (each env is one thread's chain; nothing is summed
+    across threads)."""
+    from pingpong_tpu_torch.ops.pong_kernel import pong_rollout_cuda
+
+    runs = [pong_rollout_cuda(params, state, PONG_STEPS, 9,
+                              tile_rows=PONG_TILE) for _ in range(2)]
+    torch.cuda.synchronize()
+    (s1, r1), (s2, r2) = runs
+    same = torch.equal(r1, r2) and all(
+        torch.equal(a, b) for a, b in zip(s1, s2))
+    print(f"[repro:pong_kernel] two {PONG_STEPS}-step runs on the same "
+          f"inputs bit-identical (state, reward sums): {same} | {CARD}",
+          flush=True)
+    check(same, "pong_kernel: two runs on the same inputs differ")
+
+
+def check_no_stack_frame(log, function):
+    """ptxas reports 0 bytes of stack frame for the named function."""
+    m = re.search(rf"Function properties for \S*{function}\S*\s*\n\s*"
+                  r"(\d+) bytes stack frame", log)
+    print(f"[build:stack] {function}: "
+          f"{m.group(1) if m else '?'} bytes stack frame", flush=True)
+    check(m is not None and m.group(1) == "0",
+          f"{function} has a stack frame (or ptxas printed none)")
 
 
 def check_no_spills(logs, names):
@@ -725,12 +755,23 @@ def plain_chunk_events(params, state, steps, seed):
     return state, acc, hits, ends
 
 
+def bit_equal_envs(sk, rk, sp, rp):
+    """Per env: every field and the reward sum of the two results equal
+    bit for bit."""
+    same = rk.view(torch.int32) == rp.view(torch.int32)
+    for a, b in zip(sk[:11], sp[:11]):
+        same &= (a.view(torch.int32) == b.view(torch.int32)
+                 if a.dtype == torch.float32 else a == b)
+    return same
+
+
 def compare_pong(dev):
     """Two seeds, a 64-step chunk at the bench's shape: scores, bounce
     count and step count equal on >= 99.9 % of envs, the seven floats within
-    1e-5 and the reward sums equal on those envs. One full 1024-step chunk:
-    reward sums and the envs whose episode ended (the kernel reports no
-    episode count) within 1 %. Returns (max abs err, hits, ends, bench
+    1e-5 and the reward sums equal on those envs; and every env bit-equal
+    (the kernel rounds as the plain version does). One full 1024-step
+    chunk: reward sums and the envs whose episode ended (the kernel reports
+    no episode count) within 1 %. Returns (max abs err, hits, ends, bench
     inputs) of the full chunk's plain run."""
     from pingpong_tpu_torch.ops import pong_kernel as pk
 
@@ -750,12 +791,14 @@ def compare_pong(dev):
                       for f in ("ball_x", "ball_y", "ball_vx", "ball_vy",
                                 "spin", "top_paddle_x", "bottom_paddle_x"))
         rsum_eq = bool((rk == rp)[ok].all())
+        bits = float(bit_equal_envs(sk, rk, sp, rp).float().mean())
         print(f"[pong:seed{seed}] 64 steps: discrete match {frac:.6f}, f32 "
               f"max err {f32_err:.3g}, reward sums equal on matching envs "
-              f"{rsum_eq} | {CARD}", flush=True)
+              f"{rsum_eq}, bit-equal envs {bits:.6f} | {CARD}", flush=True)
         check(frac >= 0.999, f"pong seed {seed}: discrete match {frac}")
         check(f32_err <= 1e-5, f"pong seed {seed}: f32 error {f32_err}")
         check(rsum_eq, f"pong seed {seed}: reward sums differ")
+        check(bits == 1.0, f"pong seed {seed}: bit-equal envs {bits}")
         err = max(err, f32_err)
     params, st = pong_inputs(700, dev)
     sk, rk = pk.pong_rollout_cuda(params, st, PONG_STEPS, 5,
@@ -766,28 +809,70 @@ def compare_pong(dev):
     ek, ep = int((sk.t < PONG_STEPS).sum()), int((sp.t < PONG_STEPS).sum())
     same = ((sk.score_a == sp.score_a) & (sk.score_b == sp.score_b)
             & (sk.t == sp.t) & (rk == rp))
+    bits = float(bit_equal_envs(sk, rk, sp, rp).float().mean())
     print(f"[pong:chunk] {PONG_STEPS} steps: reward sum {rk_sum:.0f}/"
           f"{rp_sum:.0f}, envs that ended {ek}/{ep}, envs equal in scores, "
-          f"t and reward {float(same.float().mean()):.6f}; plain run: "
-          f"{hits} paddle hits, {ends} ended episodes | {CARD}", flush=True)
+          f"t and reward {float(same.float().mean()):.6f}, bit-equal envs "
+          f"{bits:.6f}; plain run: {hits} paddle hits, {ends} ended "
+          f"episodes | {CARD}", flush=True)
     check(abs(rk_sum - rp_sum) <= 0.01 * max(abs(rp_sum), 1.0),
           "pong chunk: reward sums differ by more than 1 %")
     check(abs(ek - ep) <= 0.01 * max(ep, 1), "pong chunk: ended envs")
     return err, hits, ends, (params, st)
 
 
+def check_pong_exactness(dev):
+    """Kernel 5's shortcuts against the card's own functions on every
+    float they can take (``pong_exactness_check``): division by m and by
+    inertia, sine and cosine; at the bench's env and the default one."""
+    from pingpong_tpu_torch.bench import rollout_env_cfg
+    from pingpong_tpu_torch.config import EnvConfig
+    from pingpong_tpu_torch.env.pong import env_params_from_config
+    from pingpong_tpu_torch.ops.pong_kernel import pong_exactness_check
+
+    for name, cfg in (("bench", rollout_env_cfg()), ("default", EnvConfig())):
+        c = pong_exactness_check(env_params_from_config(cfg), dev)
+        print(f"[pong:exact] {name} env: results that differ from "
+              f"__fdiv_rn by m {c[0]}, by inertia {c[1]} (every float where "
+              f"the kernel divides by Markstein; elsewhere, where it takes "
+              f"__fdiv_rn, the product would differ on {c[2]} and {c[3]}), "
+              f"from sinf {c[4]}, cosf {c[5]} (every float below 105615) "
+              f"| {CARD}", flush=True)
+        check(c[0] == c[1] == c[4] == c[5] == 0,
+              f"pong shortcuts differ at the {name} env")
+
+
+def sm_clock_hz():
+    """The card's maximum SM clock, from nvidia-smi."""
+    import subprocess
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    return float(out.stdout.split()[0]) * 1e6
+
+
 def pong_bound_ms(B, steps, hits, ends):
     """Kernel 5's least time. Bytes: 11 fields read, 7 + 4 fields and the
-    reward sums written, once each. Operations, each float or integer
-    operation counted once against the float32 rate: per env-step the two
-    bots (8) and the step without a hit (30: paddles, Magnus, integration,
-    walls, the two paddle-line tests, reward) and the reward sum (1); per
-    paddle hit the collision (17) and the speed-up (2); per ended episode
-    the serve (4 hashes of 17 integer operations, 16 float operations and
-    a cos and a sin, counted 1 each)."""
-    ops = 39 * B * steps + 19 * hits + (4 * 17 + 16 + 2) * ends
-    nbytes = (11 + 12) * 4 * B
-    t_ops, t_bytes = ops / F32_PEAK, nbytes / HBM_RATE
+    reward sums written, once each. Operations, as the function needs them
+    (none is an FMA: the step rounds every product and sum on its own).
+    Float (one a lane a cycle, 128 an SM, at the card's maximum SM clock):
+    per env-step the two bots (8), the paddles (8), Magnus and the
+    integration (5), the walls (4), the paddle lines (10) and the reward
+    and its sum (2); per paddle hit the collision (17) and the speed-up
+    (2); per ended episode the serve's conversions, scalings, angle, sine,
+    cosine and products (20, a sine or cosine counted 1). Integer (the
+    INT32 lanes, 64 an SM a cycle): per env-step the scores, the end test
+    and the step count (5); per hit the bounce count and the speed-up test
+    (2); per ended episode the four hashes (4 x 20). Every operation takes
+    a lane's issue slot, so the time is the larger of all operations at
+    the lane rate and the integer ones at the INT32 rate."""
+    fops = 37 * B * steps + 19 * hits + 20 * ends
+    iops = 5 * B * steps + 2 * hits + 80 * ends
+    lanes = torch.cuda.get_device_properties(0).multi_processor_count * \
+        sm_clock_hz()
+    t_ops = max((fops + iops) / (128 * lanes), iops / (64 * lanes))
+    t_bytes = (11 + 12) * 4 * B / HBM_RATE
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes \
         else "bytes"
 
@@ -1020,14 +1105,15 @@ def report_rnn_stream(name, inp, steps, ms, resident_check):
 
 
 def time_rollouts(resident_check=False):
-    """CUDA-event means (warm launches) of kernels 1 and 3 at every shape
-    their paths launch them at: kernel 1 at ``configs/qnet.yaml``'s train
-    chunk (2 slots sharing a trunk, transitions), its 256-step gate chunk
-    (1 slot, no transitions) and the bench's pool-16 chunk (8192 x 128, 17
-    slots of one trunk); kernel 3 at ``rnn_time_rows``, each with its
-    weight-stream report. Uses whichever checkout's package was imported
-    first."""
+    """CUDA-event means (warm launches) of kernels 1, 3 and 5 at every
+    shape their paths launch them at: kernel 1 at ``configs/qnet.yaml``'s
+    train chunk (2 slots sharing a trunk, transitions), its 256-step gate
+    chunk (1 slot, no transitions) and the bench's pool-16 chunk (8192 x
+    128, 17 slots of one trunk); kernel 3 at ``rnn_time_rows``, each with
+    its weight-stream report; kernel 5 at the bench's chunk (32768 x 1024,
+    tile 64). Uses whichever checkout's package was imported first."""
     from pingpong_tpu_torch.ops import actor_rollout as ar
+    from pingpong_tpu_torch.ops import pong_kernel as pk
     from pingpong_tpu_torch.ops import recurrent_rollout as rr
 
     T = MAX_ROLLOUT
@@ -1047,6 +1133,9 @@ def time_rollouts(resident_check=False):
                      reps)
         times[name] = ms
         report_rnn_stream(name, inp, steps, ms, resident_check)
+    params, st = pong_inputs(700, DEV)
+    times["pong_kernel:bench"] = cuda_ms(lambda: pk.pong_rollout_cuda(
+        params, st, PONG_STEPS, 5, tile_rows=PONG_TILE), 20)
     return times
 
 
@@ -1086,13 +1175,15 @@ def setup(root: Path):
 
 
 def rollout_times_only(root: Path) -> int:
-    """``--rollout-times``: kernels 1 and 3 of the checkout at ``root``."""
+    """``--rollout-times``: kernels 1, 3 and 5 of the checkout at
+    ``root``."""
     setup(root)
     from pingpong_tpu_torch.ops import actor_rollout as ar
+    from pingpong_tpu_torch.ops import pong_kernel as pk
     from pingpong_tpu_torch.ops import recurrent_rollout as rr
     from pingpong_tpu_torch.ops.build import build_all
 
-    build_all([ar.KERNEL, rr.KERNEL])
+    build_all([ar.KERNEL, rr.KERNEL, pk.KERNEL])
     times = time_rollouts()
     print(json.dumps({"rollout_times": str(root), "card": CARD, "ms": times}))
     return 0
@@ -1138,7 +1229,9 @@ def main(argv=None) -> int:
                 print(f"[build:{name}] {line.strip()}")
     print(f"[build] {len(kernels)} kernels built for sm_90a in "
           f"{time.time() - t0:.1f} s", flush=True)
-    check_no_spills(logs, ("actor_rollout", "recurrent_rollout"))
+    check_no_spills(logs, ("actor_rollout", "recurrent_rollout",
+                           "pong_kernel"))
+    check_no_stack_frame(logs["pong_kernel"], "pong_rollout_kernel")
 
     # ---- 2. kernel vs plain ------------------------------------------------
     actor_err = 0.0
@@ -1183,10 +1276,12 @@ def main(argv=None) -> int:
             name, drqn_update_inputs(400, dev, ts0=ts0, interval=interval,
                                      tau=tau)))
     pong_err, pong_hits, pong_ends, (pong_params, pong_st) = compare_pong(dev)
+    check_pong_exactness(dev)
     check_bit_reproducible(upd_inp, drqn_update_inputs(400, dev))
     check_rollouts_reproducible(
         actor_inputs(150, 17, True, False, 8192, dev),
         rnn_inputs(350, 3, False, dev))
+    check_pong_reproducible(pong_params, pong_st)
 
     # ---- 3. main paths: cli train and cli train-rnn, twice each ------------
     qnet_launches, promoted_path = drive(
@@ -1244,8 +1339,7 @@ def main(argv=None) -> int:
     dkw = drqn_update_inputs(600, dev)
     d_ms = cuda_ms(lambda: dru.drqn_update_cuda(**fresh(dkw)), 10)
     d_plain = cuda_ms(lambda: dru.drqn_update_plain(**fresh(dkw)), 1, 1)
-    p_ms = cuda_ms(lambda: pk.pong_rollout_cuda(
-        pong_params, pong_st, PONG_STEPS, 5, tile_rows=PONG_TILE), 20)
+    p_ms = ro["pong_kernel:bench"]
     p_plain = cuda_ms(lambda: pk.pong_rollout_plain(
         pong_params, pong_st, PONG_STEPS, 5, tile_rows=PONG_TILE), 1, 1)
     bounds = {

@@ -15,7 +15,11 @@ Two versions compute the same function:
   on the CPU (the tests hold it against the JAX kernel in interpret mode),
   and ``chip_smoke.py`` holds the kernel against it on the card;
 * the CUDA kernel ``csrc/pong_kernel.cu``, launched for tensors on the
-  card. There is no fallback between the two.
+  card. There is no fallback between the two. The kernel divides by the
+  two collision constants through their reciprocals and computes the
+  serve's sine and cosine with its own copy of the fast path of CUDA's
+  ``sinf``/``cosf``; :func:`pong_exactness_check` holds both against the
+  card's own functions on every float they can take.
 
 Serves follow the JAX kernel's interpret path: its counter hash
 (``_hash_uniform``) with ``seed_mix = seed ^ (tile * 747796405)``, ``ctr``
@@ -205,6 +209,38 @@ KERNEL = CudaKernel(
 )
 
 
+# the serve angles the kernel's sine and cosine take (csrc/pong_kernel.cu::
+# sincos_small, CUDA's fast path, exact below 105615 rad)
+MAX_SERVE_RAD = 1e5
+
+
+def check_serve_angles(params: EnvParams) -> None:
+    """Refuse serve angle intervals beyond :data:`MAX_SERVE_RAD`."""
+    deg = max(abs(a) for iv in params.angle_intervals for a in iv)
+    if deg * math.pi / 180.0 >= MAX_SERVE_RAD:
+        raise ValueError(f"serve angles up to {deg} degrees: the kernel "
+                         f"takes angles below {MAX_SERVE_RAD:g} rad")
+
+
+def pong_exactness_check(params: EnvParams, device) -> Tuple[int, ...]:
+    """Run the kernel library's exactness check on the card: its division
+    by ``m`` and by ``inertia`` against ``__fdiv_rn`` on every float, and
+    its sine and cosine against ``sinf`` and ``cosf`` on every float of
+    magnitude below 105615. Returns six counts of differing results: the
+    two divisions where the kernel uses them, the two elsewhere (where it
+    divides by ``__fdiv_rn`` instead), sine, cosine. The kernel is exact
+    when the first two and the last two are 0."""
+    counts = torch.zeros(6, dtype=torch.int64, device=device)
+    fn = KERNEL.library_fn("pong_exactness_check",
+                           [ctypes.POINTER(EnvConsts), _vp, _vp], ctypes.c_int)
+    rc = fn(ctypes.byref(EnvConsts.build(params, 0)), ptr(counts),
+            stream_ptr(torch.device(device)))
+    if rc != 0:
+        raise RuntimeError(f"pong exactness check launch failed (cudaError "
+                           f"{rc})")
+    return tuple(int(c) for c in counts.cpu())
+
+
 def pong_rollout_cuda(params: EnvParams, state: EnvState, steps: int,
                       seed: int, bot_tolerance: float = 0.02,
                       tile_rows: int = SUBLANE_TILE
@@ -216,6 +252,12 @@ def pong_rollout_cuda(params: EnvParams, state: EnvState, steps: int,
     dev = state.ball_x.device
     B = state.ball_x.shape[0]
     _check_batch(B, tile_rows)
+    check_serve_angles(params)
+    if steps > 1 << 24:
+        raise ValueError(f"steps {steps} > 2^24: the kernel's int32 "
+                         f"reward sum equals the float sum up to 2^24 steps")
+    if bot_tolerance < 0:
+        raise ValueError(f"bot_tolerance {bot_tolerance} must be >= 0")
     for names, dtype in ((_F_FIELDS, torch.float32), (_I_FIELDS, torch.int32)):
         for n in names:
             check_cuda(n, getattr(state, n), dtype, (B,))

@@ -1,8 +1,8 @@
-"""Phase split of the two update-block kernels and of the recurrent
-rollout kernel on the card.
+"""Phase split of the two update-block kernels, of the recurrent rollout
+kernel and of the env-only rollout kernel on the card.
 
-    python -m pingpong_tpu_torch.update_phases {drqn,dqn,rnn} [--source FILE]
-        [--reps N] [--envs B] [--slots N]
+    python -m pingpong_tpu_torch.update_phases {drqn,dqn,rnn,pong}
+        [--source FILE] [--reps N] [--envs B] [--slots N]
 
 Writes an instrumented copy of the kernel's source (default: the port's
 own ``csrc/drqn_update.cu`` or ``csrc/dqn_update.cu``) under
@@ -26,6 +26,20 @@ port's wrapper, with random weights and data from a seed:
   thread 0 of block 0 stamps after every line tagged ``// phase: NAME``
   (the consumers' barriers; a net pass's tags count the opponent's and
   the learner's passes together), printed as for ``dqn``.
+- ``pong`` (the headline bench's chunk: ``--envs`` 32768 envs, 1024 steps,
+  tile 64): lane 0 of every warp stamps ``clock64()`` at the top of each
+  iteration of the kernel's step loop (``for (int i = 0; i < steps; ++i)
+  {``). The plain version runs the same chunk on the card and marks, for
+  every env-step, a top paddle hit, a bottom paddle hit and a serve; a
+  warp-step is marked when some env of the warp is (a warp runs 32
+  consecutive envs, one a thread). It prints how many warp-steps carry
+  each mark and the mean cycles of a warp-step by class: with no mark (the
+  step), with a hit and no serve less the step (the collision), with a
+  serve and no hit less the step (the serve). It also times the kernel as
+  it is, writes its SASS to ``build/update_phases/pong.sass`` and prints
+  the kernel's instruction count, its calls, divisions, special-function
+  instructions and branches, and the compiler's register, stack and spill
+  line.
 
 Times are microseconds summed over one launch, averaged over ``--reps``
 launches, with the card's name and power limit. The committed kernels are
@@ -164,22 +178,60 @@ def instrument_rnn(src: str):
     return instrument_dqn(src, '#include "pong_env.cuh"\n', RNN_HEADER)
 
 
-def build(source: Path, kernel: str) -> tuple:
-    from pingpong_tpu_torch.ops.build import NVCC_FLAGS, nvcc_path
+PONG_LOOP = "for (int i = 0; i < steps; ++i) {"
+PONG_HEADER = """
+__device__ unsigned long long* ph_clk;
+__device__ int ph_steps;
+#define PH_STAMP(i) do {                                                   \\
+  const unsigned long long c_ = clock64();                                 \\
+  if ((threadIdx.x & 31) == 0)                                             \\
+    ph_clk[(size_t)((blockIdx.x * blockDim.x + threadIdx.x) >> 5) *        \\
+           ph_steps + (i)] = c_;                                           \\
+} while (0)
+"""
+PONG_FOOTER = """
+extern "C" int ph_set(unsigned long long* clk, int steps) {
+  cudaError_t e = cudaMemcpyToSymbol(ph_clk, &clk, sizeof(clk));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(ph_steps, &steps, sizeof(int));
+  return (int)e;
+}
+"""
 
+
+def instrument_pong(src: str):
+    """The kernel's source with a ``clock64()`` stamp at the top of every
+    step of its step loop."""
+    if src.count(PONG_LOOP) != 1:
+        raise ValueError(f"the kernel needs one step loop '{PONG_LOOP}'")
+    anchor = '#include "pong_env.cuh"\n'
+    text = src.replace(anchor, anchor + PONG_HEADER, 1)
+    return text.replace(PONG_LOOP, PONG_LOOP + " PH_STAMP(i);", 1) + \
+        PONG_FOOTER, {}
+
+
+def build(source: Path, kernel: str) -> tuple:
     OUT.mkdir(parents=True, exist_ok=True)
     instrument = {"drqn": instrument_drqn, "dqn": instrument_dqn,
-                  "rnn": instrument_rnn}[kernel]
+                  "rnn": instrument_rnn, "pong": instrument_pong}[kernel]
     text, names = instrument(source.read_text())
     cu = OUT / f"{kernel}_phases.cu"
     cu.write_text(text)
     lib = OUT / f"lib{kernel}_phases.so"
-    res = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-I", str(source.parent),
+    nvcc(cu, lib, source.parent)
+    return lib, names
+
+
+def nvcc(cu: Path, lib: Path, include: Path) -> str:
+    """Build ``cu`` into ``lib`` as the port builds its kernels; returns
+    the compiler's log."""
+    from pingpong_tpu_torch.ops.build import NVCC_FLAGS, nvcc_path
+
+    res = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-I", str(include),
                           "-o", str(lib), str(cu)],
                          capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed:\n{res.stdout}{res.stderr}")
-    return lib, names
+    return res.stdout + res.stderr
 
 
 def inputs_drqn(dev, seed=600):
@@ -423,26 +475,165 @@ def split(lib, names, kw, reps):
              for key, (c, comp, bar) in acc.items()}, ev_ms, nb)
 
 
+def pong_marks(params, state, steps, seed, tile_rows):
+    """The plain chunk's marks by warp-step: ``(top, bottom, serve)``, each
+    ``(steps, warps)`` bool, a warp (32 consecutive envs) marked when some
+    env of it is."""
+    import numpy as np
+
+    from pingpong_tpu_torch.ops import pong_kernel as pk
+
+    B, dev = state.ball_x.shape[0], state.ball_x.device
+    cells = pk.hash_cells(B, seed, tile_rows, dev)
+    tol = float(np.float32(0.02))
+    marks = torch.zeros((3, steps, B // 32), dtype=torch.bool, device=dev)
+    for i in range(steps):
+        state, _, done, hit = pk.plain_step(params, state, i, cells, tol)
+        for m, x in enumerate((hit & (state.ball_y == 0.0),
+                               hit & (state.ball_y == 1.0), done)):
+            marks[m, i] = x.view(-1, 32).any(dim=1)
+    return marks
+
+
+def sass_summary(lib: Path, log: str):
+    """The kernel's SASS into ``OUT/pong.sass``; its instruction count,
+    calls, branches, division checks and special-function instructions,
+    and the compiler's lines for it."""
+    import shutil
+    from collections import Counter
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True).stdout
+    (OUT / "pong.sass").write_text(sass)
+    body = sass.split("Function : ")
+    body = next((b for b in body if "pong_rollout_kernel" in
+                 b.splitlines()[0]), "")
+    ops = Counter(m.group(1) for m in re.finditer(
+        r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)", body))
+    keys = ("CALL", "BRA", "BSSY", "FCHK", "MUFU", "I2F", "F2I", "IMAD",
+            "FFMA", "FMUL", "FADD", "STL", "LDL")
+    info = [ln.strip() for ln in log.splitlines()
+            if "pong_rollout" in ln or "registers" in ln or "stack" in ln]
+    return sum(ops.values()), {k: v for k, v in sorted(ops.items())
+                               if k.split(".")[0] in keys}, info
+
+
+def split_pong(source: Path, B: int, reps: int):
+    """Build the kernel at ``source`` as it is and instrumented, run both
+    on the bench's chunk; returns the report's lines."""
+    import ctypes as ct
+
+    from pingpong_tpu_torch.bench import rollout_env_cfg
+    from pingpong_tpu_torch.env.pong import env_params_from_config, reset
+    from pingpong_tpu_torch.ops import pong_kernel as pk
+
+    dev, steps, tile = torch.device("cuda"), 1024, 64
+    OUT.mkdir(parents=True, exist_ok=True)
+    lib = OUT / "libpong_kernel.so"
+    log = nvcc(source, lib, source.parent)
+    inst_lib, _ = build(source, "pong")
+    params = env_params_from_config(rollout_env_cfg())
+    state = reset(params, B, torch.Generator().manual_seed(700), dev)
+    run = lambda: pk.pong_rollout_cuda(params, state, steps, 5,
+                                       tile_rows=tile)
+    n_warps = B // 32
+    clk = torch.zeros((n_warps, steps), dtype=torch.int64, device=dev)
+    lines, saved = [], pk.KERNEL
+    try:
+        times = {}
+        for name, path in (("as built", lib), ("instrumented", inst_lib)):
+            pk.KERNEL = kernel_from(path, saved.argtypes, "pong_kernel",
+                                    "pong_rollout_launch")
+            if path == inst_lib:
+                set_ = ct.CDLL(str(path)).ph_set
+                set_.argtypes = [ct.c_void_p, ct.c_int]
+                assert set_(clk.data_ptr(), steps) == 0
+            for _ in range(10):                  # warm, clocks up
+                run()
+            torch.cuda.synchronize()
+            ms = []
+            for _ in range(reps):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                run()
+                b.record()
+                torch.cuda.synchronize()
+                ms.append(a.elapsed_time(b))
+            times[name] = ms
+    finally:
+        pk.KERNEL = saved
+    top, bot, serve = pong_marks(params, state, steps, 5, tile)
+    d = (clk[:, 1:] - clk[:, :-1]).T.double()       # (steps - 1, warps)
+    top, bot, serve = top[:-1], bot[:-1], serve[:-1]
+    hit = top | bot
+    n = d.numel()
+    classes = OrderedDict([
+        ("no hit, no serve (the step)", ~hit & ~serve),
+        ("top hit only", top & ~bot & ~serve),
+        ("bottom hit only", bot & ~top & ~serve),
+        ("both hits", top & bot & ~serve),
+        ("serve, no hit", serve & ~hit),
+        ("hit and serve", hit & serve)])
+    base = float(d[classes["no hit, no serve (the step)"]].mean())
+    lines.append(f"{source}: B {B}, {steps} steps, tile {tile}; {n_warps} "
+                 f"warps; launch (events) as built "
+                 f"{', '.join(f'{x:.4f}' for x in times['as built'])} "
+                 f"ms, instrumented "
+                 f"{', '.join(f'{x:.4f}' for x in times['instrumented'])} ms")
+    lines.append(f"warp-steps {n}: some lane hits the top paddle "
+                 f"{int(top.sum())} ({float(top.double().mean()):.4f}), the "
+                 f"bottom {int(bot.sum())} ({float(bot.double().mean()):.4f}),"
+                 f" both {int((top & bot).sum())} "
+                 f"({float((top & bot).double().mean()):.4f}), either "
+                 f"{int(hit.sum())} ({float(hit.double().mean()):.4f}); some "
+                 f"lane serves {int(serve.sum())} "
+                 f"({float(serve.double().mean()):.4f})")
+    lines.append(f"cycles a warp-step: mean {float(d.mean()):.1f} over all")
+    for name, mask in classes.items():
+        k = int(mask.sum())
+        mean = float(d[mask].mean()) if k else float("nan")
+        lines.append(f"  {name:28s} {k:9d} warp-steps, mean {mean:8.1f}, "
+                     f"less the step {mean - base:8.1f}")
+    lines.append(f"split of the mean warp-step: step {base:.1f}, collision "
+                 f"{float((d - base)[hit & ~serve].sum()) / n:.1f}, serve "
+                 f"{float((d - base)[serve].sum()) / n:.1f} cycles")
+    total, ops, info = sass_summary(lib, log)
+    lines.append(f"SASS ({OUT / 'pong.sass'}): {total} instructions in "
+                 f"pong_rollout_kernel; {ops}")
+    lines += [f"ptxas: {ln}" for ln in info]
+    return lines
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("kernel", choices=("drqn", "dqn", "rnn"))
+    ap.add_argument("kernel", choices=("drqn", "dqn", "rnn", "pong"))
     ap.add_argument("--source", type=Path)
     ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--envs", type=int, default=1024)
+    ap.add_argument("--envs", type=int)
     ap.add_argument("--slots", type=int, default=2)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("update_phases: no CUDA device")
         return 1
     dev = torch.device("cuda")
-    source = args.source or (ROOT / "pingpong_tpu_torch" / "csrc" / (
-        "recurrent_rollout.cu" if args.kernel == "rnn"
-        else f"{args.kernel}_update.cu"))
+    source = args.source or (ROOT / "pingpong_tpu_torch" / "csrc" / {
+        "rnn": "recurrent_rollout.cu", "pong": "pong_kernel.cu"}.get(
+            args.kernel, f"{args.kernel}_update.cu"))
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    if args.kernel == "pong":
+        for line in split_pong(source, args.envs or 32768, args.reps):
+            print(f"[phases:pong] {line} | {card}")
+        return 0
     lib, names = build(source, args.kernel)
     if args.kernel == "rnn":
-        rargs, rkw = inputs_rnn(dev, args.envs, args.slots)
+        envs = args.envs or 1024
+        rargs, rkw = inputs_rnn(dev, envs, args.slots)
         table, ev_ms, nb = split_rnn(lib, names, rargs, rkw, args.reps)
-        shape = (f"B {args.envs}, T {rkw['steps']}, {args.slots} slots, "
+        shape = (f"B {envs}, T {rkw['steps']}, {args.slots} slots, "
                  f"block 0")
     elif args.kernel == "drqn":
         kw = inputs_drqn(dev)
@@ -452,9 +643,6 @@ def main(argv=None) -> int:
         kw = inputs_dqn(dev)
         table, ev_ms, nb = split_dqn(lib, names, kw, args.reps)
         shape = f"K {kw['K']}, bs {kw['bs']}, replay 2^20, heads only"
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"],
-                          capture_output=True, text=True).stdout.strip()
     tot_c = sum(v[1] for v in table.values())
     tot_b = sum(v[2] for v in table.values())
     tag = f"[phases:{args.kernel}]"

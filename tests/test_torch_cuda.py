@@ -596,3 +596,77 @@ def test_pong_wrapper_checks_its_arguments(cuda):
         tpk.pong_rollout_cuda(params, state._replace(
             score_a=state.score_a.cpu()), 4, 0, tile_rows=1)
     assert tpk.KERNEL.launches == before
+
+
+PONG_ENVS = {
+    "bench": BENCH_ENV,                       # speed-up every hit
+    "default": EnvConfig(),                   # every third hit, max_score 3
+    # m and inertia below 2^-20: no Markstein division, every hit's
+    # quotients recomputed by __fdiv_rn
+    "tiny_mass": EnvConfig(ball_mass=1e-7),
+}
+
+
+def bit_equal(a, b):
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env", sorted(PONG_ENVS))
+@pytest.mark.parametrize("n,tile_rows", [(256, 1), (512, 2), (8192, 64)])
+def test_pong_kernel_is_bit_equal_to_plain(cuda, env, n, tile_rows):
+    """A 300-step chunk from mid-rally states, at the smallest batches the
+    tile rule admits and at a bench tile: every field and every reward sum
+    bit for bit, at the bench's env, the default one and a tiny mass."""
+    params = env_params_from_config(PONG_ENVS[env])
+    state = pong_state(n, cuda, 7 + tile_rows)
+    sk, rk = tpk.pong_rollout_cuda(params, state, 300, 5,
+                                   tile_rows=tile_rows)
+    sp, rp = tpk.pong_rollout_plain(params, state, 300, 5,
+                                    tile_rows=tile_rows)
+    torch.cuda.synchronize()
+    assert bit_equal(rk, rp)
+    for name in EnvState._fields:
+        assert bit_equal(getattr(sk, name), getattr(sp, name)), name
+    assert int((sp.t < 300).sum()) > 0       # some envs were served
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env", ["bench", "default"])
+def test_pong_kernel_shortcuts_are_exact(cuda, env):
+    """The kernel's division by m and by inertia equals __fdiv_rn on every
+    float where it uses it, and its sine and cosine equal sinf and cosf on
+    every float below 105615."""
+    params = env_params_from_config(PONG_ENVS[env])
+    counts = tpk.pong_exactness_check(params, cuda)
+    assert counts[:2] == (0, 0) and counts[4:] == (0, 0)
+
+
+@pytest.mark.cuda
+def test_pong_kernel_is_bit_reproducible(cuda):
+    params = env_params_from_config(BENCH_ENV)
+    state = pong_state(8192, cuda, 3)
+    (s1, r1), (s2, r2) = (tpk.pong_rollout_cuda(params, state, 256, 4)
+                          for _ in range(2))
+    torch.cuda.synchronize()
+    assert bit_equal(r1, r2)
+    assert all(bit_equal(a, b) for a, b in zip(s1, s2))
+
+
+@pytest.mark.cuda
+def test_pong_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    state = pong_state(256, cuda, 0)
+    wide = env_params_from_config(dataclasses.replace(
+        BENCH_ENV, ball_angle_intervals=((-6e6, -30.0), (30.0, 60.0))))
+    before = tpk.KERNEL.launches
+    with pytest.raises(ValueError, match="serve angles"):
+        tpk.pong_rollout_cuda(wide, state, 4, 0, tile_rows=1)
+    params = env_params_from_config(BENCH_ENV)
+    with pytest.raises(ValueError, match="bot_tolerance"):
+        tpk.pong_rollout_cuda(params, state, 4, 0, bot_tolerance=-0.01,
+                              tile_rows=1)
+    with pytest.raises(ValueError, match="2\\^24"):
+        tpk.pong_rollout_cuda(params, state, (1 << 24) + 1, 0, tile_rows=1)
+    assert tpk.KERNEL.launches == before
