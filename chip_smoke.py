@@ -15,9 +15,18 @@
 3. drives the port's paths, each with the kernels' launch counters set
    to 0 just before it and read just after: ``cli train`` at
    ``configs/qnet.yaml``'s widths and batch, and ``cli train-rnn`` at
-   ``configs/rnn.yaml``'s, each twice in one workdir (the second run loads
-   the first run's promoted checkpoint into its pool), then ``cli bench``
-   at the headline bench's shapes with fewer timing windows;
+   ``configs/rnn.yaml``'s, each twice in one workdir at the shipped
+   autosave interval (the second run restores the first run's full-state
+   autosave, loads its promotion into the pool and promotes generation
+   2), then ``cli bench`` at the headline bench's shapes with fewer timing
+   windows; then, at the shipped configs' full width, a straight run
+   against a kill-and-resume run of each trainer, held bit for bit
+   (``[resume:*]``), the autosave stall bench at the bench's QNet shape and
+   at ``configs/rnn.yaml`` (``[autosave:*]``), ``cli train`` with the
+   match-runner gates, single-seat and side-balanced, timed beside the
+   fused gate (``[gates:match]``), and ``cli round-robin`` over the QNet
+   checkpoints and ``cli arena`` twice over the DRQN ones, the second
+   planning 0 pairings (``[tournament]``);
 4. times each kernel (CUDA events, warm) beside its plain version and its
    bound, and a train iteration of each path end to end, and profiles
    where an iteration's and the bench's device time goes
@@ -1001,35 +1010,43 @@ def time_iterations(name, learner, state, opp, n_it=5):
     profile_iterations(name, learner, state, opp, 3)
 
 
-def train_args(workdir):
+def train_args(workdir, generations=1, *extra):
+    """``configs/qnet.yaml`` with the gate sizes cut (``generations``
+    generations of 1 training episode, 2000 eval episodes, thresholds 0);
+    the autosave at the shipped interval."""
     return ["train", "--config", str(ROOT / "configs" / "qnet.yaml"),
             "--workdir", str(workdir),
-            "dqn.selfplay.max_generations=1",
+            f"dqn.selfplay.max_generations={generations}",
             "dqn.selfplay.episodes_per_generation=1",
             "dqn.selfplay.eval_episodes=2000",
             "dqn.selfplay.curr_win_threshold=0.0",
-            "dqn.selfplay.pool_win_threshold=0.0",
-            "dqn.save_latest_checkpoint_interval_steps=0"]
+            "dqn.selfplay.pool_win_threshold=0.0", *extra]
 
 
-def train_rnn_args(workdir):
-    """``configs/rnn.yaml`` with the gate sizes cut (one generation,
-    4000 training episodes so that update blocks run once the buffer gate
-    of 640 admitted episodes opens, 2000 eval episodes, thresholds 0) and
-    the autosave off."""
+def train_rnn_args(workdir, generations=1):
+    """``configs/rnn.yaml`` with the gate sizes cut (``generations``
+    generations of 4000 training episodes, so that update blocks run once
+    the buffer gate of 640 admitted episodes opens, 2000 eval episodes,
+    thresholds 0); the autosave at the shipped interval."""
     return ["train-rnn", "--config", str(ROOT / "configs" / "rnn.yaml"),
             "--workdir", str(workdir),
-            "drqn.selfplay.max_generations=1",
+            f"drqn.selfplay.max_generations={generations}",
             "drqn.selfplay.episodes_per_generation=4000",
             "drqn.selfplay.eval_episodes=2000",
             "drqn.selfplay.curr_win_threshold=0.0",
-            "drqn.selfplay.pool_win_threshold=0.0",
-            "drqn.save_latest_checkpoint_interval_steps=0"]
+            "drqn.selfplay.pool_win_threshold=0.0"]
 
 
-def drive(name, cli, args_fn, kernels, ckpt_sub, promoted_name):
+def metrics_events(path):
+    return [json.loads(x) for x in Path(path).read_text().splitlines() if x]
+
+
+def drive(name, cli, args_fn, kernels, ckpt_sub, promoted_names, log,
+          tier):
     """A path's main run: ``cli`` twice in one workdir, the launch
-    counters set to 0 just before and read just after."""
+    counters set to 0 just before and read just after. Run 1 trains
+    generation 1 and autosaves the full state at the end; run 2 asks for
+    two generations, restores it (``tier``) and trains generation 2."""
     from pingpong_tpu_torch.checkpoint.store import list_checkpoints
     from pingpong_tpu_torch.selfplay.pool import load_pool
 
@@ -1038,22 +1055,196 @@ def drive(name, cli, args_fn, kernels, ckpt_sub, promoted_name):
     for k in kernels:
         k.launches = 0
     t0 = time.time()
-    rc1 = cli.main(args_fn(workdir))
+    rc1 = cli.main(args_fn(workdir, 1))
+    n_run1 = len(metrics_events(workdir / log))
     kind = "qnet_rnn" if name == "drqn" else "qnet"
     pool = load_pool(workdir / ckpt_sub, kind=kind)
-    rc2 = cli.main(args_fn(workdir))
+    rc2 = cli.main(args_fn(workdir, 2))
     torch.cuda.synchronize()
     launches = {k.name: k.launches for k in kernels}
     ckpts = [p.name for p in list_checkpoints(workdir / ckpt_sub)]
+    run2 = metrics_events(workdir / log)[n_run1:]
+    restore = [e for e in run2 if e["event"] in ("restore",
+                                                 "restore_failed")][:1]
     print(f"[main:{name}] cli x2 rc={rc1},{rc2} in {time.time() - t0:.1f} s; "
-          f"pool for run 2: {len(pool)} member(s); checkpoints {ckpts}; "
-          f"launches {launches} | {CARD}", flush=True)
+          f"pool for run 2: {len(pool)} member(s); run 2 first restore event "
+          f"{restore}; checkpoints {ckpts}; launches {launches} | {CARD}",
+          flush=True)
     check(rc1 == 0 and rc2 == 0, f"cli {name} failed")
     check(len(pool) == 1, f"{name}: run 2 did not load run 1's checkpoint")
-    check(promoted_name in ckpts, f"no promoted {promoted_name} checkpoint")
+    check(restore and restore[0]["event"] == "restore"
+          and restore[0]["tier"] == tier,
+          f"{name}: run 2 did not restore the autosave (tier {tier})")
+    for promoted in promoted_names:
+        check(promoted in ckpts, f"no promoted {promoted} checkpoint")
     for k, n in launches.items():
         check(n > 0, f"{k} kernel never launched on the {name} path")
-    return launches, workdir / ckpt_sub / promoted_name
+    return launches, workdir
+
+
+def flat_state(d):
+    """Every leaf a resume must reproduce: the train state, frozen A and
+    the loop's generator (generators as their state bytes)."""
+    from pingpong_tpu_torch.checkpoint.full_state import flatten_tree
+
+    out = {}
+    for k, v in flatten_tree({"state": d.state,
+                              "a": list(d.params_a.parameters()),
+                              "host": d.gen}).items():
+        if isinstance(v, torch.Generator):
+            v = v.get_state()
+        out[k] = v.detach().cpu() if isinstance(v, torch.Tensor) else v
+    return out
+
+
+def check_resume(name, make, blocks=3, episodes=1):
+    """At the shipped config's full width on the card: a straight run of
+    2 x ``blocks`` training blocks against ``blocks`` blocks, the
+    autosave, a new driver of another seed in the same workdir (tier
+    0/1 restore) and ``blocks`` more. Kernels 1-4 are bit-identical run
+    to run, so every leaf must be bit-equal."""
+    from pingpong_tpu_torch.utils.metrics import MetricsLogger
+
+    root = ROOT / "build" / f"chip_smoke_resume_{name}"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.time()
+    straight = make(root / "straight", 0, MetricsLogger(echo=False))
+    straight.current_generation = 1
+    for _ in range(2 * blocks):
+        straight._train_block(episodes)
+    first = make(root / "resumed", 0, MetricsLogger(echo=False))
+    first.current_generation = 1
+    for _ in range(blocks):
+        first._train_block(episodes)
+    first.autosave(wait=True)
+    steps_saved = first.state.train_steps
+    del first
+    log = root / "resume.jsonl"
+    second = make(root / "resumed", 99, MetricsLogger(str(log), echo=False))
+    for _ in range(blocks):
+        second._train_block(episodes)
+    torch.cuda.synchronize()
+    a, b = flat_state(straight), flat_state(second)
+    differ = [k for k in a if not (
+        torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor)
+        else a[k] == b[k])]
+    nbytes = sum(v.numel() * v.element_size() for v in a.values()
+                 if isinstance(v, torch.Tensor))
+    restored = metrics_events(log)[0]
+    print(f"[resume:{name}] straight vs kill-and-resume at "
+          f"{straight.state.train_steps} train steps (autosave at "
+          f"{steps_saved}, restore event {restored}): {len(a)} leaves, "
+          f"{nbytes / 2**20:.1f} MiB, bit-equal {not differ} "
+          f"{differ[:5]} in {time.time() - t0:.1f} s | {CARD}", flush=True)
+    check(restored["event"] == "restore", f"resume {name}: no restore")
+    check(straight.state.train_steps > steps_saved > 0,
+          f"resume {name}: the update blocks did not run on both sides")
+    check(a.keys() == b.keys() and not differ,
+          f"resume {name}: straight and resumed runs differ in {differ[:5]}")
+
+
+def autosave_stalls(dev):
+    """The stall bench at the bench's QNet shape and ``configs/rnn.yaml``."""
+    from pingpong_tpu_torch.bench import dqn_setup
+    from pingpong_tpu_torch.tools import autosave_stall_bench as sb
+
+    out = {}
+    for name, setup, warm in (("qnet", lambda: dqn_setup(0, dev), 0),
+                              ("rnn", lambda: sb.rnn_setup(dev), 200)):
+        workdir = ROOT / "build" / "chip_smoke_autosave"
+        shutil.rmtree(workdir, ignore_errors=True)
+        workdir.mkdir(parents=True)
+        r = sb.measure(*setup(), workdir, sb.ITERS[name], warm_iters=warm)
+        shutil.rmtree(workdir, ignore_errors=True)
+        med = sorted(r["window_plain_s"])[len(r["window_plain_s"]) // 2]
+        print(f"[autosave:{name}] state {r['state_bytes'] / 2**20:.1f} MiB: "
+              f"sync_save_s {r['sync_save_s']:.4f}, async_call_s "
+              f"{r['async_call_s']:.6f}, stall_per_autosave_s "
+              f"{r['stall_per_autosave_s']:.6f} (window of "
+              f"{r['iterations_per_window']} iterations: plain "
+              f"{[round(x, 4) for x in r['window_plain_s']]}, with a save "
+              f"{[round(x, 4) for x in r['window_with_save_s']]}; median "
+              f"plain {med:.4f} s; {r['updates_in_windows']} updates) | "
+              f"{CARD}", flush=True)
+        check(r["updates_in_windows"] > 0, f"autosave {name}: no updates")
+        out[name] = r
+    return out
+
+
+def eval_seconds(log):
+    return [e["eval_s"] for e in metrics_events(log) if e["event"] == "eval"]
+
+
+def gates_match(cli, fused_log, kernels):
+    """``cli train`` with the match-runner gates (``use_pallas_eval=
+    false``), single-seat and side-balanced, each in a fresh workdir; the
+    gate's time beside the fused gate's of the main run (2000 games vs A,
+    the pool empty, in both)."""
+    fused = eval_seconds(fused_log)[0]
+    for tag, extra in (("single", []),
+                       ("balanced", ["dqn.selfplay.swap_sides_eval=true"])):
+        workdir = ROOT / "build" / f"chip_smoke_gates_{tag}"
+        shutil.rmtree(workdir, ignore_errors=True)
+        for k in kernels:
+            k.launches = 0
+        rc = cli.main(train_args(workdir, 1, "dqn.use_pallas_eval=false",
+                                 *extra))
+        torch.cuda.synchronize()
+        ev = metrics_events(workdir / "train_qnet_metrics.jsonl")
+        evals = [e for e in ev if e["event"] == "eval"] or [{}]
+        seats = [e for e in ev if e["event"] == "eval_seats"]
+        print(f"[gates:match] {tag}: cli train rc={rc}, gate "
+              f"{evals[0].get('eval_s')} s (win_vs_A "
+              f"{evals[0].get('win_vs_A')}; seats {seats[:1]}) against the "
+              f"fused gate's {fused:.4f} s of the main run; launches "
+              f"{({k.name: k.launches for k in kernels})} | {CARD}",
+              flush=True)
+        check(rc == 0 and "eval_s" in evals[0]
+              and (seats or tag == "single"), f"gates:match {tag} failed")
+        check(any(e["event"] == "promoted" for e in ev),
+              f"gates:match {tag}: no promotion")
+
+
+def tournaments(cli, qnet_ckpts, rnn_ckpts, episodes=200):
+    """``cli round-robin`` over the QNet checkpoints and the bot, and
+    ``cli arena`` twice over the DRQN checkpoints and the bot (the second
+    run must plan 0 pairings); games/s of each."""
+    import contextlib
+    import io
+
+    out_dir = ROOT / "build" / "chip_smoke_tournament"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["round-robin", "--ckpt-dir", str(qnet_ckpts),
+                       "--out", str(out_dir / "rr"), "--episodes",
+                       str(episodes)])
+    rr_s = time.perf_counter() - t0
+    line = [ln for ln in buf.getvalue().splitlines() if "games in" in ln]
+    print(f"[tournament] round-robin rc={rc} {line} ({rr_s:.2f} s with "
+          f"loading and files) | {CARD}", flush=True)
+    check(rc == 0 and line, "cli round-robin failed")
+    db = out_dir / "arena_db.json"
+    outs = []
+    for _ in range(2):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["arena", "--ckpt-dir", str(rnn_ckpts), "--db",
+                           str(db), "--out", str(out_dir / "arena"),
+                           "--episodes", str(episodes)])
+        outs.append((rc, time.perf_counter() - t0, buf.getvalue()))
+    games = len(json.loads(db.read_text())["match_history"])
+    plans = [[ln for ln in o.splitlines() if "pairings" in ln][:1]
+             for _, _, o in outs]
+    print(f"[tournament] arena x2 rc={[o[0] for o in outs]}: {games} games "
+          f"in {outs[0][1]:.2f} s ({games / outs[0][1]:.0f} games/s with "
+          f"loading and files); plans {plans}; rerun "
+          f"{outs[1][1]:.2f} s | {CARD}", flush=True)
+    check(all(o[0] == 0 for o in outs), "cli arena failed")
+    check(plans[1] and " 0 pairings" in plans[1][0],
+          "the second arena run planned pairings")
 
 
 def rnn_time_rows():
@@ -1284,27 +1475,44 @@ def main(argv=None) -> int:
     check_pong_reproducible(pong_params, pong_st)
 
     # ---- 3. main paths: cli train and cli train-rnn, twice each ------------
-    qnet_launches, promoted_path = drive(
+    qnet_launches, qnet_dir = drive(
         "qnet", cli, train_args, [ar.KERNEL, du.KERNEL], "checkpoints",
-        "model5-1")
-    promoted = load_params_any(promoted_path)
+        ("model5-1", "model5-2"), "train_qnet_metrics.jsonl", 0)
+    promoted = load_params_any(qnet_dir / "checkpoints" / "model5-1")
     acts = qnet_act_greedy(promoted, torch.rand((1024, 7)))
     check(bool(((acts >= 0) & (acts <= 2)).all())
           and all(bool(torch.isfinite(p).all())
                   for p in promoted.parameters()),
           "promoted checkpoint is not a finite QNet")
-    rnn_launches, rnn_path = drive(
+    rnn_launches, rnn_dir = drive(
         "drqn", cli, train_rnn_args, [rr.KERNEL, dru.KERNEL],
-        "checkpoints_rnn", "rnn_pong_soul_1")
-    rnn_promoted = load_params_any(rnn_path)
+        "checkpoints_rnn", ("rnn_pong_soul_1", "rnn_pong_soul_2"),
+        "train_rnn_metrics.jsonl", 1)
+    rnn_promoted = load_params_any(rnn_dir / "checkpoints_rnn" /
+                                   "rnn_pong_soul_2")
     ra, _ = rnn_act_greedy(rnn_promoted, torch.rand((1024, 7)),
                            init_hidden(rnn_promoted, (1024,)))
     check(type(rnn_promoted).__name__ == "QNetRNN"
           and bool(((ra >= 0) & (ra <= 2)).all())
           and all(bool(torch.isfinite(p).all())
                   for p in rnn_promoted.parameters()),
-          "promoted rnn_pong_soul_1 is not a finite QNetRNN")
+          "promoted rnn_pong_soul_2 is not a finite QNetRNN")
     bench_launches = drive_bench(cli, kernels)
+
+    # ---- 3b. resume, autosave stall, match gates, tournaments ------------
+    from pingpong_tpu_torch.selfplay.loop import QNetSelfPlay
+    from pingpong_tpu_torch.selfplay.loop_rnn import DRQNSelfPlay
+
+    check_resume("qnet", lambda w, seed, log: QNetSelfPlay(
+        cfg.env, cfg.dqn, workdir=str(w), seed=seed, logger=log,
+        device="cuda"))
+    check_resume("drqn", lambda w, seed, log: DRQNSelfPlay(
+        rcfg.env, rcfg.drqn, workdir=str(w), seed=seed, logger=log,
+        device="cuda"))
+    autosave_stalls(dev)
+    gates_match(cli, qnet_dir / "train_qnet_metrics.jsonl",
+                [ar.KERNEL, du.KERNEL])
+    tournaments(cli, qnet_dir / "checkpoints", rnn_dir / "checkpoints_rnn")
 
     # ---- 4. timings -------------------------------------------------------
     learner = DQNLearner(cfg.env, cfg.dqn, device="cuda")

@@ -11,21 +11,36 @@ port of ``pingpong_tpu/selfplay/loop.py``.
   the initial weights with a fresh buffer, optimizer and epsilon, and count
   the generation done anyway;
 * the pool is loaded once at start-up from every checkpoint in the
-  checkpoint directory, fault checkpoints included.
-
-Not ported yet (ROADMAP.md): the full-train-state autosave and its
-tier-0 resume, checkpoint retention, and the match-runner gates
-(``use_pallas_eval=false``). Configurations that ask for them raise.
+  checkpoint directory, fault checkpoints included;
+* full-train-state autosave (PER buffer, env states, optimizer, counters,
+  frozen A, the loop's generator and the frozen-A noise draw) every
+  ``save_latest_checkpoint_interval_steps`` train steps
+  (``checkpoint/full_state.py``), restored as tier 0 at start-up: an
+  interrupted generation continues with the same label and a bit-equal
+  state;
+* checkpoint retention after every save (``keep_checkpoints``,
+  ``keep_fault_checkpoints``);
+* gates through the fused kernels (``use_pallas_eval``) or the batched
+  match runner (``evaluation/match.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from pathlib import Path
 from typing import List, Optional
 
 import torch
 
+from pingpong_tpu_torch.checkpoint.full_state import (
+    AsyncAutosaver,
+    autosave_full_state,
+    full_state_tree,
+    is_train_state_checkpoint,
+    restore_full_state,
+)
+from pingpong_tpu_torch.checkpoint.retention import apply_retention
 from pingpong_tpu_torch.checkpoint.serialize import (
     opt_state_to_leaves,
     qnet_to_dict,
@@ -36,12 +51,20 @@ from pingpong_tpu_torch.evaluation.fast_eval import (
     fused_win_rate,
     fused_win_rate_balanced,
 )
+from pingpong_tpu_torch.evaluation.match import (
+    QNET,
+    PolicySpec,
+    eval_win_rate_balanced,
+    make_match_fn,
+)
 from pingpong_tpu_torch.models.qnet import (
     QNet,
     qnet_copy,
     qnet_fold_noise,
+    qnet_from_flat,
     qnet_init,
     qnet_sample_noise,
+    qnet_to_flat,
 )
 from pingpong_tpu_torch.selfplay.pool import load_params_any, load_pool
 from pingpong_tpu_torch.train.dqn import DQNLearner, stack_opponents
@@ -63,29 +86,12 @@ class GenerationRecord:
     checkpoint: str
 
 
-def check_supported(cfg: DQNConfig) -> None:
-    """Raise for options of the JAX trainer this port does not run yet."""
-    if cfg.save_latest_checkpoint_interval_steps > 0:
-        raise ValueError(
-            "full-state autosave is not ported to PyTorch yet; run with "
-            "dqn.save_latest_checkpoint_interval_steps=0")
-    if cfg.keep_checkpoints > 0 or cfg.keep_fault_checkpoints > 0:
-        raise ValueError(
-            "checkpoint retention is not ported to PyTorch yet; run with "
-            "dqn.keep_checkpoints=0 dqn.keep_fault_checkpoints=0")
-    if not cfg.use_pallas_eval:
-        raise ValueError(
-            "the match-runner gates are not ported to PyTorch yet; run "
-            "with dqn.use_pallas_eval=true")
-
-
 class QNetSelfPlay:
     """The generation loop of one run; ``run()`` executes it."""
 
     def __init__(self, env_cfg: EnvConfig, cfg: DQNConfig,
                  workdir: str = ".", seed: int = 0,
                  logger: Optional[MetricsLogger] = None, device="cuda"):
-        check_supported(cfg)
         self.env_cfg = env_cfg
         self.cfg = cfg
         self.workdir = Path(workdir)
@@ -116,36 +122,125 @@ class QNetSelfPlay:
         self.pool: List[QNet] = load_pool(self.ckpt_dir, kind="qnet",
                                           limit=cfg.pool_max)
         self.env_params = self.learner.env_params
+        self.match_fn = make_match_fn(self.env_params, PolicySpec(QNET, None),
+                                      PolicySpec(QNET, None),
+                                      device=self.device)
+        self._autosaver = AsyncAutosaver()
         self.win_a_window = WinRateWindow(cfg.selfplay.win_rate_interval)
         self.win_pool_window = WinRateWindow(cfg.selfplay.win_rate_interval)
         self.records: List[GenerationRecord] = []
         self.reward_history: List[float] = []
+
+        # ---- tier-0 restore: the full-state autosave, buffer included
         self.done_generations = 0
         self.current_generation = 0
+        self._since_autosave = 0
+        self._resumed_mid_generation = False
+        latest = self.ckpt_dir / cfg.latest_checkpoint_filename
+        if is_train_state_checkpoint(latest):
+            try:
+                self._restore_full_state(latest)
+                self.logger.log({"event": "restore", "tier": 0,
+                                 "path": str(latest)})
+            except Exception as e:
+                self.logger.log({"event": "restore_failed", "tier": 0,
+                                 "error": str(e)})
 
     def _seed(self) -> int:
         return int(torch.randint(0, 2**62, (1,), generator=self.gen))
 
-    def _refresh_a_play(self) -> None:
+    # -- full-state autosave / restore --------------------------------------
+    def autosave(self, wait: bool = False) -> str:
+        """Full-state autosave. With ``cfg.async_autosave`` (the default)
+        the call takes a device snapshot and a worker thread writes it;
+        ``wait=True`` blocks until the file is on disk."""
+        target = self.ckpt_dir / self.cfg.latest_checkpoint_filename
+        meta = {"generation": self.current_generation,
+                "done_generations": self.done_generations,
+                "model_kind": "qnet"}
+        flat_a = qnet_to_flat(self.params_a)
+        if self.cfg.async_autosave:
+            path = self._autosaver.save(target, full_state_tree(
+                self.state, flat_a, self.gen, self._a_fold_noise), meta)
+            if wait:
+                self._autosaver.wait()
+        else:
+            path = autosave_full_state(target, self.state, flat_a, self.gen,
+                                       meta, self._a_fold_noise)
+        self.logger.log({"event": "autosave",
+                         "train_steps": self.state.train_steps})
+        return str(path)
+
+    def flush_autosave(self) -> None:
+        """Join any in-flight async autosave write."""
+        self._autosaver.wait()
+
+    def _restore_full_state(self, path) -> None:
+        like = self.learner.template
+        noise = (qnet_sample_noise(torch.Generator(), like)
+                 if self.cfg.selfplay.frozen_a_stale_noise else None)
+        state, flat_a, gen, noise, meta = restore_full_state(
+            path, self.learner.init_state(0, like), qnet_to_flat(like),
+            self.gen, noise, device=self.device)
+        self.state = state
+        self.params_a = qnet_from_flat(flat_a, like)
+        self.gen = gen
+        self.current_generation = int(meta.get("generation", 0))
+        self.done_generations = int(meta.get("done_generations", 0))
+        self._refresh_a_play(noise)
+        # continue the interrupted generation with the restored B (run()
+        # must not start a fresh one)
+        self._resumed_mid_generation = (
+            self.current_generation > self.done_generations)
+
+    # -- helpers -----------------------------------------------------------
+    def _refresh_a_play(self, noise=None) -> None:
         """The A that actually plays: with ``frozen_a_stale_noise``, one
         noise draw per A lifetime folded into its heads (the reference
-        leaves A in train mode); else mu-greedy A."""
+        leaves A in train mode); else mu-greedy A. The draw is kept (and
+        saved with the autosave) so a resumed run folds the same noise and
+        an interrupted generation continues against a bit-identical A."""
         if self.cfg.selfplay.frozen_a_stale_noise:
-            self.params_a_play = qnet_fold_noise(
-                self.params_a, qnet_sample_noise(self.gen, self.params_a))
+            if noise is None:
+                noise = qnet_sample_noise(self.gen, self.params_a)
+            self._a_fold_noise = noise
+            self.params_a_play = qnet_fold_noise(self.params_a, noise)
         else:
+            self._a_fold_noise = None
             self.params_a_play = self.params_a
 
     def _eval_vs(self, opponents: List[QNet], n_games: int) -> float:
-        """B (the current learner) vs a set of opponents, the quota split
-        evenly over them."""
+        """B (the current learner) vs a set of opponents: through the fused
+        kernel, the quota split evenly over them, or (``use_pallas_eval=
+        false``) through the match runner, each game against a uniformly
+        drawn member."""
         if not opponents:
             return 1.0
+        cfg = self.cfg
+        params_b = self.learner.params_b(self.state)
+        if cfg.use_pallas_eval:
+            return self._fused_eval_vs(opponents, params_b, n_games)
+        n_opp = len(opponents)
+        idx_opp = torch.randint(0, n_opp, (n_games,), generator=self.gen,
+                                dtype=torch.int32)
+        idx_b = torch.zeros((n_games,), dtype=torch.int32)
+        if cfg.selfplay.swap_sides_eval:
+            total, as_b, as_a = eval_win_rate_balanced(
+                self.match_fn, list(opponents), [params_b], idx_opp, idx_b,
+                self.gen, n_games)
+            self.logger.log({"event": "eval_seats", "win_as_b": as_b,
+                             "win_as_a": as_a})
+            return total
+        result = self.match_fn(list(opponents), [params_b], idx_opp, idx_b,
+                               generator=self.gen)
+        return float(result.win_b.to(torch.float32).mean())
+
+    def _fused_eval_vs(self, opponents: List[QNet], params_b: QNet,
+                       n_games: int) -> float:
         cfg = self.cfg
         kw = dict(n_envs=min(cfg.num_envs, 8192),
                   tile_rows=min(cfg.pallas_tile_rows, cfg.num_envs, 8192),
                   device=self.device)
-        params_b = self.learner.params_b(self.state)
         if cfg.selfplay.swap_sides_eval:
             per = max(2, n_games // len(opponents))
             wins = w_b = w_a = 0.0
@@ -185,12 +280,24 @@ class QNetSelfPlay:
             "train_steps": int(st.train_steps),
             "model_kind": "qnet",
         }
-        return str(save_checkpoint(self.ckpt_dir / name, payload))
+        path = save_checkpoint(self.ckpt_dir / name, payload)
+        cfg = self.cfg
+        if cfg.keep_checkpoints > 0 or cfg.keep_fault_checkpoints > 0:
+            deleted = apply_retention(
+                self.ckpt_dir, keep_promoted=cfg.keep_checkpoints,
+                keep_faults=cfg.keep_fault_checkpoints,
+                protect=[Path(cfg.init_model_path).name]
+                if cfg.init_model_path else None)
+            if deleted:
+                self.logger.log({"event": "retention", "deleted": deleted})
+        return str(path)
 
     def _train_block(self, episodes_target: int) -> None:
         """Train iterations until ``episodes_target`` more episodes
-        complete."""
+        complete, autosaving every ``save_latest_checkpoint_interval_steps``
+        train steps."""
         sp = self.cfg.selfplay
+        interval = self.cfg.save_latest_checkpoint_interval_steps
         goal = self.state.episodes + episodes_target
         watch = Stopwatch()
         stack, pool_size = stack_opponents(self.params_a_play, self.pool,
@@ -199,9 +306,14 @@ class QNetSelfPlay:
         env_steps = 0
         last_log_eps = self.state.episodes
         while self.state.episodes < goal:
+            steps_before = self.state.train_steps
             self.state, m = self.learner.train_iteration(self.state, opp,
                                                          pool_size)
             env_steps += m.env_steps
+            self._since_autosave += self.state.train_steps - steps_before
+            if interval > 0 and self._since_autosave >= interval:
+                self._since_autosave = 0
+                self.autosave()
             self.win_a_window.add(m.games_vs_a, m.wins_vs_a)
             self.win_pool_window.add(m.games_vs_pool, m.wins_vs_pool)
             if m.episodes > 0:
@@ -225,7 +337,12 @@ class QNetSelfPlay:
     def run(self) -> List[GenerationRecord]:
         sp = self.cfg.selfplay
         while self.done_generations < sp.max_generations:
-            self.current_generation += 1
+            if self._resumed_mid_generation:
+                # continue the restored generation's label; B's state
+                # (buffer, optimizer, epsilon) came from the autosave
+                self._resumed_mid_generation = False
+            else:
+                self.current_generation += 1
             gen = self.current_generation
             tries = 0
             while True:
@@ -233,11 +350,13 @@ class QNetSelfPlay:
                 self.logger.log({"event": "try", "generation": gen,
                                  "try": tries})
                 self._train_block(sp.episodes_per_generation)
+                t0 = time.perf_counter()
                 w_a = self._eval_vs([self.params_a_play], sp.eval_episodes)
                 w_pool = self._eval_vs(self.pool, sp.eval_episodes)
                 self.logger.log({"event": "eval", "generation": gen,
                                  "win_vs_A": w_a, "win_vs_pool": w_pool,
-                                 "epsilon": self.state.epsilon})
+                                 "epsilon": self.state.epsilon,
+                                 "eval_s": time.perf_counter() - t0})
                 if (w_a >= sp.curr_win_threshold
                         and w_pool >= sp.pool_win_threshold):
                     self.params_a = self.learner.params_b(self.state)
@@ -263,4 +382,8 @@ class QNetSelfPlay:
                         self.state, self.init_params)
                     self.done_generations += 1
                     break
+        if self.cfg.save_latest_checkpoint_interval_steps > 0:
+            self.autosave(wait=True)   # the final full state, on disk
+        else:
+            self.flush_autosave()      # join any in-flight periodic save
         return self.records

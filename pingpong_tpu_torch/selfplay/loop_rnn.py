@@ -10,22 +10,39 @@ port of ``pingpong_tpu/selfplay/loop_rnn.py``.
   checkpoint is written, B is reset from A (ring kept), and the
   generation counts as done;
 * the pool is loaded from disk at start-up, fault checkpoints excluded;
-* restore: ``init_model_path_rnn`` warm-starts the weights (tier 2, key
-  chain params_a -> params_b -> params), else random init (tier 3).
+* three-tier restore: (1) the full-state autosave
+  ``latest_rnn_training_state`` resumes the whole train state (the
+  sequence ring, env and hidden states, optimizer, counters), frozen A,
+  the loop's generator and the generation counters; (2) else
+  ``init_model_path_rnn`` warm-starts the weights (key chain params_a ->
+  params_b -> params); (3) else random init;
+* the full state autosaves every ``save_latest_checkpoint_interval_steps``
+  train steps (``checkpoint/full_state.py``); retention runs after every
+  save;
+* gates through the fused recurrent kernel (``use_pallas_eval``) or the
+  batched match runner (``evaluation/match.py``).
 
-Not ported yet (ROADMAP.md): the full-state autosave and its tier-1
-resume, checkpoint retention, the match-runner gates and every DRQN option
-the fused kernels do not run. Configurations that ask for them raise,
-naming the setting.
+Not ported yet (ROADMAP.md): every DRQN option the fused rollout and
+update kernels do not run. Configurations that ask for one raise, naming
+the setting.
 """
 
 from __future__ import annotations
 
+import time
 from pathlib import Path
 from typing import List, Optional
 
 import torch
 
+from pingpong_tpu_torch.checkpoint.full_state import (
+    AsyncAutosaver,
+    autosave_full_state,
+    full_state_tree,
+    is_train_state_checkpoint,
+    restore_full_state,
+)
+from pingpong_tpu_torch.checkpoint.retention import apply_retention
 from pingpong_tpu_torch.checkpoint.serialize import (
     params_from_dict,
     qnet_rnn_to_dict,
@@ -40,7 +57,18 @@ from pingpong_tpu_torch.evaluation.fast_eval import (
     rnn_win_rate,
     rnn_win_rate_balanced,
 )
-from pingpong_tpu_torch.models.qnet_rnn import QNetRNN, qnet_rnn_copy
+from pingpong_tpu_torch.evaluation.match import (
+    RNN,
+    PolicySpec,
+    eval_win_rate_balanced,
+    make_match_fn,
+)
+from pingpong_tpu_torch.models.qnet_rnn import (
+    QNetRNN,
+    qnet_rnn_copy,
+    qnet_rnn_from_flat,
+    qnet_rnn_to_flat,
+)
 from pingpong_tpu_torch.ops.recurrent_rollout import MAX_WIDTH
 from pingpong_tpu_torch.selfplay.loop import GenerationRecord
 from pingpong_tpu_torch.selfplay.pool import load_pool
@@ -56,12 +84,6 @@ def check_supported_rnn(cfg: DRQNConfig) -> None:
     """Raise, naming the setting, for options of the JAX DRQN trainer that
     this port does not run yet."""
     refused = [
-        (cfg.save_latest_checkpoint_interval_steps > 0,
-         "full-state autosave is not ported to PyTorch yet; run with "
-         "drqn.save_latest_checkpoint_interval_steps=0"),
-        (cfg.keep_checkpoints > 0 or cfg.keep_fault_checkpoints > 0,
-         "checkpoint retention is not ported to PyTorch yet; run with "
-         "drqn.keep_checkpoints=0 drqn.keep_fault_checkpoints=0"),
         (cfg.lstm_layers != 1,
          "the recurrent kernels take one LSTM layer; run with "
          "drqn.lstm_layers=1"),
@@ -76,11 +98,10 @@ def check_supported_rnn(cfg: DRQNConfig) -> None:
         (cfg.burn_in_length > 0,
          "burn-in is not ported to PyTorch yet; run with "
          "drqn.burn_in_length=0"),
-        (not (cfg.use_pallas_rollout and cfg.use_pallas_update
-              and cfg.use_pallas_eval),
-         "the PyTorch port runs only the fused recurrent kernels: "
-         "drqn.use_pallas_rollout, drqn.use_pallas_update and "
-         "drqn.use_pallas_eval must be true"),
+        (not (cfg.use_pallas_rollout and cfg.use_pallas_update),
+         "the PyTorch port trains only through the fused recurrent "
+         "kernels: drqn.use_pallas_rollout and drqn.use_pallas_update "
+         "must be true"),
         (cfg.opponent_binding != "bucketed",
          "only bucketed opponent binding is ported; run with "
          "drqn.opponent_binding=bucketed"),
@@ -112,18 +133,35 @@ class DRQNSelfPlay:
         self.device = self.learner.device
         self.env_params = self.learner.env_params
         self.gen = torch.Generator().manual_seed(int(seed))
+        self.match_fn = make_match_fn(self.env_params, PolicySpec(RNN, None),
+                                      PolicySpec(RNN, None),
+                                      device=self.device)
         self.win_a_window = WinRateWindow(cfg.selfplay.win_rate_interval)
         self.win_pool_window = WinRateWindow(cfg.selfplay.win_rate_interval)
         self.records: List[GenerationRecord] = []
         self.reward_history: List[float] = []
-        self.done_generations = 0
-        self.current_generation = 0
 
         # runtime pool from disk, faults excluded
         self.pool: List[QNetRNN] = load_pool(
             self.ckpt_dir, kind="qnet_rnn", skip_fault=True,
             limit=cfg.pool_max)
+        self._autosaver = AsyncAutosaver()
 
+        # ---- three-tier restore
+        self.done_generations = 0
+        self.current_generation = 0
+        self._since_autosave = 0
+        self._resumed_mid_generation = False
+        latest = self.ckpt_dir / cfg.latest_checkpoint_filename
+        if is_train_state_checkpoint(latest):
+            try:
+                self._restore_full_state(latest)
+                self.logger.log({"event": "restore", "tier": 1,
+                                 "path": str(latest)})
+                return
+            except Exception as e:
+                self.logger.log({"event": "restore_failed", "tier": 1,
+                                 "error": str(e)})
         params = None
         if cfg.init_model_path_rnn:
             init_path = self.workdir / cfg.init_model_path_rnn
@@ -146,18 +184,66 @@ class DRQNSelfPlay:
     def _seed(self) -> int:
         return int(torch.randint(0, 2**62, (1,), generator=self.gen))
 
+    # -- full-state autosave / restore ---------------------------------------
+    def autosave(self, wait: bool = False) -> str:
+        """Full-state autosave: the whole train state (the sequence ring,
+        env and hidden states, optimizer, counters), frozen A and the
+        loop's generator. With ``cfg.async_autosave`` (the default) a
+        worker thread writes a snapshot; ``wait=True`` blocks until the
+        file is on disk."""
+        target = self.ckpt_dir / self.cfg.latest_checkpoint_filename
+        meta = {"generation": self.current_generation,
+                "done_generations": self.done_generations,
+                "model_kind": "qnet_rnn"}
+        flat_a = qnet_rnn_to_flat(self.params_a)
+        if self.cfg.async_autosave:
+            path = self._autosaver.save(
+                target, full_state_tree(self.state, flat_a, self.gen), meta)
+            if wait:
+                self._autosaver.wait()
+        else:
+            path = autosave_full_state(target, self.state, flat_a, self.gen,
+                                       meta)
+        self.logger.log({"event": "autosave",
+                         "train_steps": self.state.train_steps})
+        return str(path)
+
+    def flush_autosave(self) -> None:
+        """Join any in-flight async autosave write."""
+        self._autosaver.wait()
+
+    def _restore_full_state(self, path) -> None:
+        like = self.learner.template
+        state, flat_a, gen, _, meta = restore_full_state(
+            path, self.learner.init_state(0, like), qnet_rnn_to_flat(like),
+            self.gen, device=self.device)
+        self.state = state
+        self.params_a = qnet_rnn_from_flat(flat_a, like)
+        self.init_params = self.params_a
+        self.gen = gen
+        self.current_generation = int(meta.get("generation", 0))
+        self.done_generations = int(meta.get("done_generations", 0))
+        # an autosave taken mid-generation: run() continues that
+        # generation with the restored B instead of starting the next one
+        # (whose new_generation would overwrite B)
+        self._resumed_mid_generation = (
+            self.current_generation > self.done_generations)
+
     # -- eval ---------------------------------------------------------------
     def _eval_vs(self, opponents: List[QNetRNN], n_games: int) -> float:
-        """B vs opponents through the fused recurrent gates, the quota
-        split evenly over them; an empty pool counts as win rate 1."""
+        """B vs opponents, the quota split evenly over them; an empty pool
+        counts as win rate 1. Through the fused recurrent gates, or
+        (``use_pallas_eval=false``) the match runner."""
         if not opponents:
             return 1.0
         cfg = self.cfg
+        params_b = self.learner.params_b(self.state)
+        if not cfg.use_pallas_eval:
+            return self._match_eval_vs(opponents, params_b, n_games)
         kw = dict(n_envs=min(cfg.num_envs, 4096),
                   tile_rows=min(cfg.pallas_tile_rows, cfg.num_envs, 4096),
                   max_episode_steps=cfg.max_episode_steps,
                   device=self.device)
-        params_b = self.learner.params_b(self.state)
         per = max(2, n_games // len(opponents))
         wins = w_b = w_a = 0.0
         total = 0
@@ -179,6 +265,28 @@ class DRQNSelfPlay:
                              "win_as_a": w_a / max(total, 1)})
         return wins / max(total, 1)
 
+    def _match_eval_vs(self, opponents: List[QNetRNN], params_b: QNetRNN,
+                       n_games: int) -> float:
+        """The match-runner gate: ``n_games // len(opponents)`` games per
+        member (member-major; interleaved for the side-balanced split, so
+        each seating still covers every member evenly)."""
+        n_opp = len(opponents)
+        per = max(1, n_games // n_opp)
+        total = per * n_opp
+        members = torch.arange(n_opp, dtype=torch.int32)
+        idx_b = torch.zeros((total,), dtype=torch.int32)
+        if self.cfg.selfplay.swap_sides_eval:
+            rate, as_b, as_a = eval_win_rate_balanced(
+                self.match_fn, list(opponents), [params_b],
+                members.repeat(per), idx_b, self.gen, total)
+            self.logger.log({"event": "eval_seats", "win_as_b": as_b,
+                             "win_as_a": as_a})
+            return rate
+        result = self.match_fn(list(opponents), [params_b],
+                               members.repeat_interleave(per), idx_b,
+                               generator=self.gen)
+        return float(result.win_b.to(torch.float32).mean())
+
     def _save(self, name: str, generation: int) -> str:
         st = self.state
         payload = {
@@ -190,18 +298,32 @@ class DRQNSelfPlay:
             "train_steps": int(st.train_steps),
             "model_kind": "qnet_rnn",
         }
-        return str(save_checkpoint(self.ckpt_dir / name, payload))
+        path = save_checkpoint(self.ckpt_dir / name, payload)
+        cfg = self.cfg
+        if cfg.keep_checkpoints > 0 or cfg.keep_fault_checkpoints > 0:
+            deleted = apply_retention(
+                self.ckpt_dir, keep_promoted=cfg.keep_checkpoints,
+                keep_faults=cfg.keep_fault_checkpoints,
+                protect=[Path(cfg.init_model_path_rnn).name]
+                if cfg.init_model_path_rnn else None)
+            if deleted:
+                self.logger.log({"event": "retention", "deleted": deleted})
+        return str(path)
 
     # -- training block ------------------------------------------------------
     def _train_block(self, episodes_target: int) -> None:
         sp = self.cfg.selfplay
+        interval = self.cfg.save_latest_checkpoint_interval_steps
         goal = self.state.episodes + episodes_target
         watch = Stopwatch()
+        # packed once a block from the current A and pool (kernel 3's
+        # flat copy of the stack included)
         stack, pool_size = stack_rnn_opponents(self.params_a, self.pool)
         opp = self.learner.prepare_opponents(stack)
         env_steps = 0
         last_log_eps = self.state.episodes
         while self.state.episodes < goal:
+            steps_before = self.state.train_steps
             self.state, m = self.learner.train_iteration(self.state, opp,
                                                          pool_size)
             env_steps += m.env_steps
@@ -209,6 +331,10 @@ class DRQNSelfPlay:
             self.win_pool_window.add(m.games_vs_pool, m.wins_vs_pool)
             if m.episodes > 0:
                 self.reward_history.append(m.episode_return_sum / m.episodes)
+            self._since_autosave += self.state.train_steps - steps_before
+            if interval > 0 and self._since_autosave >= interval:
+                self._since_autosave = 0
+                self.autosave()
             eps_now = self.state.episodes
             if eps_now - last_log_eps >= sp.win_rate_interval:
                 dt = watch.lap()
@@ -229,21 +355,28 @@ class DRQNSelfPlay:
     def run(self) -> List[GenerationRecord]:
         sp = self.cfg.selfplay
         while self.done_generations < sp.max_generations:
-            self.current_generation += 1
+            if self._resumed_mid_generation:
+                # a tier-1 restore landed mid-generation: keep its label
+                # and the restored B, optimizer and epsilon
+                self._resumed_mid_generation = False
+            else:
+                self.current_generation += 1
+                if self.current_generation > 1:
+                    self.state = self.learner.new_generation(self.state,
+                                                             self.params_a)
             gen = self.current_generation
-            if gen > 1:
-                self.state = self.learner.new_generation(self.state,
-                                                         self.params_a)
             tries = 0
             while True:
                 tries += 1
                 self.logger.log({"event": "try", "generation": gen,
                                  "try": tries})
                 self._train_block(sp.episodes_per_generation)
+                t0 = time.perf_counter()
                 w_a = self._eval_vs([self.params_a], sp.eval_episodes)
                 w_pool = self._eval_vs(self.pool, sp.eval_episodes)
                 self.logger.log({"event": "eval", "generation": gen,
-                                 "win_vs_A": w_a, "win_vs_pool": w_pool})
+                                 "win_vs_A": w_a, "win_vs_pool": w_pool,
+                                 "eval_s": time.perf_counter() - t0})
                 if (w_a >= sp.curr_win_threshold
                         and w_pool >= sp.pool_win_threshold):
                     self.params_a = self.learner.params_b(self.state).cpu()
@@ -270,4 +403,8 @@ class DRQNSelfPlay:
                                                             self.params_a)
                     self.done_generations += 1
                     break
+        if self.cfg.save_latest_checkpoint_interval_steps > 0:
+            self.autosave(wait=True)   # the final full state, on disk
+        else:
+            self.flush_autosave()      # join any in-flight periodic save
         return self.records

@@ -1,10 +1,8 @@
 """PyTorch port: the self-play generation loop's promotion, fault and
-warm-start flows at tiny CPU shapes (the flows of tests/test_selfplay.py),
-and the options it refuses by name until they are ported."""
+warm-start flows at tiny CPU shapes (the flows of tests/test_selfplay.py)."""
 
 import dataclasses
 
-import pytest
 import torch
 
 from pingpong_tpu.checkpoint.store import load_checkpoint as jload_checkpoint
@@ -86,15 +84,3 @@ def test_warm_start_from_checkpoint(tmp_path):
     assert d2.state.epsilon < 1.0
     assert torch.equal(d2.state.params, d1.state.params)
     assert len(d2.pool) == 1
-
-
-@pytest.mark.parametrize("override,name", [
-    (dict(save_latest_checkpoint_interval_steps=100),
-     "dqn.save_latest_checkpoint_interval_steps=0"),
-    (dict(keep_checkpoints=3), "dqn.keep_checkpoints=0"),
-    (dict(use_pallas_eval=False), "dqn.use_pallas_eval=true"),
-])
-def test_unported_options_are_refused_by_name(tmp_path, override, name):
-    env, dq = tiny()
-    with pytest.raises(ValueError, match=name.replace(".", r"\.")):
-        make_selfplay(tmp_path, env, dataclasses.replace(dq, **override))
