@@ -53,6 +53,7 @@ call, to compare the two on one card.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import re
@@ -1097,12 +1098,16 @@ def flat_state(d):
     return out
 
 
-def check_resume(name, make, blocks=3, episodes=1):
+def check_resume(name, make, block_updates, blocks=3, episodes=1):
     """At the shipped config's full width on the card: a straight run of
-    2 x ``blocks`` training blocks against ``blocks`` blocks, the
-    autosave, a new driver of another seed in the same workdir (tier
-    0/1 restore) and ``blocks`` more. Kernels 1-4 are bit-identical run
-    to run, so every leaf must be bit-equal."""
+    2 x ``blocks`` training blocks against ``blocks`` blocks that autosave
+    every update block (async, inside ``_train_block``), one more block
+    with the autosave off, trained while the last write may still be in
+    flight, then a new driver of another seed in the same workdir (tier
+    0/1 restore) and ``blocks`` more. The restore must equal a host copy
+    of the state taken at the last ``save()``, and the two runs must end
+    equal. Kernels 1-4 are bit-identical run to run, so both comparisons
+    are bit for bit."""
     from pingpong_tpu_torch.utils.metrics import MetricsLogger
 
     root = ROOT / "build" / f"chip_smoke_resume_{name}"
@@ -1112,15 +1117,37 @@ def check_resume(name, make, blocks=3, episodes=1):
     straight.current_generation = 1
     for _ in range(2 * blocks):
         straight._train_block(episodes)
-    first = make(root / "resumed", 0, MetricsLogger(echo=False))
+    first_log = root / "first.jsonl"
+    first = make(root / "resumed", 0,
+                 MetricsLogger(str(first_log), echo=False), block_updates)
     first.current_generation = 1
+    at_save = {}
+    periodic_save = first.autosave
+
+    def autosave(wait=False):
+        check(not wait, f"resume {name}: a periodic autosave waited")
+        at_save.clear()
+        at_save.update(flat_state(first))   # what save() must snapshot
+        return periodic_save(wait)
+
+    first.autosave = autosave
     for _ in range(blocks):
         first._train_block(episodes)
-    first.autosave(wait=True)
     steps_saved = first.state.train_steps
+    saves = [e["train_steps"] for e in metrics_events(first_log)
+             if e["event"] == "autosave"]
+    first.cfg = dataclasses.replace(
+        first.cfg, save_latest_checkpoint_interval_steps=0)
+    first._train_block(episodes)       # rewrites the replay in place
+    steps_after = first.state.train_steps
+    first.flush_autosave()
     del first
     log = root / "resume.jsonl"
     second = make(root / "resumed", 99, MetricsLogger(str(log), echo=False))
+    restored = flat_state(second)
+    differ_saved = [k for k in at_save if not (
+        torch.equal(at_save[k], restored[k])
+        if isinstance(at_save[k], torch.Tensor) else at_save[k] == restored[k])]
     for _ in range(blocks):
         second._train_block(episodes)
     torch.cuda.synchronize()
@@ -1130,13 +1157,25 @@ def check_resume(name, make, blocks=3, episodes=1):
         else a[k] == b[k])]
     nbytes = sum(v.numel() * v.element_size() for v in a.values()
                  if isinstance(v, torch.Tensor))
-    restored = metrics_events(log)[0]
-    print(f"[resume:{name}] straight vs kill-and-resume at "
-          f"{straight.state.train_steps} train steps (autosave at "
-          f"{steps_saved}, restore event {restored}): {len(a)} leaves, "
-          f"{nbytes / 2**20:.1f} MiB, bit-equal {not differ} "
-          f"{differ[:5]} in {time.time() - t0:.1f} s | {CARD}", flush=True)
-    check(restored["event"] == "restore", f"resume {name}: no restore")
+    event = metrics_events(log)[0]
+    print(f"[resume:{name}] periodic async autosaves every {block_updates} "
+          f"train steps inside the blocks at {saves}, the last one written "
+          f"while training went on to {steps_after}: restore bit-equal to "
+          f"the state at its save() {not differ_saved} {differ_saved[:5]}; "
+          f"straight vs kill-and-resume at {straight.state.train_steps} "
+          f"train steps (restore event {event}): {len(a)} leaves, "
+          f"{nbytes / 2**20:.1f} MiB, bit-equal {not differ} {differ[:5]} "
+          f"in {time.time() - t0:.1f} s | {CARD}", flush=True)
+    check(event["event"] == "restore", f"resume {name}: no restore")
+    check(len(saves) >= 2 and saves[-1] == steps_saved and all(
+        y - x == block_updates for x, y in zip(saves, saves[1:])),
+        f"resume {name}: autosaves at {saves}, not every {block_updates} "
+        f"train steps up to {steps_saved}")
+    check(steps_after > steps_saved,
+          f"resume {name}: no training after the last autosave")
+    check(at_save.keys() == restored.keys() and not differ_saved,
+          f"resume {name}: the restore differs from the state at save() in "
+          f"{differ_saved[:5]}")
     check(straight.state.train_steps > steps_saved > 0,
           f"resume {name}: the update blocks did not run on both sides")
     check(a.keys() == b.keys() and not differ,
@@ -1144,7 +1183,8 @@ def check_resume(name, make, blocks=3, episodes=1):
 
 
 def autosave_stalls(dev):
-    """The stall bench at the bench's QNet shape and ``configs/rnn.yaml``."""
+    """The stall bench at the bench's QNet shape and ``configs/rnn.yaml``,
+    with the spread of the per-trial stalls beside their median."""
     from pingpong_tpu_torch.bench import dqn_setup
     from pingpong_tpu_torch.tools import autosave_stall_bench as sb
 
@@ -1156,16 +1196,19 @@ def autosave_stalls(dev):
         workdir.mkdir(parents=True)
         r = sb.measure(*setup(), workdir, sb.ITERS[name], warm_iters=warm)
         shutil.rmtree(workdir, ignore_errors=True)
-        med = sorted(r["window_plain_s"])[len(r["window_plain_s"]) // 2]
+        plain, paired = r["window_plain_s"], sorted(r["stall_paired_s"])
         print(f"[autosave:{name}] state {r['state_bytes'] / 2**20:.1f} MiB: "
               f"sync_save_s {r['sync_save_s']:.4f}, async_call_s "
               f"{r['async_call_s']:.6f}, stall_per_autosave_s "
-              f"{r['stall_per_autosave_s']:.6f} (window of "
-              f"{r['iterations_per_window']} iterations: plain "
-              f"{[round(x, 4) for x in r['window_plain_s']]}, with a save "
+              f"{r['stall_per_autosave_s']:.6f} ({len(plain)} trials; paired "
+              f"stalls min {paired[0]:.4f} quartiles "
+              f"{paired[len(paired) // 4]:.4f}-"
+              f"{paired[3 * len(paired) // 4]:.4f} max {paired[-1]:.4f} s; "
+              f"window of {r['iterations_per_window']} iterations: plain "
+              f"{[round(x, 4) for x in plain]}, with a save "
               f"{[round(x, 4) for x in r['window_with_save_s']]}; median "
-              f"plain {med:.4f} s; {r['updates_in_windows']} updates) | "
-              f"{CARD}", flush=True)
+              f"plain {sorted(plain)[len(plain) // 2]:.4f} s; "
+              f"{r['updates_in_windows']} updates) | {CARD}", flush=True)
         check(r["updates_in_windows"] > 0, f"autosave {name}: no updates")
         out[name] = r
     return out
@@ -1503,12 +1546,18 @@ def main(argv=None) -> int:
     from pingpong_tpu_torch.selfplay.loop import QNetSelfPlay
     from pingpong_tpu_torch.selfplay.loop_rnn import DRQNSelfPlay
 
-    check_resume("qnet", lambda w, seed, log: QNetSelfPlay(
-        cfg.env, cfg.dqn, workdir=str(w), seed=seed, logger=log,
-        device="cuda"))
-    check_resume("drqn", lambda w, seed, log: DRQNSelfPlay(
-        rcfg.env, rcfg.drqn, workdir=str(w), seed=seed, logger=log,
-        device="cuda"))
+    def maker(cls, env, c):
+        """A driver at ``c``, the autosave interval replaceable."""
+        return lambda w, seed, log, interval=(
+            c.save_latest_checkpoint_interval_steps): cls(
+                env, dataclasses.replace(
+                    c, save_latest_checkpoint_interval_steps=interval),
+                workdir=str(w), seed=seed, logger=log, device="cuda")
+
+    check_resume("qnet", maker(QNetSelfPlay, cfg.env, cfg.dqn),
+                 cfg.dqn.updates_per_iteration)
+    check_resume("drqn", maker(DRQNSelfPlay, rcfg.env, rcfg.drqn),
+                 rcfg.drqn.updates_per_iteration)
     autosave_stalls(dev)
     gates_match(cli, qnet_dir / "train_qnet_metrics.jsonl",
                 [ar.KERNEL, du.KERNEL])

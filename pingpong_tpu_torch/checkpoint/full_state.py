@@ -194,12 +194,14 @@ class AsyncAutosaver:
     loop's stream, which would queue behind its kernels), and runs the
     atomic ``torch.save`` write, which releases the GIL while it writes.
     The pinned buffers are kept and reused by the next save of the same
-    shapes.
+    shapes until ``close()`` (the loops' ``flush_autosave()`` at the end of
+    ``run()``): it stops the worker and hands the buffers back to the host allocator's
+    cache, where the next saver finds them.
 
     At most one write is in flight: a new ``save()`` first joins the
     previous one. A hard kill loses at most the in-flight save; the
     previous checkpoint stays valid through the tmp/old swap. Worker errors
-    surface on the next ``save()``/``wait()``."""
+    surface on the next ``save()``/``wait()``/``close()``."""
 
     def __init__(self):
         self._queue: Optional[queue.Queue] = None
@@ -217,9 +219,12 @@ class AsyncAutosaver:
 
         def loop():
             while True:
-                path, snapshot, event, metadata = self._queue.get()
+                job = self._queue.get()
+                if job is None:
+                    return
+                path, snapshot, event, metadata = job
                 try:
-                    _write(path, self.host_copy(snapshot, event), metadata)
+                    _write(path, self._host_copy(snapshot, event), metadata)
                 except BaseException as e:  # surfaced by wait()/save()
                     self._error = e
                 finally:
@@ -232,7 +237,7 @@ class AsyncAutosaver:
                                         daemon=True)
         self._thread.start()
 
-    def host_copy(self, snapshot: Dict[str, Any], event) -> Dict[str, Any]:
+    def _host_copy(self, snapshot: Dict[str, Any], event) -> Dict[str, Any]:
         """The worker's step: device clones -> pinned host copies on the
         saver's stream, waited for."""
         on_card = {k: v for k, v in snapshot.items()
@@ -264,6 +269,19 @@ class AsyncAutosaver:
         if self._error is not None:
             err, self._error = self._error, None
             raise err
+
+    def close(self) -> None:
+        """Join the in-flight write, stop the worker and drop the pinned
+        buffers; a later ``save()`` starts a new worker."""
+        try:
+            self.wait()
+        finally:
+            if self._thread is not None:
+                self._queue.put(None)
+                self._thread.join()
+                self._thread = self._queue = None
+            self._pinned.clear()
+            self._stream = None
 
     def save(self, path, tree: Any, metadata: dict) -> str:
         self.wait()   # at most one write in flight; surfaces prior errors

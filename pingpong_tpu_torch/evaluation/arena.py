@@ -105,11 +105,10 @@ def _entries_from_db(database: Dict) -> Dict[str, ModelEntry]:
 
 def run_tournament(runner: MatchRunner, database: Dict, db_path: Path,
                    match_plan: List[Dict], generator: torch.Generator,
-                   swap_sides: bool = False, batched: bool = True,
-                   save_every: int = 0) -> None:
-    """``batched=True`` plays every remaining pairing in one batched match
-    per family pair (results bit-identical to the per-pair path) and saves
-    the DB once per batch. ``save_every=N`` splits the plan into slices of
+                   swap_sides: bool = False, save_every: int = 0) -> None:
+    """Plays every remaining pairing in one batched match per family pair
+    (results bit-identical to ``MatchRunner.play`` per pair) and saves the
+    DB once per batch. ``save_every=N`` splits the plan into slices of
     at most N games, each its own batched match followed by a save, so a
     crash loses at most N games; ``save_every=1`` saves after every game,
     the reference arena's granularity."""
@@ -126,8 +125,7 @@ def run_tournament(runner: MatchRunner, database: Dict, db_path: Path,
             if m == 0:
                 continue
             if save_every > 0:
-                # no slice element exceeds the save budget (on the
-                # sequential path each split job is played and saved alone)
+                # no slice element exceeds the save budget
                 while m > save_every:
                     jobs.append((top, bottom, save_every))
                     job_pair.append((a.id, b.id, n))
@@ -149,30 +147,23 @@ def run_tournament(runner: MatchRunner, database: Dict, db_path: Path,
                 if r["winner"] != "draw":
                     w[r["winner"]] += 1
 
-    if batched and jobs:
-        if save_every > 0:
-            i = 0
-            while i < len(jobs):
-                j, budget = i, save_every
-                while j < len(jobs) and jobs[j][2] <= budget:
-                    budget -= jobs[j][2]
-                    j += 1
-                j = max(j, i + 1)
-                slice_gen = torch.Generator().manual_seed(
-                    job_seeds(generator, 1)[0])
-                record(runner.play_pairs_batched(jobs[i:j], slice_gen),
-                       job_pair[i:j])
-                save_database(db_path, database)   # resume point per slice
-                i = j
-        else:
-            record(runner.play_pairs_batched(jobs, generator), job_pair)
-            save_database(db_path, database)       # resume point per batch
-    else:
-        for (top, bottom, m), pair in zip(jobs, job_pair):
-            seed = job_seeds(generator, 1)[0]
-            record([(top, bottom, runner.play(top, bottom, m, seed))],
-                   [pair])
-            save_database(db_path, database)       # resume point per pair
+    if jobs and save_every > 0:
+        i = 0
+        while i < len(jobs):
+            j, budget = i, save_every
+            while j < len(jobs) and jobs[j][2] <= budget:
+                budget -= jobs[j][2]
+                j += 1
+            j = max(j, i + 1)
+            slice_gen = torch.Generator().manual_seed(
+                job_seeds(generator, 1)[0])
+            record(runner.play_pairs_batched(jobs[i:j], slice_gen),
+                   job_pair[i:j])
+            save_database(db_path, database)       # resume point per slice
+            i = j
+    elif jobs:
+        record(runner.play_pairs_batched(jobs, generator), job_pair)
+        save_database(db_path, database)           # resume point per batch
     for (aid, bid, n) in dict.fromkeys(job_pair):
         w = wins[(aid, bid)]
         print(f"[arena] {aid} vs {bid}: +{n} games ({w[aid]}-{w[bid]})"

@@ -29,7 +29,6 @@ from pingpong_tpu_torch.env.pong import env_params_from_config
 from pingpong_tpu_torch.evaluation.registry import (
     MatchRunner,
     discover_models,
-    job_seeds,
 )
 
 RECORD_FIELDS = ["p1", "p2", "p1_score", "p2_score", "winner", "timestamp"]
@@ -118,10 +117,10 @@ def run_round_robin(cfg, ckpt_dir, out_dir, episodes_per_match: int = 100,
                     include_bot: bool = True, seed: int = 0,
                     entries: Optional[List] = None,
                     bot_tolerance: float = 0.01, swap_sides: bool = False,
-                    batched: bool = True, device="cuda") -> int:
-    """``swap_sides``: half the games of a pair in each seating.
-    ``batched``: all pairings in a few batched matches (bit-identical to
-    the per-pair path)."""
+                    device="cuda") -> int:
+    """``swap_sides``: half the games of a pair in each seating. All
+    pairings play in a few batched matches (bit-identical to
+    ``MatchRunner.play`` per pair)."""
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     runner = MatchRunner(env_params_from_config(cfg.env),
@@ -145,12 +144,7 @@ def run_round_robin(cfg, ckpt_dir, out_dir, episodes_per_match: int = 100,
             jobs += [(a, b, half), (b, a, episodes_per_match - half)]
         else:
             jobs.append((a, b, episodes_per_match))
-    if batched:
-        played = runner.play_pairs_batched(jobs, gen)
-    else:
-        seeds = job_seeds(gen, len(jobs))
-        played = [(top, bottom, runner.play(top, bottom, n, s))
-                  for (top, bottom, n), s in zip(jobs, seeds)]
+    played = runner.play_pairs_batched(jobs, gen)
 
     records = []
     per_pair = {}

@@ -172,8 +172,10 @@ class QNetSelfPlay:
         return str(path)
 
     def flush_autosave(self) -> None:
-        """Join any in-flight async autosave write."""
-        self._autosaver.wait()
+        """Join any in-flight async autosave write, then stop the saver's
+        worker and free its pinned buffers (the next autosave starts them
+        anew)."""
+        self._autosaver.close()
 
     def _restore_full_state(self, path) -> None:
         like = self.learner.template
@@ -383,7 +385,6 @@ class QNetSelfPlay:
                     self.done_generations += 1
                     break
         if self.cfg.save_latest_checkpoint_interval_steps > 0:
-            self.autosave(wait=True)   # the final full state, on disk
-        else:
-            self.flush_autosave()      # join any in-flight periodic save
+            self.autosave()            # the final full state
+        self.flush_autosave()
         return self.records

@@ -16,12 +16,10 @@ Three numbers:
 3. ``stall_per_autosave_s``: the median over trials of the extra wall
    time of a window of train iterations that fires one async save on its
    second iteration, against the same window without; the write is joined
-   after the window's clock stops, as in the JAX tool.
-
-``--stages`` also splits the stall by how far the save goes
-(``stall_by_stage_s``): ``snapshot`` (the save-time clones alone),
-``host`` (and the worker's copy to pinned host buffers) and ``write``
-(the whole save).
+   after the window's clock stops, as in the JAX tool. Beside it,
+   ``stall_paired_s``: each trial's window with a save less the plain
+   window run just before it, whose spread says how far the median is
+   resolved from the windows' noise.
 
 Every window ends in a device synchronize. The card's name and power limit
 go to stderr and into the JSON line that ends stdout. ``--device cpu``
@@ -36,7 +34,6 @@ import shutil
 import statistics
 import sys
 import tempfile
-import threading
 import time
 from pathlib import Path
 
@@ -47,7 +44,6 @@ from pingpong_tpu_torch.checkpoint.full_state import (
     AsyncAutosaver,
     autosave_full_state,
     full_state_tree,
-    take_snapshot,
 )
 from pingpong_tpu_torch.models.qnet import qnet_to_flat
 from pingpong_tpu_torch.models.qnet_rnn import qnet_rnn_to_flat
@@ -78,14 +74,9 @@ def state_bytes(tree) -> int:
                if isinstance(v, torch.Tensor))
 
 
-STAGES = ("snapshot", "host", "write")
-
-
 def measure(learner, state, opp, pool_size, workdir: Path,
-            n_iters: int, trials: int = 6, warm_iters: int = 0,
-            stages: bool = False) -> dict:
-    """The three numbers for this learner and state (and, with
-    ``stages``, the stall of each stage of a save). ``warm_iters``:
+            n_iters: int, trials: int = 12, warm_iters: int = 0) -> dict:
+    """The three numbers for this learner and state. ``warm_iters``:
     iterations run first, until an update block has run."""
     dev = learner.device
     net = learner.params_b(state)
@@ -119,53 +110,33 @@ def measure(learner, state, opp, pool_size, workdir: Path,
         saver.wait()
 
     updates = 0
-    pending = []
 
-    def fire(stage):
-        if stage == "write":
-            saver.save(workdir / "bg_state", tree(), meta)
-            return
-        snap, event = take_snapshot(tree())
-        if stage == "host":
-            th = threading.Thread(target=saver.host_copy, args=(snap, event))
-            th.start()
-            pending.append(th)
-        pending.append(snap)
-
-    def window(stage=None) -> float:
+    def window(save: bool) -> float:
         nonlocal state, updates
         _sync(dev)
         t0 = time.perf_counter()
         for i in range(n_iters):
             state, m = learner.train_iteration(state, opp, pool_size)
             updates += m.updates_run
-            if stage and i == 1:
-                fire(stage)
+            if save and i == 1:
+                saver.save(workdir / "bg_state", tree(), meta)
         _sync(dev)
         dt = time.perf_counter() - t0
         saver.wait()
-        for x in pending:
-            if isinstance(x, threading.Thread):
-                x.join()
-        pending.clear()
         return dt
 
-    def stall(stage):
-        plain, saved = [], []
-        for _ in range(trials):
-            plain.append(window())
-            saved.append(window(stage))
-        return plain, saved, statistics.median(saved) - statistics.median(
-            plain)
-
-    window()
-    plain, saved, stall_s = stall("write")
-    by_stage = ({st: stall(st)[2] for st in STAGES} if stages else None)
+    window(False)
+    plain, saved = [], []
+    for _ in range(trials):
+        plain.append(window(False))
+        saved.append(window(True))
+    saver.close()
     return {
         "sync_save_s": sync_save_s,
         "async_call_s": statistics.median(calls),
-        "stall_per_autosave_s": stall_s,
-        "stall_by_stage_s": by_stage,
+        "stall_per_autosave_s": (statistics.median(saved)
+                                 - statistics.median(plain)),
+        "stall_paired_s": [b - a for a, b in zip(plain, saved)],
         "window_plain_s": plain,
         "window_with_save_s": saved,
         "iterations_per_window": n_iters,
@@ -180,9 +151,7 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--iters", type=int, default=None,
                     help="train iterations a window (qnet 60, rnn 30)")
-    ap.add_argument("--trials", type=int, default=6)
-    ap.add_argument("--stages", action="store_true",
-                    help="also split the stall by stage of the save")
+    ap.add_argument("--trials", type=int, default=12)
     a = ap.parse_args(argv)
     dev = resolve_device(a.device)
     card = card_name(dev)
@@ -194,7 +163,7 @@ def main(argv=None) -> int:
     workdir = Path(tempfile.mkdtemp(prefix="autosave_stall_"))
     try:
         out = measure(*setup, workdir, a.iters or ITERS[a.config], a.trials,
-                      warm_iters=warm, stages=a.stages)
+                      warm_iters=warm)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     out = {"metric": "autosave_stall", "config": shape, "card": card, **out}

@@ -13,6 +13,7 @@ at tiny shapes."""
 import dataclasses
 import json
 import shutil
+import threading
 
 import pytest
 import torch
@@ -24,6 +25,7 @@ from pingpong_tpu.checkpoint.retention import apply_retention as jretention
 from pingpong_tpu.checkpoint.store import list_checkpoints as jlist
 from pingpong_tpu.selfplay.pool import load_pool as jload_pool
 from pingpong_tpu_torch import cli
+from pingpong_tpu_torch.checkpoint import full_state
 from pingpong_tpu_torch.checkpoint.full_state import (
     flatten_tree,
     is_train_state_checkpoint,
@@ -153,6 +155,53 @@ def test_async_snapshot_survives_in_place_training(tmp_path, kind):
     assert any(not torch.equal(at_save[k], after[k]) for k in at_save
                if isinstance(at_save[k], torch.Tensor))
     assert_same(at_save, whole(driver(kind, tmp_path, seed=5)))
+
+
+@pytest.mark.parametrize("kind", sorted(DRIVERS))
+def test_periodic_autosave_keeps_its_cadence_and_resumes(tmp_path, kind,
+                                                        monkeypatch):
+    """A small interval: the autosave fires inside ``_train_block`` every
+    ``interval`` train steps without waiting, and the newest one, written
+    only after training went on, restores bit-equal to the state at its
+    ``save()``."""
+    interval = 4                      # two iterations of 2 updates
+    log = tmp_path / "log.jsonl"
+    d1 = driver(kind, tmp_path, log=MetricsLogger(str(log), echo=False),
+                save_latest_checkpoint_interval_steps=interval)
+    d1.current_generation = 1
+    at_save = []
+    periodic_save = d1.autosave
+    may_write = threading.Semaphore(0)
+    write = full_state._write
+
+    def late_write(*args):            # each write waits for more training
+        assert may_write.acquire(timeout=60)
+        return write(*args)
+
+    monkeypatch.setattr(full_state, "_write", late_write)
+
+    def autosave(wait=False):
+        assert not wait
+        if at_save:
+            may_write.release()       # the previous save's write goes on
+        at_save.append(whole(d1))
+        return periodic_save(wait)
+
+    d1.autosave = autosave
+    for _ in range(6):
+        d1._train_block(8)
+    steps = [e["train_steps"] for e in events(log) if e["event"] == "autosave"]
+    assert len(at_save) == len(steps) and steps == list(
+        range(interval, d1.state.train_steps + 1, interval))
+    assert len(steps) >= 3
+    d1.cfg = dataclasses.replace(d1.cfg,
+                                 save_latest_checkpoint_interval_steps=0)
+    d1._train_block(8)                # trains on over the last write
+    may_write.release()
+    d1.flush_autosave()
+    assert d1._autosaver._thread is None and not d1._autosaver._pinned
+    assert d1.state.train_steps > steps[-1]
+    assert_same(at_save[-1], whole(driver(kind, tmp_path, seed=5)))
 
 
 @pytest.mark.parametrize("kind", sorted(DRIVERS))
@@ -328,7 +377,8 @@ def test_stall_bench_measures_on_the_cpu(tmp_path, kind):
         setup = sb.rnn_setup("cpu", path)
     out = sb.measure(*setup, tmp_path, n_iters=3, trials=1, warm_iters=20)
     assert out["sync_save_s"] > 0 and out["async_call_s"] > 0
-    assert len(out["window_plain_s"]) == len(out["window_with_save_s"]) == 1
+    assert (len(out["window_plain_s"]) == len(out["window_with_save_s"])
+            == len(out["stall_paired_s"]) == 1)
     assert out["updates_in_windows"] > 0
     assert out["state_bytes"] > sum(
         v.numel() * 4 for v in flatten_tree(setup[1]).values()
