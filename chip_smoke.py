@@ -26,7 +26,14 @@
    match-runner gates, single-seat and side-balanced, timed beside the
    fused gate (``[gates:match]``), and ``cli round-robin`` over the QNet
    checkpoints and ``cli arena`` twice over the DRQN ones, the second
-   planning 0 pairings (``[tournament]``);
+   planning 0 pairings (``[tournament]``); then the viewer's path, which
+   runs no kernel: the port's env on the card against the C++ engine
+   built with ``g++`` (``[view:engine]``), ``record_episode`` on the card
+   against the CPU for bot vs bot, ``model5-1`` vs bot and
+   ``rnn_pong_soul_1`` vs ``model5-1`` (``[view:record]``), ``cli view``
+   to GIFs and a headless live episode on the host (``[view:cli]``, or
+   a line saying PIL is missing), and ``model5-1`` through ``cli
+   import-torch`` as a reference ``.pth`` (``[import]``);
 4. times each kernel (CUDA events, warm) beside its plain version and its
    bound, and a train iteration of each path end to end, and profiles
    where an iteration's and the bench's device time goes
@@ -62,6 +69,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -1290,6 +1298,242 @@ def tournaments(cli, qnet_ckpts, rnn_ckpts, episodes=200):
           "the second arena run planned pairings")
 
 
+# ---------------------------------------------------------------------------
+# the viewer, the C++ engine and the checkpoint importer
+# ---------------------------------------------------------------------------
+
+def engine_states(n, seed):
+    """``n`` random mid-rally states on the host, as
+    ``tests/test_native_engine.py`` draws them."""
+    from pingpong_tpu_torch.native.engine import SoAState
+
+    rng = np.random.default_rng(seed)
+    s = SoAState.zeros(n)
+    s.ball_x[:] = rng.uniform(0.05, 0.95, n)
+    s.ball_y[:] = rng.uniform(0.05, 0.95, n)
+    ang = (rng.uniform(np.deg2rad(20), np.deg2rad(70), n)
+           * rng.choice([-1, 1], n))
+    speed = rng.uniform(0.01, 0.05, n)
+    s.ball_vx[:] = speed * np.cos(ang)
+    s.ball_vy[:] = speed * np.sin(ang)
+    s.spin[:] = rng.uniform(-10, 10, n)
+    s.top_x[:] = rng.uniform(0.2, 0.8, n)
+    s.bottom_x[:] = rng.uniform(0.2, 0.8, n)
+    return s
+
+
+def view_engine(env_cfg, n=4096, steps=200):
+    """``[view:engine]``: the port's C++ engine, built here with ``g++``
+    (a failed build fails the smoke), steps ``n`` random states ``steps``
+    times on the host, and the port's ``env.pong.step`` steps the same
+    states with the same random actions on the card. An env agrees while
+    ball_x and ball_vy are within 2e-5, spin within 2e-3 and the scores
+    and the reward are equal; more than 97 % must agree at the end."""
+    from pingpong_tpu_torch.env.pong import (
+        EnvState,
+        env_params_from_config,
+        step,
+    )
+    from pingpong_tpu_torch.native.engine import NativeEngine, build_engine
+
+    t0 = time.perf_counter()
+    build_engine(force=True)
+    build_s = time.perf_counter() - t0
+    native = NativeEngine(env_cfg)
+    params = env_params_from_config(env_cfg)
+    s = engine_states(n, 1)
+    dev = lambda a: torch.from_numpy(np.copy(a)).to(DEV)
+    state = EnvState(
+        ball_x=dev(s.ball_x), ball_y=dev(s.ball_y), ball_vx=dev(s.ball_vx),
+        ball_vy=dev(s.ball_vy), spin=dev(s.spin), top_paddle_x=dev(s.top_x),
+        bottom_paddle_x=dev(s.bottom_x), score_a=dev(s.score_a),
+        score_b=dev(s.score_b), bounce_count=dev(s.bounce), t=dev(s.t),
+        done=torch.zeros((n,), dtype=torch.bool, device=DEV))
+    rng = np.random.default_rng(2)
+    agree = np.ones(n, bool)
+    host_s = 0.0
+    for _ in range(steps):
+        aa, ab = rng.integers(0, 3, (2, n)).astype(np.int32)
+        t0 = time.perf_counter()
+        rb, _ = native.step(s, aa, ab)
+        host_s += time.perf_counter() - t0
+        state, out = step(params, state, dev(aa), dev(ab))
+        x, vy, spin, rb_c = torch.stack([
+            state.ball_x, state.ball_vy, state.spin,
+            out.reward_b]).cpu().numpy()
+        sa, sb = torch.stack([state.score_a, state.score_b]).cpu().numpy()
+        agree &= ((np.abs(s.ball_x - x) <= 2e-5)
+                  & (np.abs(s.ball_vy - vy) <= 2e-5)
+                  & (np.abs(s.spin - spin) <= 2e-3) & (s.score_a == sa)
+                  & (s.score_b == sb) & (rb == rb_c))
+    rate = n * steps / host_s
+    print(f"[view:engine] g++ build {build_s:.2f} s; {n} envs x {steps} steps "
+          f"(configs/qnet.yaml env): agreement {agree.mean():.4f}, fork rate "
+          f"{1 - agree.mean():.4f}; engine {rate:.4g} env-steps/s on the "
+          f"host ({host_s:.3f} s in pong_step_batch) | {CARD}", flush=True)
+    check(agree.mean() > 0.97,
+          f"the port's env on the card forks from the C++ engine on "
+          f"{1 - agree.mean():.2%} of envs")
+
+
+def first_fork(a, b):
+    """The first step at which two recordings differ in a discrete field
+    (actions, scores, done), or None."""
+    n = min(a.length, b.length)
+    diff = np.zeros(n, bool)
+    for f in ("action_a", "action_b", "score_a", "score_b", "done"):
+        diff |= getattr(a, f)[:n] != getattr(b, f)[:n]
+    return int(diff.argmax()) if diff.any() else None
+
+
+def view_record(entries, max_steps=5000, seed=0):
+    """``[view:record]``: ``record_episode`` on the card and on the CPU
+    from the same seed, at most ``max_steps`` steps (the JAX default),
+    for each seating. Bot vs bot must be bit-equal; with nets, the
+    discrete fields must be equal and the floats within 1e-5 up to the
+    first fork (an argmax tie that cuBLAS and the CPU break apart), and
+    the lengths equal when nothing forks."""
+    from pingpong_tpu_torch.viewer.record import _FLOATS, record_episode
+
+    for name, a, b in entries:
+        record_episode(ENV_PARAMS, a, b, torch.Generator().manual_seed(seed),
+                       max_steps=32, device=DEV)       # warm the card
+
+        def timed(dev):
+            t0 = time.perf_counter()
+            traj = record_episode(ENV_PARAMS, a, b,
+                                  torch.Generator().manual_seed(seed),
+                                  max_steps=max_steps, device=dev)
+            return traj, time.perf_counter() - t0
+
+        (card, card_s), (cpu, cpu_s) = timed(DEV), timed("cpu")
+        fork = first_fork(card, cpu)
+        upto = min(card.length, cpu.length) if fork is None else fork
+        err = max(float(np.abs(getattr(card, f)[:upto]
+                               - getattr(cpu, f)[:upto]).max(initial=0.0))
+                  for f in _FLOATS)
+        print(f"[view:record] {name}: {card.length} steps on the card, "
+              f"{cpu.length} on the CPU (A {int(card.score_a[-1])} : "
+              f"{int(card.score_b[-1])} B); first fork "
+              f"{'none' if fork is None else f'at step {fork}'}; float max "
+              f"abs err {err:.3g} before it; {card_s:.3f} s an episode on "
+              f"the card ({card.length / card_s:.0f} steps/s), {cpu_s:.3f} s "
+              f"on the CPU ({cpu.length / cpu_s:.0f} steps/s) | {CARD}",
+              flush=True)
+        if name == "bot_vs_bot":
+            for f in dataclasses.fields(card):
+                check(np.array_equal(getattr(card, f.name),
+                                     getattr(cpu, f.name)),
+                      f"view:record bot vs bot: {f.name} differs between "
+                      f"the card and the CPU")
+        check(err <= 1e-5, f"view:record {name}: floats differ by {err} "
+                           f"before the first fork")
+        check(fork is not None or card.length == cpu.length,
+              f"view:record {name}: lengths differ without a fork")
+
+
+def view_cli(qnet_ckpt, rnn_ckpt, env_cfg):
+    """``[view:cli]``: ``cli view`` on the card, QNet (A) vs DRQN (B), two
+    episodes to GIFs whose frame counts must equal the logged lengths;
+    then ``run_live`` headless for one episode of the same pair through
+    the host policies, which must leave the card untouched. Both need
+    PIL; without it the phase says so on a line of its own."""
+    import subprocess
+
+    try:
+        from PIL import Image
+    except ImportError:
+        print("[view:cli] not run: PIL is not installed", flush=True)
+        return
+    from pingpong_tpu_torch.selfplay.pool import load_params_any
+    from pingpong_tpu_torch.viewer.live import run_live
+
+    out_dir = ROOT / "build" / "chip_smoke_view"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cmd = [sys.executable, "-m", "pingpong_tpu_torch.cli", "view",
+           "--device", DEV.type, "--config",
+           str(ROOT / "configs" / "qnet.yaml"), "--model-a", str(qnet_ckpt),
+           "--model-b", str(rnn_ckpt), "--episodes", "2", "--out",
+           str(out_dir / "view.gif")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=900)
+    wall = time.perf_counter() - t0
+    lengths = [int(m) for m in re.findall(r"\[view\] episode \d+: (\d+) steps",
+                                          proc.stdout)]
+    frames = [Image.open(out_dir / f"view_{i}.gif").n_frames
+              if (out_dir / f"view_{i}.gif").exists() else None
+              for i in (1, 2)]
+    print(f"[view:cli] cli view rc={proc.returncode} in {wall:.2f} s (wall, "
+          f"a new process): episodes {lengths} steps, GIF frames {frames} | "
+          f"{CARD}", flush=True)
+    check(proc.returncode == 0, f"cli view failed: {proc.stderr[-2000:]}")
+    check(len(lengths) == 2 and frames == lengths,
+          "cli view: the GIFs' frame counts are not the logged lengths")
+
+    pa, pb = load_params_any(qnet_ckpt), load_params_any(rnn_ckpt)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    n = 0
+    for frame in run_live(env_cfg, pa, pb, episodes=1, seed=0,
+                          size=env_cfg.render_size):
+        n += 1
+        check(frame.shape == (env_cfg.render_size, env_cfg.render_size, 3),
+              "run_live: bad frame")
+    live_s = time.perf_counter() - t0
+    print(f"[view:cli] run_live (C++ engine, host numpy policies, "
+          f"{env_cfg.render_size} px): {n} frames in {live_s:.3f} s, "
+          f"{n / live_s:.1f} frames/s; card memory "
+          f"{torch.cuda.memory_allocated() - before} bytes more | {CARD}",
+          flush=True)
+    check(n > 0, "run_live yielded no frame")
+    check(torch.cuda.memory_allocated() == before,
+          "run_live put a tensor on the card")
+
+
+def reference_state_dict(p):
+    """A QNet's tensors under the reference's dueling NoisyNet key names
+    (torch layout: weights ``(out, in)``)."""
+    sd = {}
+    for ref, layer in (("features.0", p.feat1), ("features.2", p.feat2)):
+        sd[f"{ref}.weight"] = layer.w.detach().T.contiguous()
+        sd[f"{ref}.bias"] = layer.b.detach().clone()
+    for ref, layer in (("fc_V", p.fc_v), ("fc_A", p.fc_a)):
+        sd[f"{ref}.weight_mu"] = layer.w_mu.detach().T.contiguous()
+        sd[f"{ref}.weight_sigma"] = layer.w_sigma.detach().T.contiguous()
+        sd[f"{ref}.bias_mu"] = layer.b_mu.detach().clone()
+        sd[f"{ref}.bias_sigma"] = layer.b_sigma.detach().clone()
+    return sd
+
+
+def import_check(cli, qnet_ckpt, n=4096):
+    """``[import]``: ``model5-1`` written as a reference ``.pth``
+    (``modelB_state``), converted by ``cli import-torch``, loaded on the
+    card: its Q-values on ``n`` observations must equal the original's."""
+    from pingpong_tpu_torch.models.qnet import qnet_apply
+    from pingpong_tpu_torch.selfplay.pool import load_params_any
+
+    out_dir = ROOT / "build" / "chip_smoke_import"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    orig = load_params_any(qnet_ckpt, device=DEV)
+    torch.save({"modelB_state": reference_state_dict(
+        load_params_any(qnet_ckpt)), "episode": 1}, out_dir / "model5-1.pth")
+    rc = cli.main(["import-torch", str(out_dir / "model5-1.pth"),
+                   str(out_dir / "model5-1")])
+    imported = load_params_any(out_dir / "model5-1", device=DEV)
+    g = torch.Generator().manual_seed(5)
+    obs = (torch.rand((n, 7), generator=g) * 2.0 - 1.0).to(DEV)
+    q0, q1 = qnet_apply(orig, obs), qnet_apply(imported, obs)
+    err = float((q0 - q1).abs().max())
+    print(f"[import] cli import-torch rc={rc}; Q of the imported model5-1 "
+          f"on {n} observations on the card: max abs err {err} | {CARD}",
+          flush=True)
+    check(rc == 0 and torch.equal(q0, q1),
+          "the imported checkpoint's Q-values differ from the original's")
+
+
 def rnn_time_rows():
     """Kernel 3's timed shapes: ``configs/rnn.yaml``'s train chunk (2
     slots), its 256-step gate chunk (1 slot, no transitions), the DRQN
@@ -1562,6 +1806,26 @@ def main(argv=None) -> int:
     gates_match(cli, qnet_dir / "train_qnet_metrics.jsonl",
                 [ar.KERNEL, du.KERNEL])
     tournaments(cli, qnet_dir / "checkpoints", rnn_dir / "checkpoints_rnn")
+
+    # ---- 3c. viewer, C++ engine, checkpoint import (no kernel) ----------
+    from pingpong_tpu_torch.evaluation.match import BOT, QNET, RNN
+    from pingpong_tpu_torch.evaluation.registry import BOT_ID, ModelEntry
+
+    qnet_ckpt = qnet_dir / "checkpoints" / "model5-1"
+    rnn_ckpt = rnn_dir / "checkpoints_rnn" / "rnn_pong_soul_1"
+    for k in kernels:
+        k.launches = 0
+    view_engine(cfg.env)
+    bot = ModelEntry(BOT_ID, BOT, None)
+    q1 = ModelEntry("model5-1", QNET, str(qnet_ckpt))
+    r1 = ModelEntry("rnn_pong_soul_1", RNN, str(rnn_ckpt))
+    view_record([("bot_vs_bot", bot, bot), ("model5-1_vs_bot", q1, bot),
+                 ("rnn_pong_soul_1_vs_model5-1", r1, q1)])
+    view_cli(qnet_ckpt, rnn_ckpt, cfg.env)
+    import_check(cli, qnet_ckpt)
+    print(f"[view] kernel launches over the view phases "
+          f"{ {k.name: k.launches for k in kernels} } (the viewer's path "
+          f"runs no kernel) | {CARD}", flush=True)
 
     # ---- 4. timings -------------------------------------------------------
     learner = DQNLearner(cfg.env, cfg.dqn, device="cuda")

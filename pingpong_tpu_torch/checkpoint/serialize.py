@@ -26,6 +26,14 @@ _LAYERS = (("feat1", _DENSE), ("feat2", _DENSE), ("fc_v", _NOISY),
            ("fc_a", _NOISY))
 
 
+def _tensor(x, device) -> torch.Tensor:
+    """A row-major float32 copy of ``x`` on ``device``. An ``.npz`` keeps
+    an array's memory order, and the importers write transposed (Fortran
+    order) weights: a strided parameter would make cuBLAS sum a forward
+    in another order than the same weights in row-major order."""
+    return torch.tensor(np.ascontiguousarray(x, np.float32)).to(device)
+
+
 def _get(node, key):
     return node[key] if isinstance(node, dict) else getattr(node, key)
 
@@ -44,15 +52,11 @@ def qnet_from_numpy(d, device="cpu") -> QNet:
     """A QNet from the JAX layout as numpy arrays: a nested dict (as
     :func:`qnet_to_numpy` or a checkpoint gives) or a ``QNetParams``
     whose leaves are numpy arrays."""
-
-    def t(x):
-        return torch.tensor(np.asarray(x, np.float32)).to(device)
-
     layers = {}
     for name, fields in _LAYERS:
         sub = _get(d, name)
         cls = Dense if fields == _DENSE else NoisyLinear
-        layers[name] = cls(*(t(_get(sub, f)) for f in fields))
+        layers[name] = cls(*(_tensor(_get(sub, f), device) for f in fields))
     return QNet(**layers)
 
 
@@ -91,12 +95,8 @@ def qnet_rnn_from_numpy(d, device="cpu") -> QNetRNN:
     """A QNetRNN from the JAX layout as numpy arrays: a nested dict (as
     :func:`qnet_rnn_to_numpy` or a checkpoint gives) or a
     ``QNetRNNParams`` whose leaves are numpy arrays."""
-
-    def t(x):
-        return torch.tensor(np.asarray(x, np.float32)).to(device)
-
     def layer(cls, sub, fields):
-        return cls(*(t(_get(sub, f)) for f in fields))
+        return cls(*(_tensor(_get(sub, f), device) for f in fields))
 
     shared = _get(d, "shared")
     return QNetRNN(

@@ -5,9 +5,13 @@
     python -m pingpong_tpu_torch.cli round-robin  --ckpt-dir checkpoints --out results_round_robin
     python -m pingpong_tpu_torch.cli arena        --ckpt-dir checkpoints_rnn --db arena_database.json
     python -m pingpong_tpu_torch.cli bench
+    python -m pingpong_tpu_torch.cli view         --model-b checkpoints/model5-1
+    python -m pingpong_tpu_torch.cli import-torch model.pth checkpoints/model
 
 Runs on the CUDA card by default; ``--device cpu`` runs the kernels' plain
-PyTorch versions instead (tests, tiny shapes). Dotted ``key=value``
+PyTorch versions instead (tests, tiny shapes). ``view --live`` plays on
+the host (the C++ engine and numpy forwards), as in the JAX package, and
+``import-torch`` only converts files. Dotted ``key=value``
 overrides apply to the YAML config as in the JAX package's CLI. A second
 ``train`` or ``train-rnn`` in the same workdir resumes from the full-state
 autosave. After training the reward (and gate) plots are drawn; a plot
@@ -118,6 +122,45 @@ def cmd_arena(args) -> int:
         save_every=args.save_every, device=args.device)
 
 
+def cmd_view(args) -> int:
+    cfg = _load(args)
+    if args.live:
+        # real-time match on the native C++ engine + host numpy policies
+        # (no accelerator on the frame loop)
+        from pingpong_tpu_torch.selfplay.pool import load_params_any
+        from pingpong_tpu_torch.viewer.live import play_live
+
+        params_a = load_params_any(args.model_a) if args.model_a else None
+        params_b = load_params_any(args.model_b) if args.model_b else None
+        play_live(cfg.env, params_a, params_b, episodes=args.episodes,
+                  seed=cfg.seed, size=cfg.env.render_size)
+        return 0
+    from pingpong_tpu_torch.viewer.replay import run_viewer
+
+    return run_viewer(cfg, model_a=args.model_a, model_b=args.model_b,
+                      out=args.out, episodes=args.episodes,
+                      interactive=args.interactive, seed=cfg.seed,
+                      device=args.device)
+
+
+def cmd_import_torch(args) -> int:
+    import os
+
+    from pingpong_tpu_torch.tools.import_torch import (
+        import_torch_checkpoint,
+        import_torch_dir,
+    )
+
+    if os.path.isdir(args.src):
+        results = import_torch_dir(args.src, args.dst)
+        ok = sum(1 for v in results.values() if v)
+        print(f"imported {ok}/{len(results)} checkpoints into {args.dst}")
+        return 0 if ok else 1
+    out = import_torch_checkpoint(args.src, args.dst)
+    print(f"imported {args.src} -> {out}")
+    return 0
+
+
 def cmd_bench(args) -> int:
     from pingpong_tpu_torch import bench
 
@@ -173,6 +216,30 @@ def main(argv=None) -> int:
                    help="save the DB every N episodes (crash granularity; "
                         "1 = reference per-episode saves, 0 = per batch)")
     p.set_defaults(fn=cmd_arena)
+
+    p = sub.add_parser("view",
+                       help="render an episode between two checkpoints")
+    _add_common(p)
+    p.add_argument("--model-a", default=None,
+                   help="checkpoint path (default: bot)")
+    p.add_argument("--model-b", default=None,
+                   help="checkpoint path (default: bot)")
+    p.add_argument("--out", default="view.gif")
+    p.add_argument("--episodes", type=int, default=1)
+    p.add_argument("--interactive", action="store_true", help="pygame window")
+    p.add_argument(
+        "--live", action="store_true",
+        help="real-time pygame match on the native C++ engine "
+             "(host inference, no accelerator)")
+    p.set_defaults(fn=cmd_view)
+
+    p = sub.add_parser(
+        "import-torch",
+        help="convert reference .pth checkpoints to the native format")
+    p.add_argument("src", help=".pth file or a directory of .pth files")
+    p.add_argument("dst",
+                   help="output checkpoint dir (or parent dir for batches)")
+    p.set_defaults(fn=cmd_import_torch)
 
     p = sub.add_parser("bench", help="headline bench: env-steps/s of the "
                        "env-only rollouts and the train iterations")

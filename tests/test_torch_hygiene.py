@@ -56,3 +56,27 @@ def test_importing_the_port_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
+
+
+def test_the_port_builds_its_own_engine_source():
+    """The C++ engine builds from the port's copy into the port's build
+    directory, never from the root ``csrc/`` into the JAX package's, and
+    it is not one of the CUDA kernels ``ops/build.py`` compiles."""
+    from pingpong_tpu_torch.native import engine
+    from pingpong_tpu_torch.ops import (
+        actor_rollout,
+        dqn_update,
+        drqn_update,
+        pong_kernel,
+        recurrent_rollout,
+    )
+
+    assert engine.SRC == (ROOT / "pingpong_tpu_torch" / "csrc"
+                          / "pong_engine.cpp")
+    assert engine.SRC.is_file()
+    assert engine.LIB == ROOT / "build" / "torch_native" / "libpong_engine.so"
+    sources = [m.KERNEL.source for m in (actor_rollout, dqn_update,
+                                         drqn_update, pong_kernel,
+                                         recurrent_rollout)]
+    assert all(s.suffix == ".cu" for s in sources)
+    assert engine.SRC not in sources
