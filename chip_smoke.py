@@ -33,9 +33,22 @@
    ``rnn_pong_soul_1`` vs ``model5-1`` (``[view:record]``), ``cli view``
    to GIFs and a headless live episode on the host (``[view:cli]``, or
    a line saying PIL is missing), and ``model5-1`` through ``cli
-   import-torch`` as a reference ``.pth`` (``[import]``);
+   import-torch`` as a reference ``.pth`` (``[import]``); then the
+   learners' non-fused paths, PyTorch ops with kernels 2 and 4 as their
+   yardstick: the autodiff DQN update over a row replay against kernel 2
+   on the same replay in blocks (``[update:rows]``: the block run, then
+   every update on its own from kernel 2's state), the autodiff DRQN
+   update against kernel 4 on one set of windows with a sync inside the
+   block (``[drqn_update:plain]``), and ``cli train`` / ``cli train-rnn``
+   on the row update with sorted binding (``[main:qnet_rows]``), the scan
+   rollout (``[main:qnet_scan]``), burn-in with episode-uniform windows and
+   sorted binding (``[main:drqn_burnin]``) and two LSTM layers
+   (``[main:drqn_stacked]``), each with the kernels it must and must not
+   launch;
 4. times each kernel (CUDA events, warm) beside its plain version and its
-   bound, and a train iteration of each path end to end, and profiles
+   bound, and a train iteration of each path end to end (the four
+   non-fused ones beside the fused path's, and the burn-in price), and
+   profiles
    where an iteration's and the bench's device time goes
    (``torch.profiler``); for kernel 3 it prints, at each timed binding,
    the L2 weight bytes of a chunk under the parent design's and the
@@ -210,7 +223,7 @@ def update_inputs(seed, dev, cap=1 << 20, bs=256, K=64):
     from pingpong_tpu_torch.replay.per import Transition, per_init, per_push
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    buf = per_init(cap, device=dev)
+    buf = per_init(cap, device=dev, block=True)
     m = min(262144, cap)
     for _ in range(cap // m):
         per_push(buf, Transition(
@@ -691,6 +704,12 @@ def compare_drqn_update(name, kw):
     lk = drqn_update_cuda(**kk)
     lp = drqn_update_plain(**kp)
     torch.cuda.synchronize()
+    return check_drqn_close(name, lk, lp, kk, kp, kw["lr"], kw["K"])
+
+
+def check_drqn_close(name, lk, lp, kk, kp, lr, K, tag="drqn_update"):
+    """``compare_drqn_update``'s rules for kernel 4's results ``lk``,
+    ``kk`` against a reference's ``lp``, ``kp``."""
     check(bool(torch.isfinite(lk).all()), f"update {name}: losses finite")
     check(torch.allclose(lk, lp, rtol=1e-4, atol=1e-6),
           f"update {name}: losses differ beyond rtol 1e-4")
@@ -704,9 +723,9 @@ def compare_drqn_update(name, kw):
               f"{fracs[key]:.5f} < 0.999 of entries")
         if key in ("params", "target"):
             err = max(err, float(d.max()))
-    bound = 2 * kw["lr"] * kw["K"]
+    bound = 2 * lr * K
     check(err <= bound, f"update {name}: max param error {err} > 2 lr K")
-    print(f"[drqn_update:{name}] loss[0] {float(lk[0]):.6g}/"
+    print(f"[{tag}:{name}] loss[0] {float(lk[0]):.6g}/"
           f"{float(lp[0]):.6g}, max abs err {err:.3g} (limit {bound:.3g}), "
           f"close fractions {fracs} | {CARD}", flush=True)
     return err
@@ -994,9 +1013,10 @@ def profile_bench(dev):
         profile_iterations(name, learner, state, opp, 3, n)
 
 
-def time_iterations(name, learner, state, opp, n_it=5):
+def time_iterations(name, learner, state, opp, n_it=5, fused_ms=None):
     """Host-clock ms of a warm train iteration (ends in a synchronize),
-    once the update block runs."""
+    once the update block runs, beside the fused path's (``fused_ms``)
+    where given; returns the ms."""
     for _ in range(12):
         _, metrics = learner.train_iteration(state, opp, 1)
         if metrics.updates_run > 0:
@@ -1012,11 +1032,15 @@ def time_iterations(name, learner, state, opp, n_it=5):
           f"{name}: timed iterations ran no finite update")
     c = learner.cfg
     steps = c.num_envs * c.rollout_length
+    beside = ("" if fused_ms is None else f", {it_ms / fused_ms:.3f}x the "
+              f"fused path's {fused_ms:.3f} ms of this run")
     print(f"[main:{name}] train iteration {it_ms:.3f} ms, "
           f"{steps / it_ms * 1e3:.4g} env-steps/s (num_envs {c.num_envs}, "
           f"rollout {c.rollout_length}, {c.updates_per_iteration} updates "
-          f"of {c.batch_size}) | {CARD}", flush=True)
+          f"of {c.batch_size}; route {tuple(learner.route)}{beside}) | "
+          f"{CARD}", flush=True)
     profile_iterations(name, learner, state, opp, 3)
+    return it_ms
 
 
 def train_args(workdir, generations=1, *extra):
@@ -1032,7 +1056,7 @@ def train_args(workdir, generations=1, *extra):
             "dqn.selfplay.pool_win_threshold=0.0", *extra]
 
 
-def train_rnn_args(workdir, generations=1):
+def train_rnn_args(workdir, generations=1, *extra):
     """``configs/rnn.yaml`` with the gate sizes cut (``generations``
     generations of 4000 training episodes, so that update blocks run once
     the buffer gate of 640 admitted episodes opens, 2000 eval episodes,
@@ -1043,7 +1067,7 @@ def train_rnn_args(workdir, generations=1):
             "drqn.selfplay.episodes_per_generation=4000",
             "drqn.selfplay.eval_episodes=2000",
             "drqn.selfplay.curr_win_threshold=0.0",
-            "drqn.selfplay.pool_win_threshold=0.0"]
+            "drqn.selfplay.pool_win_threshold=0.0", *extra]
 
 
 def metrics_events(path):
@@ -1296,6 +1320,222 @@ def tournaments(cli, qnet_ckpts, rnn_ckpts, episodes=200):
     check(all(o[0] == 0 for o in outs), "cli arena failed")
     check(plans[1] and " 0 pairings" in plans[1][0],
           "the second arena run planned pairings")
+
+
+# ---------------------------------------------------------------------------
+# the learners' non-fused paths (PyTorch ops; kernels 2 and 4 the yardstick)
+# ---------------------------------------------------------------------------
+
+def row_learner(cfg, inp, K):
+    """A DQN learner on the autodiff route at ``update_kwargs``' settings
+    (heads only, a hard sync every 16 updates), and a state whose row
+    replay holds ``inp``'s block replay (the same transitions, priorities
+    and chunk sums) and whose parameters are ``inp``'s."""
+    from pingpong_tpu_torch.replay.per import (
+        decode_block_fields,
+        pack_transitions,
+    )
+    from pingpong_tpu_torch.train.dqn import DQNLearner
+
+    blk = inp["buf"]
+    dq = dataclasses.replace(
+        cfg.dqn, use_pallas_update=False, batch_size=inp["bs"],
+        updates_per_iteration=K, memory_size=blk.capacity, lr=2.5e-4,
+        gamma=0.99, target_update_interval=16, target_tau=0.0,
+        per_alpha=0.6, per_eps=1e-6, per_beta_start=0.4,
+        per_beta_frames=100_000, train_heads_only=True)
+    learner = DQNLearner(cfg.env, dq, device=DEV)
+    check(learner.route.update == "autodiff", "update:rows: not the rows")
+    state = learner.init_state(0)
+    buf = state.buffer
+    buf.data.copy_(pack_transitions(decode_block_fields(
+        blk.data.permute(0, 2, 1).reshape(-1, blk.data.shape[1]), 7)))
+    for f in ("prios", "p_alpha", "chunk_sums"):
+        getattr(buf, f).copy_(getattr(blk, f))
+    buf.pos, buf.size = blk.pos, blk.size
+    state.params = inp["params"].clone()
+    state.target = inp["target"].clone()
+    return learner, state
+
+
+def compare_update_rows(cfg, inp):
+    """``[update:rows]``: kernel 2 on the block replay against the
+    autodiff update on the same replay in the row layout, the same uniforms
+    and noise (K 64, bs 256, 2^20 slots). The block run: the first
+    update's indices equal, the match over the block and the first update
+    with a differing index printed, the losses before it within rtol 1e-4.
+    The row replay keeps its chunk sums incrementally (the JAX package's
+    ``per_update_priorities``) where kernel 2 re-sums each touched chunk
+    exactly, so the two CDFs drift apart by float rounding over a block
+    and move a sample across a boundary now and then. So, as for kernel 2
+    at batch 512, every update is held on its own: from kernel 2's state,
+    indices equal, parameters, target, moments and chunk sums within rtol
+    1e-4, the loss within rtol 1e-4."""
+    from pingpong_tpu_torch.ops.dqn_update import dqn_update_cuda
+
+    K = inp["K"]
+    kk = update_kwargs(inp, True, 0.0, 16)
+    learner, state = row_learner(cfg, inp, K)
+    t0 = time.perf_counter()
+    _, ik, lk = dqn_update_cuda(**kk)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    lr_, ir = learner._update_autodiff(state, inp["u01"], inp["noise"])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    same = (ik.long() == ir).all(dim=1)
+    first_diff = int((~same).nonzero()[0]) if not bool(same.all()) else K
+    frac = float((ik.long() == ir).float().mean())
+    check(bool(same[0]), "update:rows: the first update's indices differ")
+    check(torch.allclose(lr_[:first_diff], lk[:first_diff], rtol=1e-4,
+                         atol=1e-6),
+          "update:rows: losses differ before the first differing index")
+    print(f"[update:rows] block run: idx first-update equal True, block "
+          f"match {frac:.5f}, first update with a differing idx "
+          f"{first_diff if first_diff < K else None}; kernel 2 "
+          f"{(t1 - t0) * 1e3:.3f} ms, the row update {(t2 - t1) * 1e3:.3f} "
+          f"ms (host clock, first call) | {CARD}", flush=True)
+    one, ostate = row_learner(cfg, inp, 1)
+    inplace = ("p_alpha", "chunk_sums", "params", "target", "m", "v")
+    carried = update_kwargs(inp, True, 0.0, 16)     # kernel 2's state
+    err = 0.0
+    for k in range(K):
+        ostate.params = carried["params"].clone()
+        ostate.target = carried["target"].clone()
+        ostate.opt_mu, ostate.opt_nu = carried["m"].clone(), \
+            carried["v"].clone()
+        ostate.opt_count = ostate.train_steps = ostate.frame_idx = k
+        ostate.buffer.p_alpha.copy_(carried["p_alpha"])
+        ostate.buffer.chunk_sums.copy_(carried["chunk_sums"])
+        step = dict(carried, ts0=k, count0=k, frame0=k, K=1,
+                    u01=inp["u01"][k:k + 1], noise=inp["noise"][k:k + 1],
+                    **{key: carried[key].clone() for key in inplace})
+        _, ik1, lk1 = dqn_update_cuda(**step)
+        lr1, ir1 = one._update_autodiff(ostate, step["u01"], step["noise"])
+        torch.cuda.synchronize()
+        check(bool((ik1.long() == ir1).all()),
+              f"update:rows: idx differ at update {k}")
+        got = {"params": ostate.params, "target": ostate.target,
+               "m": ostate.opt_mu, "v": ostate.opt_nu,
+               "chunk_sums": ostate.buffer.chunk_sums}
+        for key, atol in (("params", 1e-6), ("target", 1e-6), ("m", 1e-7),
+                          ("v", 1e-9), ("chunk_sums", 1e-6)):
+            err = max(err, float((got[key] - step[key]).abs().max()))
+            check(torch.allclose(got[key], step[key], rtol=1e-4, atol=atol),
+                  f"update:rows: {key} beyond rtol 1e-4 at update {k}")
+        check(torch.allclose(lr1, lk1, rtol=1e-4, atol=1e-6)
+              and bool(torch.isfinite(lr1).all()),
+              f"update:rows: loss beyond rtol 1e-4 at update {k}")
+        carried.update({key: step[key] for key in inplace})
+    print(f"[update:rows] every update on its own, from kernel 2's state: "
+          f"idx equal, max abs err {err:.3g} | {CARD}", flush=True)
+
+
+def compare_drqn_update_autodiff(rcfg, seed=410):
+    """``[drqn_update:plain]``: kernel 4 against the autodiff DRQN update
+    on one set of sampled windows at ``configs/rnn.yaml``'s widths (K 32,
+    bs 64, trace 8, burn-in 0), a hard sync inside the block; the rules of
+    ``compare_drqn_update``."""
+    from pingpong_tpu_torch.models.qnet_rnn import qnet_rnn_sample_noise
+    from pingpong_tpu_torch.ops.drqn_update import (
+        drqn_update_cuda,
+        flat_noise,
+        kernel_inputs,
+    )
+    from pingpong_tpu_torch.replay.sequence import SeqSample
+    from pingpong_tpu_torch.train.drqn import DRQNLearner
+
+    c = RNN_CFG
+    K, bs, T, interval = (c.updates_per_iteration, c.batch_size,
+                          c.trace_length, c.target_update_interval)
+    gen = torch.Generator().manual_seed(seed)
+    net, tgt = rnn_nets(gen, 2, DEV)
+    g = torch.Generator(DEV).manual_seed(seed)
+    lo = torch.tensor([0, 0, -0.06, -0.06, 0, 0, -5], device=DEV)
+    hi = torch.tensor([1, 1, 0.06, 0.06, 1, 1, 5], device=DEV)
+    n = K * bs
+    win = lo + (hi - lo) * torch.rand((n, T + 1, 7), generator=g, device=DEV)
+    smp = SeqSample(
+        obs=win[:, :T].contiguous(), next_obs=win[:, 1:].contiguous(),
+        action=torch.randint(0, 3, (n, T), generator=g, device=DEV,
+                             dtype=torch.int32),
+        reward=torch.randn((n, T), generator=g, device=DEV),
+        done=torch.rand((n, T), generator=g, device=DEV) < 0.2,
+        valid=torch.rand((n,), generator=g, device=DEV) < 0.9)
+    noise = flat_noise(qnet_rnn_sample_noise(gen, net, batch=(K,))).to(DEV)
+    shape = lambda x: x.reshape((K, bs) + x.shape[1:])
+    xt, nextt, meta = kernel_inputs(
+        shape(smp.obs), shape(smp.next_obs), shape(smp.action[:, -1]),
+        shape(smp.reward[:, -1]), shape(smp.done[:, -1]), shape(smp.valid))
+    from pingpong_tpu_torch.models.qnet_rnn import qnet_rnn_to_flat
+
+    ts0 = interval - 10
+    params, target = qnet_rnn_to_flat(net), qnet_rnn_to_flat(tgt)
+    kk = dict(ts0=ts0, count0=ts0, xt=xt, nextt=nextt, meta=meta,
+              noise=noise, params=params.clone(), target=target.clone(),
+              m=torch.zeros_like(params), v=torch.zeros_like(params),
+              dims=(c.feature_dim // 2, c.feature_dim, c.lstm_hidden_dim,
+                    c.head_hidden_dim), K=K, bs=bs, T=T, lr=c.lr,
+              clip=c.grad_clip_norm, gamma=c.gamma, interval=interval,
+              tau=0.0)
+    lk = drqn_update_cuda(**kk)
+    learner = DRQNLearner(rcfg.env, dataclasses.replace(
+        c, use_pallas_update=False), device=DEV)
+    check(learner.route.update == "autodiff", "drqn_update:plain route")
+    st = learner.init_state(0)
+    st.params, st.target = params.clone(), target.clone()
+    st.train_steps = st.opt_count = ts0
+    lp = learner._update_autodiff(st, smp, noise)
+    torch.cuda.synchronize()
+    check(st.train_steps == ts0 + K and interval - ts0 < K,
+          "drqn_update:plain: no sync inside the block")
+    return check_drqn_close(
+        "hard_sync_mid_block", lk, lp, kk,
+        {"params": st.params, "target": st.target, "m": st.opt_mu,
+         "v": st.opt_nu}, c.lr, K, tag="drqn_update:plain")
+
+
+def drive_route(name, cli, args, kernels, expect, log, pool_from=None,
+                warn=None):
+    """``cli`` once on a non-fused route in a fresh workdir (the pool, if
+    given, copied from ``pool_from``'s promoted checkpoints, so that the
+    binding has members to draw), the launch counters set to 0 just before
+    and read just after; ``expect``: kernel -> must launch (True) or must
+    not (False); ``warn``: a warning the run must give."""
+    import warnings
+
+    from pingpong_tpu_torch.checkpoint.store import list_checkpoints
+
+    workdir = ROOT / "build" / f"chip_smoke_{name}"
+    shutil.rmtree(workdir, ignore_errors=True)
+    pool = []
+    if pool_from is not None:
+        for ck in list_checkpoints(pool_from):
+            shutil.copytree(ck, workdir / pool_from.name / ck.name)
+            pool.append(ck.name)
+    for k in kernels:
+        k.launches = 0
+    t0 = time.time()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        rc = cli.main(args(workdir))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {k.name: k.launches for k in kernels}
+    ev = metrics_events(workdir / log)
+    evals = [e.get("eval_s") for e in ev if e["event"] == "eval"]
+    said = sorted({str(w.message)[:60] for w in caught})
+    print(f"[main:{name}] cli rc={rc} in {wall:.1f} s; pool {pool}; "
+          f"promoted {any(e['event'] == 'promoted' for e in ev)}; gate "
+          f"eval_s {evals}; launches {launches}; warnings {said} | {CARD}",
+          flush=True)
+    check(rc == 0, f"cli {name} failed")
+    check(any(e["event"] == "promoted" for e in ev), f"{name}: no promotion")
+    for k, must in expect.items():
+        check((launches[k] > 0) == must,
+              f"{name}: {k} launched {launches[k]} times")
+    check(warn is None or any(warn in str(w.message) for w in caught),
+          f"{name}: no warning {warn!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -1827,16 +2067,65 @@ def main(argv=None) -> int:
           f"{ {k.name: k.launches for k in kernels} } (the viewer's path "
           f"runs no kernel) | {CARD}", flush=True)
 
+    # ---- 3d. the learners' non-fused paths (PyTorch ops, no kernel) -----
+    compare_update_rows(cfg, upd_inp)
+    compare_drqn_update_autodiff(rcfg)
+    k12, k34 = [ar.KERNEL, du.KERNEL], [rr.KERNEL, dru.KERNEL]
+    drive_route("qnet_rows", cli, lambda w: train_args(
+        w, 1, "dqn.use_pallas_update=false", "dqn.opponent_binding=sorted"),
+        k12, {"actor_rollout": True, "dqn_update": False},
+        "train_qnet_metrics.jsonl", pool_from=qnet_dir / "checkpoints")
+    drive_route("qnet_scan", cli, lambda w: train_args(
+        w, 1, "dqn.use_pallas_update=false", "dqn.use_pallas_rollout=false"),
+        k12, {"actor_rollout": True, "dqn_update": False},
+        "train_qnet_metrics.jsonl")
+    drive_route("drqn_burnin", cli, lambda w: train_rnn_args(
+        w, 1, "drqn.burn_in_length=4", "drqn.episode_uniform_sampling=true",
+        "drqn.opponent_binding=sorted"), k34,
+        {"recurrent_rollout": True, "drqn_update": False},
+        "train_rnn_metrics.jsonl", pool_from=rnn_dir / "checkpoints_rnn",
+        warn="burn_in_length > 0 is served by the autodiff update")
+    drive_route("drqn_stacked", cli, lambda w: train_rnn_args(
+        w, 1, "drqn.lstm_layers=2"), k34,
+        {"recurrent_rollout": False, "drqn_update": False},
+        "train_rnn_metrics.jsonl")
+
     # ---- 4. timings -------------------------------------------------------
     learner = DQNLearner(cfg.env, cfg.dqn, device="cuda")
     state = learner.init_state(3)
     opp = learner.prepare_opponents([learner.params_b(state), promoted])
-    time_iterations("qnet", learner, state, opp)
+    q_ms = time_iterations("qnet", learner, state, opp)
     rlearner = DRQNLearner(rcfg.env, RNN_CFG, device="cuda")
     rstate = rlearner.init_state(3)
     ropp = rlearner.prepare_opponents([rlearner.params_b(rstate),
                                        rnn_promoted])
-    time_iterations("drqn", rlearner, rstate, ropp)
+    r_ms = time_iterations("drqn", rlearner, rstate, ropp)
+    for name, over in (("qnet_rows", dict(use_pallas_update=False,
+                                          opponent_binding="sorted")),
+                       ("qnet_scan", dict(use_pallas_update=False,
+                                          use_pallas_rollout=False))):
+        lq = DQNLearner(cfg.env, dataclasses.replace(cfg.dqn, **over),
+                        device="cuda")
+        sq = lq.init_state(3)
+        time_iterations(name, lq, sq, lq.prepare_opponents(
+            [lq.params_b(sq), promoted]), fused_ms=q_ms)
+    burn_ms = None
+    for name, over in (("drqn_burnin", dict(
+            burn_in_length=4, episode_uniform_sampling=True,
+            opponent_binding="sorted")), ("drqn_stacked", dict(
+                lstm_layers=2))):
+        lr_ = DRQNLearner(rcfg.env, dataclasses.replace(RNN_CFG, **over),
+                          device="cuda")
+        sr = lr_.init_state(3)
+        other = (rnn_promoted if over.get("lstm_layers", 1) == 1
+                 else lr_.init_params(torch.Generator().manual_seed(4)))
+        ms = time_iterations(name, lr_, sr, lr_.prepare_opponents(
+            [lr_.params_b(sr), other]), fused_ms=r_ms)
+        burn_ms = burn_ms or ms
+    print(f"[main:burn_in_price] a DRQN iteration at configs/rnn.yaml: "
+          f"fused update {r_ms:.3f} ms, burn-in 4 (autodiff update, "
+          f"episode-uniform windows, sorted binding) {burn_ms:.3f} ms, "
+          f"{burn_ms / r_ms:.3f}x | {CARD}", flush=True)
     profile_bench(dev)
 
     ro = time_rollouts(resident_check=True)

@@ -145,9 +145,10 @@ class DQNConfig:
     # its YAML files load unchanged. In the PyTorch port the rollout
     # (use_pallas_rollout), the gate evals (use_pallas_eval) and the
     # update block (use_pallas_update) each run as one hand-written CUDA
-    # kernel (pingpong_tpu_torch/csrc/); the port has no other path yet,
-    # so all three must stay true, and the update block needs the shapes
-    # of ops/dqn_update.py::supports_fused_update.
+    # kernel (pingpong_tpu_torch/csrc/). With use_pallas_rollout false the
+    # rollout is a scan of PyTorch ops; with use_pallas_update false, or
+    # shapes outside ops/dqn_update.py::supports_fused_update, the update
+    # is autodiff over the row replay layout (train/dqn.py::dqn_route).
     use_pallas_rollout: bool = True
     use_pallas_eval: bool = True
     use_pallas_update: bool = True
@@ -201,6 +202,9 @@ class DQNConfig:
     #   "auto" (default) — "replicated" up to 16 chips (the fused-block
     #     latency advantage dominates), "sharded" above (the all-gather
     #     crossover; cost model in docs/PODRUN.md).
+    # The PyTorch port runs one device: "sharded" warns, as the JAX
+    # learner does with one data shard, and runs the single-device
+    # learner; the multi-device layouts are not ported yet (ROADMAP.md).
     learner_sharding: str = "auto"
     num_envs: int = 4096            # lockstep env batch, sharded over 'data'
     rollout_length: int = 64        # env steps per jitted iteration
@@ -267,25 +271,27 @@ class DRQNConfig:
     keep_fault_checkpoints: int = 0
 
     # ---- TPU scaling knobs ----
-    # Fused Pallas recurrent actor-rollout (ops/recurrent_rollout.py):
-    # whole chunk in one kernel, env state + BOTH LSTM streams + weights
-    # resident in VMEM, lane-major layout. Applies when the architecture
-    # is the reference's shipped one (lstm_layers=1, shared head, dims
-    # <= 128); other architectures use the XLA scan path regardless.
+    # Fused recurrent actor-rollout (ops/recurrent_rollout.py, kernel 3):
+    # whole chunk in one launch with both LSTM streams on chip. Applies
+    # when the architecture is the reference's shipped one (lstm_layers=1,
+    # shared head, dims <= 128); other architectures, or false, take the
+    # scan rollout of PyTorch ops (train/drqn.py::drqn_route).
     use_pallas_rollout: bool = True
     # Fused no-transitions eval streaming through the recurrent kernel
-    # (promotion gates; single-seat and side-balanced), as in DQNConfig.
+    # (promotion gates; single-seat and side-balanced), as in DQNConfig;
+    # nets of another architecture gate through the match runner.
     use_pallas_eval: bool = True
-    # Fused update block (ops/drqn_update.py): all K SGD steps in one
-    # launch with a hand-derived LSTM BPTT. The port runs only this path
-    # (the XLA scan path is not ported; false is refused by name) and, on
-    # the card, takes a batch_size that is a multiple of 4 (refused by name
-    # at learner construction otherwise; the CPU's plain version takes any).
+    # Fused update block (ops/drqn_update.py, kernel 4): all K SGD steps
+    # in one launch with a hand-derived LSTM BPTT, for the kernel
+    # architecture without burn-in and, on the card, a batch_size that is
+    # a multiple of 4 (the CPU's plain version takes any). Otherwise, or
+    # false, the update is autodiff (train/drqn.py::drqn_route).
     use_pallas_update: bool = True
     pallas_tile_rows: int = 512     # envs per kernel program (mult. of 128
                                     # on TPU; capped at num_envs)
     pallas_steps_per_cell: int = 8  # rollout grid-kernel inner unroll
-                                    # (multiple of 8; divides rollout_length)
+                                    # (multiple of 8; divides rollout_length;
+                                    # a TPU grid knob the port ignores)
     # Pool-opponent binding on the fused rollout path ("bucketed" |
     # "sorted") — see DQNConfig.opponent_binding. For the recurrent
     # trainer "bucketed" additionally removes the canonical-order

@@ -22,7 +22,7 @@ the reproducibility contract is per backend, as in the JAX package.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -246,7 +246,8 @@ def step(params: EnvParams, state: EnvState, action_a: torch.Tensor,
 
 def step_autoreset_batch(params: EnvParams, state: EnvState,
                          generator: torch.Generator, action_a: torch.Tensor,
-                         action_b: torch.Tensor, max_episode_steps: int = 0
+                         action_b: torch.Tensor, max_episode_steps: int = 0,
+                         u: Optional[torch.Tensor] = None
                          ) -> Tuple[EnvState, StepOut]:
     """Batched step with masked auto-reset. ``max_episode_steps > 0`` also
     ends (truncates) an episode at that many steps, with ``done`` set in
@@ -255,14 +256,16 @@ def step_autoreset_batch(params: EnvParams, state: EnvState,
     episode ended; the serves of the whole batch come from four ``(B,)``
     uniforms drawn from ``generator``, which lives on the state's device
     (``env/pong.py::step_autoreset_batch`` and ``_serve_batch`` of the JAX
-    package, one key for the whole batch)."""
+    package, one key for the whole batch); ``u (4, B)`` on the state's
+    device gives them instead."""
     new, out = step(params, state, action_a, action_b)
     ended = out.done
     if max_episode_steps:
         ended = ended | (new.t >= max_episode_steps)
         out = out._replace(done=ended)
-    u = torch.rand((4,) + tuple(state.ball_x.shape), generator=generator,
-                   dtype=torch.float32, device=state.ball_x.device)
+    if u is None:
+        u = torch.rand((4,) + tuple(state.ball_x.shape), generator=generator,
+                       dtype=torch.float32, device=state.ball_x.device)
     svx, svy, sspin = serve_from_uniforms(params, u[0], u[1], u[2], u[3])
     zi = torch.zeros_like(new.t)
     nxt = EnvState(

@@ -12,20 +12,30 @@ from pingpong_tpu_torch.models.qnet import (
     qnet_apply,
     qnet_sample_noise,
 )
-from pingpong_tpu_torch.models.qnet_rnn import Hidden, QNetRNN, qnet_rnn_step
+from pingpong_tpu_torch.models.qnet_rnn import (
+    Hidden,
+    QNetRNN,
+    qnet_rnn_sample_noise,
+    qnet_rnn_step,
+)
 from pingpong_tpu_torch.ops.pong_kernel import bot_actions
 
 
-def epsilon_greedy(generator, q_values, epsilon: float, n_actions: int = 3):
-    """Per-row epsilon-greedy over ``(B, n_actions)`` Q-values; the
-    uniforms come from ``generator`` on the CPU."""
-    batch = q_values.shape[:-1]
-    explore = torch.rand(batch, generator=generator) < epsilon
-    random_a = torch.randint(0, n_actions, batch, generator=generator,
-                             dtype=torch.int32)
-    greedy_a = argmax3(q_values)
+def epsilon_greedy(generator, q_values, epsilon, n_actions: int = 3,
+                   draws=None):
+    """Per-row epsilon-greedy over ``(B, n_actions)`` Q-values: explore
+    where a uniform is below ``epsilon`` (a float, or a tensor on the
+    Q-values' device). The uniforms and random actions come from
+    ``generator`` on the CPU, or ``draws = (uniforms, actions)`` gives
+    them."""
     dev = q_values.device
-    return torch.where(explore.to(dev), random_a.to(dev), greedy_a)
+    if draws is None:
+        batch = q_values.shape[:-1]
+        draws = (torch.rand(batch, generator=generator),
+                 torch.randint(0, n_actions, batch, generator=generator,
+                               dtype=torch.int32))
+    u, random_a = (x.to(dev) for x in draws)
+    return torch.where(u < epsilon, random_a, argmax3(q_values))
 
 
 def qnet_act_train(generator, params: QNet, obs, epsilon: float):
@@ -37,6 +47,16 @@ def qnet_act_train(generator, params: QNet, obs, epsilon: float):
 def qnet_act_greedy(params: QNet, obs):
     """Eval mode: mu weights, no epsilon."""
     return argmax3(qnet_apply(params, obs))
+
+
+def rnn_act_train(generator, params: QNetRNN, obs, hidden: Hidden,
+                  epsilon: float):
+    """Learner RNN step: a fresh noise draw, then epsilon-greedy; the
+    hidden state advances on explore steps too. Returns ``(actions, next
+    hidden)``."""
+    noise = qnet_rnn_sample_noise(generator, params)
+    q, new_hidden = qnet_rnn_step(params, obs, hidden, noise)
+    return epsilon_greedy(generator, q, epsilon), new_hidden
 
 
 def rnn_act_greedy(params: QNetRNN, obs, hidden: Hidden):

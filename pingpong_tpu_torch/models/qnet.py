@@ -100,6 +100,31 @@ def qnet_fold_noise(params: QNet, noise: QNetNoise) -> QNet:
                 fold(params.fc_v, noise.v), fold(params.fc_a, noise.a))
 
 
+def bot_qnet_params(tolerance: float = 0.02, obs_dim: int = OBS_DIM,
+                    hidden: int = HIDDEN, device="cpu") -> QNet:
+    """The ball-follower bot as exact QNet weights, so it can sit in any
+    QNet stack. With ``d = my_paddle_x - ball_x``: ``feat1`` gives
+    ``h0 = relu(d)``, ``h1 = relu(-d)``, ``feat2`` passes both through, and
+    the A head's mu is ``[d, tolerance, -d]`` (every sigma zero): argmax
+    moves left iff ``d > tolerance``, right iff ``-d > tolerance``, else
+    stays, as ``models/policy.py::ball_follower_action`` does, up to ties
+    at ``d == +-tolerance``."""
+    z = lambda *s: torch.zeros(s, dtype=torch.float32, device=device)
+    w1 = z(obs_dim, hidden)
+    w1[4, 0], w1[0, 0] = 1.0, -1.0       # h0 = relu(my_x - ball_x)
+    w1[4, 1], w1[0, 1] = -1.0, 1.0       # h1 = relu(ball_x - my_x)
+    w2 = z(hidden, hidden)
+    w2[0, 0] = w2[1, 1] = 1.0
+    wa = z(hidden, N_ACTIONS)
+    wa[0, 0], wa[1, 0] = 1.0, -1.0       # A(left) = d
+    wa[0, 2], wa[1, 2] = -1.0, 1.0       # A(right) = -d
+    ba = z(N_ACTIONS)
+    ba[1] = float(tolerance)
+    return QNet(Dense(w1, z(hidden)), Dense(w2, z(hidden)),
+                NoisyLinear(z(hidden, 1), z(hidden, 1), z(1), z(1)),
+                NoisyLinear(wa, z(hidden, N_ACTIONS), ba, z(N_ACTIONS)))
+
+
 def qnet_copy(module: nn.Module) -> nn.Module:
     """A copy with its own parameter storage."""
     import copy
@@ -117,6 +142,19 @@ def qnet_from_flat(flat: torch.Tensor, like: QNet) -> QNet:
     out = qnet_copy(like)
     qnet_load_flat_(out, flat)
     return out
+
+
+def flat_views(flat: torch.Tensor, like: nn.Module) -> dict:
+    """Parameter name -> the view of the raveled vector ``flat`` that holds
+    it, with ``like``'s shapes (autograd through a view reaches
+    ``flat``)."""
+    views, i = {}, 0
+    for name, p in like.named_parameters():
+        views[name] = flat[i:i + p.numel()].view(p.shape)
+        i += p.numel()
+    if i != flat.numel():
+        raise ValueError(f"flat vector of {flat.numel()} != {i} parameters")
+    return views
 
 
 def qnet_load_flat_(params: QNet, flat: torch.Tensor) -> None:

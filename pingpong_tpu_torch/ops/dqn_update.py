@@ -33,7 +33,8 @@ import math
 import torch
 
 from pingpong_tpu_torch.models.qnet import QNetNoise
-from pingpong_tpu_torch.replay.per import last_writer_wins
+from pingpong_tpu_torch.replay.per import exact_cumsum, last_writer_wins
+from pingpong_tpu_torch.train.optim import ADAM_EPS, B1, B2, adam_
 from pingpong_tpu_torch.ops.build import (
     CudaKernel,
     check_cuda,
@@ -54,7 +55,6 @@ N_NOISE = 4 * H + 4                   # 260
 MAX_BATCH = 512                       # the JAX kernel's limit too
 MAX_CHUNKS = 8192                     # replay <= 2^20: the CDF in shared memory
 CLUSTER = 8                           # thread blocks of the kernel's cluster
-B1, B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
 
 def pack_dqn_noise(noise: QNetNoise) -> torch.Tensor:
@@ -128,7 +128,7 @@ def dqn_update_plain(*, ts0, count0, frame0, size, u01, noise, p_alpha,
         # ---- two-level inverse-CDF sample
         # prefix sums exact in double, rounded to float32 once: the
         # kernel's CDF, whatever the summation order
-        cdf = torch.cumsum(chunk_sums.double(), dim=0).float()
+        cdf = exact_cumsum(chunk_sums)
         total = cdf[-1]
         uu = u01[k] * total
         c = torch.clamp((cdf[None, :] < uu[:, None]).sum(dim=1), max=nc - 1)
@@ -136,7 +136,7 @@ def dqn_update_plain(*, ts0, count0, frame0, size, u01, noise, p_alpha,
         prev = cdf[torch.clamp(c - 1, min=0)]
         resid = uu - torch.where(c > 0, prev, torch.zeros_like(prev))
         rows = pa_rows[c]
-        row_cdf = torch.cumsum(rows.double(), dim=1).float()
+        row_cdf = exact_cumsum(rows, dim=1)
         off = torch.clamp((row_cdf < resid[:, None])
                           .sum(dim=1), max=CH - 1)
         idx = c * CH + off
@@ -193,16 +193,8 @@ def dqn_update_plain(*, ts0, count0, frame0, size, u01, noise, p_alpha,
             g[P_B1:P_W2] = dz1.sum(dim=0)
 
         # ---- flat Adam + target sync
-        step = f32(count0 + k + 1)
-        bc1 = 1.0 - torch.exp(step * math.log(B1))
-        bc2 = 1.0 - torch.exp(step * math.log(B2))
         lo = FEATURES_END if heads_only else 0
-        mj = m[lo:] * B1 + g[lo:] * (1.0 - B1)
-        vj = v[lo:] * B2 + g[lo:] * g[lo:] * (1.0 - B2)
-        m[lo:] = mj
-        v[lo:] = vj
-        params[lo:] = params[lo:] - lr * ((mj / bc1)
-                                          / (torch.sqrt(vj / bc2) + ADAM_EPS))
+        adam_(params[lo:], g[lo:], m[lo:], v[lo:], count0 + k + 1, lr)
         if tau > 0.0:
             target.copy_(target + tau * (params - target))
         elif (ts0 + k + 1) % interval == 0:

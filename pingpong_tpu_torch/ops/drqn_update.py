@@ -30,6 +30,7 @@ from typing import NamedTuple
 
 import torch
 
+from pingpong_tpu_torch.models.noisy import NoisyNoise
 from pingpong_tpu_torch.models.qnet_rnn import QNetRNN, QNetRNNNoise
 from pingpong_tpu_torch.ops.recurrent_rollout import MAX_WIDTH
 from pingpong_tpu_torch.ops.build import (
@@ -38,8 +39,14 @@ from pingpong_tpu_torch.ops.build import (
     ptr,
     stream_ptr,
 )
+from pingpong_tpu_torch.train.optim import (
+    ADAM_EPS,
+    B1,
+    B2,
+    adam_,
+    clip_by_global_norm,
+)
 
-B1, B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
 
 # ---------------------------------------------------------------------------
@@ -83,11 +90,29 @@ def _views(flat, slices):
 
 
 def flat_noise(noise: QNetRNNNoise) -> torch.Tensor:
-    """``(K,)``-batched QNetRNNNoise -> ``(K, NN)`` kernel noise rows."""
+    """``(K,)``-batched QNetRNNNoise -> ``(K, NN)`` kernel noise rows (a
+    net without the shared head has no shared section)."""
     K = noise.v.eps_w.shape[0]
-    return torch.cat([x.reshape(K, -1) for x in (
-        noise.shared.eps_w, noise.shared.eps_b, noise.v.eps_w,
-        noise.v.eps_b, noise.a.eps_w, noise.a.eps_b)], dim=1).contiguous()
+    layers = [noise.v, noise.a] if noise.shared is None else [
+        noise.shared, noise.v, noise.a]
+    return torch.cat([x.reshape(K, -1) for n in layers
+                      for x in (n.eps_w, n.eps_b)], dim=1).contiguous()
+
+
+def unflat_noise(rows: torch.Tensor, template: QNetRNN) -> QNetRNNNoise:
+    """:func:`flat_noise` rows -> a ``(K,)``-batched QNetRNNNoise with the
+    noisy layers of ``template``."""
+    K, o, out = rows.shape[0], 0, []
+    for layer in (template.shared, template.fc_v, template.fc_a):
+        if layer is None:
+            out.append(None)
+            continue
+        n_in, n_out = layer.w_mu.shape
+        w = rows[:, o:o + n_in * n_out].reshape(K, n_in, n_out)
+        o += n_in * n_out
+        out.append(NoisyNoise(w, rows[:, o:o + n_out]))
+        o += n_out
+    return QNetRNNNoise(*out)
 
 
 class UpdParams(NamedTuple):
@@ -371,17 +396,8 @@ def drqn_update_plain(*, ts0, count0, xt, nextt, meta, noise, params, target,
             G[name].copy_(val.reshape(G[name].shape))
         losses.append(loss)
         # clip_by_global_norm + flat Adam + target sync
-        gnorm = torch.sqrt((grad * grad).sum())
-        gsc = grad * (clip / torch.clamp(gnorm, min=clip))
-        step = torch.tensor(float(count0 + k + 1), device=params.device)
-        bc1 = 1.0 - torch.exp(step * math.log(B1))
-        bc2 = 1.0 - torch.exp(step * math.log(B2))
-        mj = m * B1 + gsc * (1.0 - B1)
-        vj = v * B2 + gsc * gsc * (1.0 - B2)
-        m.copy_(mj)
-        v.copy_(vj)
-        params.copy_(params - lr * ((mj / bc1) / (torch.sqrt(vj / bc2)
-                                                  + ADAM_EPS)))
+        adam_(params, clip_by_global_norm(grad, clip), m, v, count0 + k + 1,
+              lr)
         if tau > 0.0:
             target.copy_(target + tau * (params - target))
         elif (ts0 + k + 1) % interval == 0:

@@ -19,12 +19,12 @@ port of ``pingpong_tpu/selfplay/loop_rnn.py``.
 * the full state autosaves every ``save_latest_checkpoint_interval_steps``
   train steps (``checkpoint/full_state.py``); retention runs after every
   save;
-* gates through the fused recurrent kernel (``use_pallas_eval``) or the
-  batched match runner (``evaluation/match.py``).
+* gates through the fused recurrent kernel (``use_pallas_eval`` and a
+  net of kernel 3's architecture) or the batched match runner
+  (``evaluation/match.py``), as the JAX loop decides.
 
-Not ported yet (ROADMAP.md): every DRQN option the fused rollout and
-update kernels do not run. Configurations that ask for one raise, naming
-the setting.
+The learner picks its route from the config (``train/drqn.py``); every
+DRQN option of the JAX trainer runs on one device.
 """
 
 from __future__ import annotations
@@ -69,52 +69,18 @@ from pingpong_tpu_torch.models.qnet_rnn import (
     qnet_rnn_from_flat,
     qnet_rnn_to_flat,
 )
-from pingpong_tpu_torch.ops.recurrent_rollout import MAX_WIDTH
 from pingpong_tpu_torch.selfplay.loop import GenerationRecord
 from pingpong_tpu_torch.selfplay.pool import load_pool
-from pingpong_tpu_torch.train.drqn import DRQNLearner, stack_rnn_opponents
+from pingpong_tpu_torch.train.drqn import (
+    DRQNLearner,
+    kernel_architecture,
+    stack_rnn_opponents,
+)
 from pingpong_tpu_torch.utils.metrics import (
     MetricsLogger,
     Stopwatch,
     WinRateWindow,
 )
-
-
-def check_supported_rnn(cfg: DRQNConfig) -> None:
-    """Raise, naming the setting, for options of the JAX DRQN trainer that
-    this port does not run yet."""
-    refused = [
-        (cfg.lstm_layers != 1,
-         "the recurrent kernels take one LSTM layer; run with "
-         "drqn.lstm_layers=1"),
-        (cfg.head_hidden_dim <= 0,
-         "the recurrent kernels need the shared noisy head; run with "
-         "drqn.head_hidden_dim > 0"),
-        (max(cfg.feature_dim, cfg.lstm_hidden_dim, cfg.head_hidden_dim)
-         > MAX_WIDTH,
-         f"the recurrent kernels take widths up to {MAX_WIDTH}; set "
-         "drqn.feature_dim, drqn.lstm_hidden_dim and drqn.head_hidden_dim "
-         f"<= {MAX_WIDTH}"),
-        (cfg.burn_in_length > 0,
-         "burn-in is not ported to PyTorch yet; run with "
-         "drqn.burn_in_length=0"),
-        (not (cfg.use_pallas_rollout and cfg.use_pallas_update),
-         "the PyTorch port trains only through the fused recurrent "
-         "kernels: drqn.use_pallas_rollout and drqn.use_pallas_update "
-         "must be true"),
-        (cfg.opponent_binding != "bucketed",
-         "only bucketed opponent binding is ported; run with "
-         "drqn.opponent_binding=bucketed"),
-        (cfg.episode_uniform_sampling,
-         "episode-uniform sampling is not ported to PyTorch yet; run with "
-         "drqn.episode_uniform_sampling=false"),
-        (cfg.learner_sharding == "sharded",
-         "the sharded learner is not ported to PyTorch yet; run with "
-         "drqn.learner_sharding=auto"),
-    ]
-    for bad, msg in refused:
-        if bad:
-            raise ValueError(msg)
 
 
 class DRQNSelfPlay:
@@ -123,7 +89,6 @@ class DRQNSelfPlay:
     def __init__(self, env_cfg: EnvConfig, cfg: DRQNConfig,
                  workdir: str = ".", seed: int = 0,
                  logger: Optional[MetricsLogger] = None, device="cuda"):
-        check_supported_rnn(cfg)
         self.env_cfg = env_cfg
         self.cfg = cfg
         self.workdir = Path(workdir)
@@ -234,13 +199,14 @@ class DRQNSelfPlay:
     # -- eval ---------------------------------------------------------------
     def _eval_vs(self, opponents: List[QNetRNN], n_games: int) -> float:
         """B vs opponents, the quota split evenly over them; an empty pool
-        counts as win rate 1. Through the fused recurrent gates, or
-        (``use_pallas_eval=false``) the match runner."""
+        counts as win rate 1. Through the fused recurrent gates for
+        ``use_pallas_eval`` and a net of kernel 3's architecture, else the
+        match runner (``pingpong_tpu/selfplay/loop_rnn.py:196``)."""
         if not opponents:
             return 1.0
         cfg = self.cfg
         params_b = self.learner.params_b(self.state)
-        if not cfg.use_pallas_eval:
+        if not (cfg.use_pallas_eval and kernel_architecture(cfg)):
             return self._match_eval_vs(opponents, params_b, n_games)
         kw = dict(n_envs=min(cfg.num_envs, 4096),
                   tile_rows=min(cfg.pallas_tile_rows, cfg.num_envs, 4096),

@@ -1,35 +1,52 @@
-"""DQN actor-learner: fused rollout chunk + PER push + fused update block.
+"""DQN actor-learner: rollout chunk + PER push + K Double-DQN updates.
 
-Port of the single-device fused path of ``pingpong_tpu/train/dqn.py``
-(``_rollout_pallas``, ``_update_pallas``, ``_train_iteration``). One
-``train_iteration``:
+Port of the single-device learner of ``pingpong_tpu/train/dqn.py``. The
+route is decided once, at construction, from the config alone
+(:func:`dqn_route`, the JAX learner's rule):
 
-1. re-binds opponents of the envs whose episode ended in the last chunk
-   (``opponent_binding``: "bucketed" fixed contiguous buckets, or
-   "sorted" iid draws with envs sorted by slot), then runs the whole
-   rollout chunk in one kernel (``ops/actor_rollout.py``); epsilon decays
-   once per chunk by ``decay ** episodes_done``;
-2. pushes the time-major flattened chunk into PER (``replay/per.py``);
-3. runs the K Double-DQN updates in one kernel (``ops/dqn_update.py``)
-   when the buffer holds at least a batch, then replays the emitted
-   ``(idx, new_p)`` stream into the raw priorities, last writer wins.
+* rollout: the fused kernel (``ops/actor_rollout.py``) when
+  ``use_pallas_rollout``, else the scan rollout, a loop of PyTorch ops
+  over the chunk's steps (``_rollout_scan``, the JAX ``lax.scan``);
+* update: the fused kernel (``ops/dqn_update.py``) over the block replay
+  layout when ``use_pallas_update`` and ``supports_fused_update(cfg)``,
+  else the autodiff update over the row layout (``_update_autodiff``).
+
+One ``train_iteration``:
+
+1. the rollout chunk. Fused: opponents of the envs whose episode ended in
+   the last chunk re-bind at the chunk boundary (``opponent_binding``:
+   "bucketed" fixed contiguous buckets, or "sorted" iid draws with envs
+   sorted by slot) and epsilon decays once per chunk by ``decay **
+   episodes_done``. Scan: epsilon decays per step, each env re-binds iid
+   the step its episode ends, every slot's Q is computed and the bound one
+   gathered;
+2. the time-major flattened chunk goes into PER (``replay/per.py``);
+3. K Double-DQN updates once the buffer holds a batch: the fused block,
+   whose emitted ``(idx, new_p)`` stream is replayed into the raw
+   priorities (last writer wins); or K autodiff steps (PER sample, IS-
+   weighted MSE, ``torch.autograd.grad``, the heads-only mask on the
+   gradient, flat Adam as optax computes it, priority write-back, target
+   sync).
 
 The train state is a mutable object updated in place. Parameters, target
 and the Adam moments are flat vectors in ``ravel_pytree`` order; the
 optimizer state ``[count, mu, nu]`` is exactly the JAX learner's flat
-``optax.adam`` state. Host-side randomness (rollout seeds, update
-uniforms and noise, opponent draws, env resets) comes from the state's
-CPU ``torch.Generator``, so a CPU run and a card run of the same seed draw
-the same numbers.
+``optax.adam`` state. Host-side randomness (rollout seeds and draws,
+update uniforms and noise, opponent draws, env resets) comes from the
+state's CPU ``torch.Generator``, so a CPU run and a card run of the same
+seed draw the same numbers.
 
-Not ported yet (ROADMAP.md): the XLA-scan rollout (``use_pallas_rollout=
-False``), the row-layout update path, and the multi-chip learners.
+Not ported yet (``ROADMAP.md``): the multi-device learners; on one device
+``learner_sharding="sharded"`` warns and runs this learner, as the JAX
+learner does with one data shard.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+import sys
+import warnings
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,10 +56,19 @@ from pingpong_tpu_torch.env.pong import (
     EnvParams,
     EnvState,
     env_params_from_config,
+    observe_a,
+    observe_b,
     reset,
+    step_autoreset_batch,
 )
+from pingpong_tpu_torch.models.noisy import NoisyNoise
+from pingpong_tpu_torch.models.policy import epsilon_greedy
 from pingpong_tpu_torch.models.qnet import (
     QNet,
+    QNetNoise,
+    argmax3,
+    flat_views,
+    qnet_apply,
     qnet_copy,
     qnet_from_flat,
     qnet_init,
@@ -62,11 +88,19 @@ from pingpong_tpu_torch.ops.dqn_update import (
 from pingpong_tpu_torch.replay.per import (
     PERBuffer,
     Transition,
+    beta_schedule,
     last_writer_wins,
     per_init,
     per_push,
+    per_sample,
+    per_update_priorities,
 )
+from pingpong_tpu_torch.train.optim import adam_
 from pingpong_tpu_torch.utils.device import resolve_device
+
+ONE_SHARD_WARNING = (
+    "learner_sharding='sharded' requested but the mesh has one data shard "
+    "— running the single-device learner")
 
 _M32 = 0xFFFFFFFF
 
@@ -106,14 +140,134 @@ class DQNMetrics(NamedTuple):
 
 
 class PreparedOpponents(NamedTuple):
-    """An opponent stack packed once per generation block (mirror-folded
-    for player A's seat). ``shared_trunk``: every slot carries slot 0's
-    feature trunk bit for bit (heads-only lineages), checked on the
-    host."""
+    """An opponent stack prepared once per generation block: ``packed``,
+    mirror-folded for player A's seat, for the fused rollout (None on the
+    scan route); ``raw``, every parameter stacked on a leading slot axis,
+    for the scan rollout (None on the fused route). ``shared_trunk``:
+    every slot carries slot 0's feature trunk bit for bit (heads-only
+    lineages), checked on the host."""
 
-    packed: PackedQNet
+    packed: Optional[PackedQNet]
     n_slots: int
     shared_trunk: bool
+    raw: Optional[Dict[str, torch.Tensor]] = None
+
+
+class DQNRoute(NamedTuple):
+    rollout: str     # "kernel" (kernel 1) or "scan"
+    update: str      # "kernel" (kernel 2, block replay) or "autodiff" (rows)
+
+
+def dqn_route(cfg: DQNConfig) -> DQNRoute:
+    """The JAX learner's routing (``pingpong_tpu/train/dqn.py:251-260``):
+    the fused update when ``use_pallas_update`` and the kernel takes the
+    shapes, else the row layout and the autodiff update; the fused rollout
+    when ``use_pallas_rollout``, else the scan rollout. A function of the
+    config alone: the CPU runs the kernels' plain versions on their
+    route."""
+    return DQNRoute(
+        rollout="kernel" if cfg.use_pallas_rollout else "scan",
+        update=("kernel" if cfg.use_pallas_update
+                and supports_fused_update(cfg) else "autodiff"))
+
+
+def bucketed_covers_pool(num_envs: int, ratio: float, n_members: int) -> bool:
+    """True when the pool-bucket span has at least one env per member;
+    below it :func:`bucket_opp_idx` rotates the member offset by phase, so
+    that no member is starved."""
+    boundary = int(round((1.0 - ratio) * num_envs))
+    return (num_envs - boundary) >= max(n_members, 1)
+
+
+def scan_step_draws(gen: torch.Generator, steps: int, n: int,
+                    pool_size: int, device) -> Dict[str, torch.Tensor]:
+    """The per-step draws of a scan rollout chunk (after the learner's
+    noise), up front from the CPU generator and moved to ``device`` once:
+    the epsilon-greedy uniforms and random actions, the serves' uniforms,
+    and the re-binding's gate uniforms and member picks."""
+    cpu = dict(
+        explore=torch.rand((steps, n), generator=gen),
+        random_a=torch.randint(0, 3, (steps, n), generator=gen,
+                               dtype=torch.int32),
+        serve=torch.rand((steps, 4, n), generator=gen),
+        gate=torch.rand((steps, n), generator=gen),
+        pick=torch.randint(0, max(pool_size, 1), (steps, n), generator=gen,
+                           dtype=torch.int32))
+    return {k: v.to(device) for k, v in cpu.items()}
+
+
+class EpisodeTally:
+    """A scan rollout's per-step episode bookkeeping, on the device: the
+    statistics ``[games_vs_a, wins_vs_a, games_vs_pool, wins_vs_pool]``
+    and the return sum of the episodes that end, epsilon decayed by
+    ``decay ** done`` (floored at ``min_epsilon``; ``eps`` is the value
+    the next step explores with), and iid re-binding of the ended envs."""
+
+    def __init__(self, cfg, epsilon: float, pool_size: int, device):
+        f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=device)
+        self.ratio, self.pool_size = cfg.selfplay.opponent_pool_ratio, \
+            pool_size
+        self.decay, self.min_eps = f32(cfg.epsilon_decay), \
+            f32(cfg.min_epsilon)
+        self.eps = f32(epsilon)
+        self.stats = torch.zeros((4,), dtype=torch.int32, device=device)
+        self.ret_sum = f32(0.0)
+        self.n_done = torch.zeros((), dtype=torch.int64, device=device)
+
+    def step(self, done, reward_b, ep_return, opp_idx, gate_u, pick):
+        """Tally one step; returns the next ``(ep_return, opp_idx)``."""
+        ep_ret = ep_return + reward_b
+        win = (ep_ret > 0.0) & done
+        vs_pool = opp_idx > 0
+        self.stats += torch.stack([(done & ~vs_pool).sum(),
+                                   (win & ~vs_pool).sum(),
+                                   (done & vs_pool).sum(),
+                                   (win & vs_pool).sum()]).to(torch.int32)
+        self.ret_sum += torch.where(done, ep_ret, 0.0).sum()
+        nd = done.sum()
+        self.n_done += nd
+        self.eps = torch.maximum(self.min_eps,
+                                 self.eps * self.decay ** nd.to(torch.float32))
+        use_pool = (gate_u < self.ratio) & (self.pool_size > 0)
+        new_opp = torch.where(use_pool, pick + 1, 0)
+        return (torch.where(done, 0.0, ep_ret),
+                torch.where(done, new_opp, opp_idx).to(torch.int32))
+
+
+def sorted_binding_draws(gen: torch.Generator, n: int, ratio: float,
+                         pool_size: int) -> torch.Tensor:
+    """``opponent_binding="sorted"``: iid slots for ``n`` envs, A (slot 0)
+    with probability ``1 - ratio``, else a uniform pool member."""
+    use_pool = (torch.rand((n,), generator=gen) < ratio) & (pool_size > 0)
+    pick = torch.randint(0, max(pool_size, 1), (n,), generator=gen,
+                         dtype=torch.int32)
+    return torch.where(use_pool, pick + 1, 0).to(torch.int32)
+
+
+def stack_qnets(members: Sequence[QNet]) -> Dict[str, torch.Tensor]:
+    """Every parameter of ``members`` stacked on a leading slot axis."""
+    return {name: torch.stack([m.get_parameter(name) for m in members])
+            for name, _ in members[0].named_parameters()}
+
+
+def stacked_q(st: Dict[str, torch.Tensor], obs: torch.Tensor):
+    """Eval-mode Q of every slot of a :func:`stack_qnets` stack on ``obs
+    (B, 7)``: ``(slots, B, 3)``."""
+    h = torch.relu(obs @ st["feat1.w"] + st["feat1.b"][:, None])
+    h = torch.relu(h @ st["feat2.w"] + st["feat2.b"][:, None])
+    v = h @ st["fc_v.w_mu"] + st["fc_v.b_mu"][:, None]
+    a = h @ st["fc_a.w_mu"] + st["fc_a.b_mu"][:, None]
+    return v + (a - a.mean(dim=-1, keepdim=True))
+
+
+def unpack_dqn_noise(noise: torch.Tensor) -> QNetNoise:
+    """``(K, 260)`` noise rows (``pack_dqn_noise``) -> a ``(K,)``-batched
+    QNetNoise."""
+    k, h = noise.shape[0], (noise.shape[1] - 4) // 4
+    return QNetNoise(
+        v=NoisyNoise(noise[:, :h].reshape(k, h, 1), noise[:, h:h + 1]),
+        a=NoisyNoise(noise[:, h + 1:4 * h + 1].reshape(k, h, 3),
+                     noise[:, 4 * h + 1:]))
 
 
 def bucket_opp_idx(num_envs: int, ratio: float, pool_size: int,
@@ -158,31 +312,35 @@ class DQNLearner:
             raise ValueError(
                 "one rollout chunk may not exceed replay capacity: "
                 f"{cfg.rollout_length}*{cfg.num_envs} > {cfg.memory_size}")
-        if not (cfg.use_pallas_rollout and cfg.use_pallas_update):
-            raise ValueError(
-                "the PyTorch port runs only the fused rollout and update "
-                "kernels: dqn.use_pallas_rollout and dqn.use_pallas_update "
-                "must be true")
-        if not supports_fused_update(cfg):
-            raise ValueError(
-                "the update kernel needs batch_size % 128 == 0 and <= 512, "
-                "memory_size a multiple of 128^2 and <= 2^20, and one "
-                "rollout chunk (num_envs*rollout_length, a multiple of "
-                "128) dividing memory_size; the row-layout update path is "
-                "not ported yet")
         if cfg.opponent_binding not in ("bucketed", "sorted"):
             raise ValueError(
                 f"unknown opponent_binding={cfg.opponent_binding!r}")
         if cfg.learner_sharding not in ("auto", "replicated", "sharded"):
             raise ValueError(
                 f"unknown learner_sharding={cfg.learner_sharding!r}")
+        if cfg.learner_sharding == "sharded":
+            warnings.warn(ONE_SHARD_WARNING, stacklevel=2)
         self.env_cfg = env_cfg
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.route = dqn_route(cfg)
         self.env_params: EnvParams = env_params_from_config(env_cfg)
         # shapes (and device) of the learner's QNet; values unused
         self.template = qnet_init(torch.Generator().manual_seed(0),
                                   device=self.device)
+        # heads-only training: a 0/1 mask on the raveled gradient
+        self._grad_mask = torch.cat([
+            torch.full((p.numel(),), 0.0 if cfg.train_heads_only
+                       and n.startswith("feat") else 1.0, device=self.device)
+            for n, p in self.template.named_parameters()])
+        print(f"[route:dqn] rollout {self.route.rollout}, update "
+              f"{self.route.update}, replay "
+              f"{'block' if self._block else 'row'} layout, on "
+              f"{self.device}", file=sys.stderr, flush=True)
+
+    @property
+    def _block(self) -> bool:
+        return self.route.update == "kernel"
 
     # -- parameters --------------------------------------------------------
     def params_b(self, state: DQNTrainState) -> QNet:
@@ -208,7 +366,8 @@ class DQNLearner:
             opt_count=0,
             opt_mu=torch.zeros_like(flat),
             opt_nu=torch.zeros_like(flat),
-            buffer=per_init(self.cfg.memory_size, device=dev),
+            buffer=per_init(self.cfg.memory_size, device=dev,
+                            block=self._block),
             env_state=reset(self.env_params, n, gen, dev),
             opp_idx=torch.zeros((n,), dtype=torch.int32, device=dev),
             ep_return=torch.zeros((n,), dtype=torch.float32, device=dev),
@@ -229,14 +388,16 @@ class DQNLearner:
         state.opt_count = 0
         state.opt_mu = torch.zeros_like(flat)
         state.opt_nu = torch.zeros_like(flat)
-        state.buffer = per_init(self.cfg.memory_size, device=self.device)
+        state.buffer = per_init(self.cfg.memory_size, device=self.device,
+                                block=self._block)
         state.epsilon = 1.0
         state.train_steps = 0
         state.frame_idx = 0
         return state
 
     def prepare_opponents(self, opp_stack: Sequence[QNet]) -> PreparedOpponents:
-        """Pack an opponent stack once per generation block and detect the
+        """Prepare an opponent stack once per generation block: packed for
+        the fused rollout, or stacked for the scan rollout; and detect the
         shared-trunk invariant (exact equality of every slot's feature
         weights with slot 0's)."""
         members = [qnet_copy(p).to(self.device) for p in opp_stack]
@@ -245,14 +406,37 @@ class DQNLearner:
                         getattr(members[0], layer).get_parameter(f))
             for p in members[1:] for layer in ("feat1", "feat2")
             for f in ("w", "b"))
-        return PreparedOpponents(packed=pack_qnet(members, mirror=True),
-                                 n_slots=len(members), shared_trunk=shared)
+        if self.route.rollout == "kernel":
+            return PreparedOpponents(packed=pack_qnet(members, mirror=True),
+                                     n_slots=len(members),
+                                     shared_trunk=shared)
+        return PreparedOpponents(packed=None, n_slots=len(members),
+                                 shared_trunk=shared,
+                                 raw=stack_qnets(members))
 
     # -- rollout -------------------------------------------------------------
     def _rollout(self, state: DQNTrainState, opp: PreparedOpponents,
                  pool_size: int, seed: Optional[int] = None):
-        """One fused rollout chunk and its PER push (in place on
-        ``state``). Returns ``(stat_counts (5,) ints, ret_sum)``."""
+        """One rollout chunk on the learner's route and its PER push (in
+        place on ``state``). Returns ``(stat_counts, ret_sum)``, the
+        counts ``[games_vs_a, wins_vs_a, games_vs_pool, wins_vs_pool,
+        ...]``."""
+        if self.route.rollout == "kernel":
+            counts, ret_sum, tr = self._rollout_kernel(state, opp, pool_size,
+                                                       seed)
+        else:
+            counts, ret_sum, tr = self._rollout_scan(state, opp, pool_size)
+        per_push(state.buffer, Transition(
+            obs=tr["obs"].reshape(-1, 7), action=tr["action"].reshape(-1),
+            reward=tr["reward"].reshape(-1),
+            next_obs=tr["next_obs"].reshape(-1, 7),
+            done=tr["done"].reshape(-1)), self.cfg.per_alpha)
+        return counts, ret_sum
+
+    def _rollout_kernel(self, state: DQNTrainState, opp: PreparedOpponents,
+                        pool_size: int, seed: Optional[int]):
+        """One fused rollout chunk (kernel 1), in place on ``state``.
+        Returns ``(stat_counts (5,) ints, ret_sum, transitions)``."""
         cfg = self.cfg
         n = cfg.num_envs
         dev = self.device
@@ -268,11 +452,7 @@ class DQNLearner:
                                     phase=state.episodes, device=dev)
             opp_idx = torch.where(state.ended, target, state.opp_idx)
         else:
-            use_pool = (torch.rand((n,), generator=gen) < ratio) & (
-                pool_size > 0)
-            pick = torch.randint(0, max(pool_size, 1), (n,), generator=gen,
-                                 dtype=torch.int32)
-            draw = torch.where(use_pool, pick + 1, 0).to(dev, torch.int32)
+            draw = sorted_binding_draws(gen, n, ratio, pool_size).to(dev)
             opp_idx = torch.where(state.ended, draw, state.opp_idx)
             perm = torch.sort(opp_idx, stable=True).indices
             opp_idx = opp_idx[perm]
@@ -298,20 +478,63 @@ class DQNLearner:
         state.ep_return = new_ret
         state.ended = ended
         state.episodes += n_done
-        flat = Transition(
-            obs=tr["obs"].reshape(-1, 7), action=tr["action"].reshape(-1),
-            reward=tr["reward"].reshape(-1),
-            next_obs=tr["next_obs"].reshape(-1, 7),
-            done=tr["done"].reshape(-1))
-        per_push(state.buffer, flat, cfg.per_alpha)
-        return counts, float(ret_sum)
+        return counts, float(ret_sum), tr
+
+    def _rollout_scan(self, state: DQNTrainState, opp: PreparedOpponents,
+                      pool_size: int):
+        """One scan rollout chunk (``pingpong_tpu/train/dqn.py:665-765``),
+        in place on ``state``: per step every slot's eval-mode Q on player
+        A's view with the bound slot's action gathered, the learner's
+        noisy Q and epsilon-greedy action, the env step with auto-reset,
+        the episode statistics, epsilon decayed by ``decay ** done`` and
+        iid re-binding of the envs whose episode ended. Returns
+        ``(stat_counts (4,) ints, ret_sum, transitions)``."""
+        cfg = self.cfg
+        dev = self.device
+        noise = qnet_sample_noise(state.generator, self.template,
+                                  batch=(cfg.rollout_length,))
+        dr = scan_step_draws(state.generator, cfg.rollout_length,
+                             cfg.num_envs, pool_size, dev)
+        learner = self.params_b(state)
+        tally = EpisodeTally(cfg, state.epsilon, pool_size, dev)
+        env, opp_idx, ep_return = state.env_state, state.opp_idx, \
+            state.ep_return
+        keys = ("obs", "action", "reward", "next_obs", "done")
+        tr = {k: [] for k in keys}
+        for t in range(cfg.rollout_length):
+            obs_a, obs_b = observe_a(env), observe_b(env)
+            act_all = argmax3(stacked_q(opp.raw, obs_a))           # (S, B)
+            act_a = act_all.gather(0, opp_idx.long()[None])[0]
+            nz = QNetNoise(
+                v=NoisyNoise(noise.v.eps_w[t], noise.v.eps_b[t]),
+                a=NoisyNoise(noise.a.eps_w[t], noise.a.eps_b[t]))
+            act_b = epsilon_greedy(None, qnet_apply(learner, obs_b, nz),
+                                   tally.eps, draws=(dr["explore"][t],
+                                                     dr["random_a"][t]))
+            env, out = step_autoreset_batch(
+                self.env_params, env, None, act_a, act_b,
+                self.env_cfg.max_episode_steps, u=dr["serve"][t])
+            for k, x in zip(keys, (obs_b, act_b, out.reward_b, out.obs_b,
+                                   out.done)):
+                tr[k].append(x)
+            ep_return, opp_idx = tally.step(out.done, out.reward_b,
+                                            ep_return, opp_idx,
+                                            dr["gate"][t], dr["pick"][t])
+        state.env_state = env
+        state.opp_idx = opp_idx
+        state.ep_return = ep_return
+        state.epsilon = float(tally.eps)
+        state.episodes += int(tally.n_done)
+        return ([int(c) for c in tally.stats.tolist()],
+                float(tally.ret_sum), {k: torch.stack(v)
+                                       for k, v in tr.items()})
 
     # -- update --------------------------------------------------------------
     def _update(self, state: DQNTrainState, u01=None, noise=None):
-        """K fused updates (in place on ``state``) when the buffer holds at
-        least a batch. ``u01 (K, bs)`` and ``noise (K, 260)`` are drawn
-        from the state's generator unless given. Returns ``(mean_loss,
-        updates_run)``."""
+        """K updates on the learner's route (in place on ``state``) when
+        the buffer holds at least a batch. ``u01 (K, bs)`` and ``noise (K,
+        260)`` are drawn from the state's generator unless given. Returns
+        ``(mean_loss, updates_run)``."""
         cfg = self.cfg
         bs, K = cfg.batch_size, cfg.updates_per_iteration
         gen = state.generator
@@ -320,14 +543,25 @@ class DQNLearner:
                 qnet_sample_noise(gen, self.template, batch=(K,)))
         if u01 is None:
             u01 = torch.rand((K, bs), generator=gen)
-        buf = state.buffer
-        if buf.size < bs:
+        if state.buffer.size < bs:
             return 0.0, 0
+        u01 = u01.to(self.device).contiguous()
+        noise = noise.to(self.device).contiguous()
+        run = (self._update_kernel if self.route.update == "kernel"
+               else self._update_autodiff)
+        losses, _ = run(state, u01, noise)
+        return float(losses.sum()) / K, K
+
+    def _update_kernel(self, state: DQNTrainState, u01, noise):
+        """K fused updates (kernel 2) over the block replay, then the
+        last-writer-wins replay of the emitted priorities. Returns
+        ``(losses (K,), sampled indices (K, bs))``."""
+        cfg = self.cfg
+        bs, K = cfg.batch_size, cfg.updates_per_iteration
+        buf = state.buffer
         newp, idx, losses = dqn_update_block(
             train_steps=state.train_steps, adam_count=state.opt_count,
-            frame_idx=state.frame_idx, size=buf.size,
-            u01=u01.to(self.device).contiguous(),
-            noise=noise.to(self.device).contiguous(),
+            frame_idx=state.frame_idx, size=buf.size, u01=u01, noise=noise,
             p_alpha=buf.p_alpha, chunk_sums=buf.chunk_sums,
             params=state.params, target=state.target, m=state.opt_mu,
             v=state.opt_nu, data=buf.data, K=K, bs=bs, lr=cfg.lr,
@@ -341,7 +575,78 @@ class DQNLearner:
         state.train_steps += K
         state.opt_count += K
         state.frame_idx += K
-        return float(losses.sum()) / K, K
+        return losses, idx.long()
+
+    # -- autodiff update over the row layout ----------------------------------
+    def _q_flat(self, flat: torch.Tensor, x: torch.Tensor,
+                noise: Optional[QNetNoise] = None):
+        """``qnet_apply`` with the parameters taken from the raveled vector
+        ``flat`` (views of it, so autograd reaches ``flat``)."""
+        return torch.func.functional_call(
+            self.template, flat_views(flat, self.template), (x, noise))
+
+    def _double_dqn_td(self, flat, flat_t, batch: Transition,
+                       noise: QNetNoise):
+        """TD residual of the Double-DQN target
+        (``pingpong_tpu/train/dqn.py:905-925``): the online net (with
+        ``noise``) over interleaved ``(obs_i, next_i)`` rows, its argmax at
+        s' into the target's eval-mode Q(s'), the target held constant."""
+        bs = batch.obs.shape[0]
+        pairs = torch.stack([batch.obs, batch.next_obs], dim=1).reshape(
+            2 * bs, -1)
+        q2 = self._q_flat(flat, pairs, noise)
+        q_a = q2[0::2].gather(1, batch.action.long()[:, None])[:, 0]
+        na = argmax3(q2[1::2].detach()).long()
+        with torch.no_grad():
+            nq = self._q_flat(flat_t, batch.next_obs).gather(
+                1, na[:, None])[:, 0]
+            y = batch.reward + self.cfg.gamma * nq * (
+                1.0 - batch.done.to(torch.float32))
+        return q_a - y
+
+    def _sync_target(self, state: DQNTrainState) -> None:
+        """Hard sync every ``target_update_interval`` updates, or Polyak
+        averaging with ``target_tau > 0``."""
+        cfg = self.cfg
+        if cfg.target_tau > 0.0:
+            state.target = state.target + cfg.target_tau * (
+                state.params - state.target)
+        elif state.train_steps % cfg.target_update_interval == 0:
+            state.target = state.params.clone()
+
+    def _update_autodiff(self, state: DQNTrainState, u01, noise):
+        """K autodiff updates over the row layout
+        (``pingpong_tpu/train/dqn.py:1106-1199``): per update the PER
+        sample with annealed beta, the loss ``mean(w td^2)``, its gradient
+        by ``torch.autograd.grad``, the heads-only mask on the gradient,
+        Adam, the priority write-back and the target sync. Returns
+        ``(losses (K,), sampled indices (K, bs))``."""
+        cfg = self.cfg
+        bs, K = cfg.batch_size, cfg.updates_per_iteration
+        buf = state.buffer
+        nz = unpack_dqn_noise(noise)
+        losses, sampled = [], []
+        for k in range(K):
+            state.frame_idx += 1
+            beta = beta_schedule(state.frame_idx, cfg.per_beta_start,
+                                 cfg.per_beta_frames)
+            smp = per_sample(buf, bs, beta, u01[k])
+            flat = state.params.detach().requires_grad_(True)
+            td = self._double_dqn_td(flat, state.target, smp.batch, QNetNoise(
+                v=NoisyNoise(nz.v.eps_w[k], nz.v.eps_b[k]),
+                a=NoisyNoise(nz.a.eps_w[k], nz.a.eps_b[k])))
+            loss = torch.mean(smp.weights * td * td)
+            (grad,) = torch.autograd.grad(loss, flat)
+            state.opt_count += 1
+            adam_(state.params, grad * self._grad_mask, state.opt_mu,
+                  state.opt_nu, state.opt_count, cfg.lr)
+            per_update_priorities(buf, smp.indices, td.detach().abs(),
+                                  cfg.per_alpha, cfg.per_eps)
+            state.train_steps += 1
+            self._sync_target(state)
+            losses.append(loss.detach())
+            sampled.append(smp.indices)
+        return torch.stack(losses), torch.stack(sampled)
 
     # -- one full iteration ------------------------------------------------
     def train_iteration(self, state: DQNTrainState, opp: PreparedOpponents,

@@ -284,7 +284,7 @@ def inputs_dqn(dev, seed=7, bs=256, K=64, cap=1 << 20):
     from pingpong_tpu_torch.replay.per import Transition, per_init, per_push
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    buf = per_init(cap, device=dev)
+    buf = per_init(cap, device=dev, block=True)
     m = min(262144, cap)
     for _ in range(cap // m):
         per_push(buf, Transition(

@@ -140,7 +140,7 @@ def check_actor_kernel(dev, args, kw):
 
 def update_kwargs(dev, heads_only, tau, interval, seed=2, bs=BS):
     rng = np.random.default_rng(seed)
-    buf = per_init(CAP, device=dev)
+    buf = per_init(CAP, device=dev, block=True)
     m = 2048
     batch = (rng.uniform(-1, 1, (m, 7)).astype(np.float32),
              rng.integers(0, 3, m).astype(np.int32),

@@ -6,8 +6,8 @@ the same sequence composed from the JAX package's public functions
 rollout seed, the window candidates and the update noise injected on both
 sides. Then the generation loop at tiny CPU shapes: a ``cli train-rnn
 --device cpu`` run that promotes, whose checkpoint the JAX package loads
-and plays identically; the fault path; the warm start; and the options
-the port refuses by name."""
+and plays identically; the fault path; the warm start; and the route
+the batch takes on the card."""
 
 import dataclasses
 import json
@@ -50,7 +50,7 @@ from pingpong_tpu_torch.models.qnet_rnn import QNetRNNNoise
 from pingpong_tpu_torch.ops.drqn_update import flat_noise
 from pingpong_tpu_torch.selfplay.loop_rnn import DRQNSelfPlay
 from pingpong_tpu_torch.selfplay.pool import load_params_any
-from pingpong_tpu_torch.train.drqn import DRQNLearner, check_kernel_batch
+from pingpong_tpu_torch.train.drqn import DRQNLearner, drqn_route
 from pingpong_tpu_torch.utils.metrics import MetricsLogger
 
 CONFIG = "configs/rnn.yaml"
@@ -238,21 +238,19 @@ def test_update_waits_for_the_episode_gate():
     assert torch.equal(state.params, before)
 
 
-def test_card_learner_refuses_a_batch_the_update_kernel_cannot_take(
-        monkeypatch):
+def test_card_learner_refuses_a_batch_the_update_kernel_cannot_take():
     """On the card the update kernel takes a batch that is a multiple of
-    4: construction refuses 6 by name, before any launch. The CPU's plain
-    update runs it, as the JAX learner's XLA update does."""
+    4: the route for batch 6 is the autodiff update there, batch 8 gets
+    kernel 4, and the CPU's plain version takes any batch. The route is a
+    function of the config and the device, fixed at construction; the CPU
+    learner at batch 6 runs its updates."""
     cfg = load_config(CONFIG)
     dq = dataclasses.replace(cfg.drqn, **{**SMALL, "batch_size": 6})
-    with pytest.raises(ValueError, match=r"drqn\.batch_size"):
-        check_kernel_batch(dq, torch.device("cuda"))
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(ValueError, match=r"drqn\.batch_size"):
-        DRQNLearner(cfg.env, dq, device="cuda")
-    check_kernel_batch(dataclasses.replace(dq, batch_size=8),
-                       torch.device("cuda"))
-    monkeypatch.undo()
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert drqn_route(dq, cuda) == ("kernel", "autodiff")
+    assert drqn_route(dataclasses.replace(dq, batch_size=8), cuda) \
+        == ("kernel", "kernel")
+    assert drqn_route(dq, cpu) == ("kernel", "kernel")
 
     learner = DRQNLearner(cfg.env, dq, device="cpu")
     state = learner.init_state(1)
@@ -278,10 +276,10 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="--device cpu"):
         cli.main(["train-rnn", "--config", CONFIG, "--workdir", str(tmp_path),
                   *CLI_TINY])
-    # an option the port does not run yet is refused by name
-    assert cli.main(["train-rnn", "--config", CONFIG, "--workdir",
-                     str(tmp_path), "--device", "cpu",
-                     "drqn.burn_in_length=4"]) == 2
+    # burn-in runs the autodiff update (on the CPU when asked)
+    burn = DRQNLearner(cfg.env, dataclasses.replace(
+        cfg.drqn, **SMALL, burn_in_length=4), device="cpu")
+    assert burn.route == ("kernel", "autodiff")
 
 
 def test_cli_train_rnn_cpu_promotes_and_jax_loads_the_checkpoint(tmp_path,
@@ -339,21 +337,3 @@ def test_fault_path_resets_learner_and_keeps_the_ring(tmp_path):
     assert st.epsilon == 1.0 and st.opt_count == 0
     assert not st.opt_mu.any() and torch.equal(st.params, st.target)
     assert st.buffer.ep_count > 0 and st.train_steps > 0   # ring kept
-
-
-@pytest.mark.parametrize("override,name", [
-    (dict(lstm_layers=2), "drqn.lstm_layers=1"),
-    (dict(head_hidden_dim=0), "drqn.head_hidden_dim > 0"),
-    (dict(lstm_hidden_dim=256), "drqn.lstm_hidden_dim"),
-    (dict(burn_in_length=4), "drqn.burn_in_length=0"),
-    (dict(use_pallas_update=False), "drqn.use_pallas_rollout"),
-    (dict(opponent_binding="sorted"), "drqn.opponent_binding=bucketed"),
-    (dict(episode_uniform_sampling=True),
-     "drqn.episode_uniform_sampling=false"),
-    (dict(learner_sharding="sharded"), "drqn.learner_sharding=auto"),
-])
-def test_unported_options_are_refused_by_name(tmp_path, override, name):
-    cfg = load_config(CONFIG)
-    dq = dataclasses.replace(cfg.drqn, **{**SMALL, **override})
-    with pytest.raises(ValueError, match=name.replace(".", r"\.")):
-        DRQNSelfPlay(cfg.env, dq, workdir=str(tmp_path), device="cpu")

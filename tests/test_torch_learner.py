@@ -225,10 +225,10 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="--device cpu"):
         cli.main(["train", "--config", CONFIG, "--workdir", str(tmp_path),
                   "dqn.save_latest_checkpoint_interval_steps=0"])
-    # an option the port does not run yet is refused by name
-    assert cli.main(["train", "--config", CONFIG, "--workdir",
-                     str(tmp_path), "--device", "cpu",
-                     "dqn.use_pallas_rollout=false"]) == 2
+    # the XLA-scan option runs the scan rollout (on the CPU when asked)
+    scan = DQNLearner(cfg.env, dataclasses.replace(
+        cfg.dqn, use_pallas_rollout=False), device="cpu")
+    assert scan.route == ("scan", "kernel")
 
 
 def test_cli_train_cpu_promotes_and_jax_loads_the_checkpoint(tmp_path,

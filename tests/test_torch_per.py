@@ -36,7 +36,7 @@ def test_push_and_sample_match_jax(m, pushes):
     cap = 4096
     rng = np.random.default_rng(m)
     jb = jper.per_init(cap, block=True)
-    tb = tper.per_init(cap)
+    tb = tper.per_init(cap, block=True)
     for i in range(pushes):
         b = batch(rng, m)
         jb = jper.per_push(jb, j_tr(b), ALPHA)
