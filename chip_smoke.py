@@ -8,7 +8,9 @@
    function has a stack frame;
 2. holds each kernel against its plain PyTorch version on the card, at its
    paths' shapes (the training configs' and the bench's, and the update
-   kernel at batch 512 too, update by update), with the stated
+   kernel at batch 512 too, update by update; kernels 1 and 3 also on a
+   rank's block with ``tile0 != 0``, whose rank blocks must equal the
+   whole call's bit for bit, ``[tile0:*]``), with the stated
    tolerances (kernel 5 also bit for bit), checks kernel 5's division and
    sine and cosine against the card's own on every float they take, and
    checks that every kernel gives bit-identical results run to run;
@@ -44,9 +46,20 @@
    rollout (``[main:qnet_scan]``), burn-in with episode-uniform windows and
    sorted binding (``[main:drqn_burnin]``) and two LSTM layers
    (``[main:drqn_stacked]``), each with the kernels it must and must not
-   launch;
+   launch; then the multi-GPU learner: 2 ranks sharing the card over gloo
+   (``--dist-worker``, this script as the rank process) run 3 iterations
+   of each learner layout at the shipped configs (``[dist:*]``:
+   replicated bit-equal to the single-process iteration, sharded within
+   rtol 2e-4 / atol 1e-6 of a single-process emulation and the ranks
+   bit-equal, kernels 1/3 once an iteration and kernels 2/4 once or never,
+   the collectives' spans), ``cli train --distributed`` under torchrun
+   (``[dist:cli]``; 2 ranks on 2 cards over NCCL where there are 2, else a
+   line saying so) and the weak-scaling bench's ladder on the cards
+   present (``[scaling]``);
 4. times each kernel (CUDA events, warm) beside its plain version and its
-   bound, and a train iteration of each path end to end (the four
+   bound, the DQN roofline tool's stages at the bench's shape with kernel
+   2's accounting, whose bound must be the kernel row's (``[roofline]``),
+   and a train iteration of each path end to end (the four
    non-fused ones beside the fused path's, and the burn-in price), and
    profiles
    where an iteration's and the bench's device time goes
@@ -76,8 +89,10 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import re
 import shutil
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -147,16 +162,16 @@ def actor_inputs(seed, n_slots, shared, eval_mode, B, dev):
         shared=shared, eval_mode=eval_mode)
 
 
-def run_actor(fn, inp, steps, seed=11):
+def run_actor(fn, inp, steps, seed=11, tile=None, tile0=0):
     return fn(ENV_PARAMS, inp["state0"], inp["opp_idx"], inp["ep_return"],
               inp["learner"], inp["opponents"], seed=seed,
               eps_i=0 if inp["eval_mode"] else 300000, steps=steps,
               max_episode_steps=0 if inp["eval_mode"] else MAX_EP_STEPS,
-              tile_rows=TILE, emit_transitions=not inp["eval_mode"],
-              shared_trunk=inp["shared"])
+              tile_rows=tile or TILE, emit_transitions=not inp["eval_mode"],
+              shared_trunk=inp["shared"], tile0=tile0)
 
 
-def compare_actor(name, inp):
+def compare_actor(name, inp, **tiles):
     """16-step chunk: discrete streams equal on >= 99.9 % of (env, step),
     f32 within 1e-5 on matching envs; 64-step games and wins within 1 %."""
     from pingpong_tpu_torch.ops.actor_rollout import (
@@ -164,8 +179,8 @@ def compare_actor(name, inp):
         actor_rollout_plain,
     )
 
-    sk, rk, tk, stk = run_actor(actor_rollout_cuda, inp, 16)
-    sp, rp, tp, stp = run_actor(actor_rollout_plain, inp, 16)
+    sk, rk, tk, stk = run_actor(actor_rollout_cuda, inp, 16, **tiles)
+    sp, rp, tp, stp = run_actor(actor_rollout_plain, inp, 16, **tiles)
     torch.cuda.synchronize()
     if tk is not None:
         eq = ((tk["action"] == tp["action"]) & (tk["reward"] == tp["reward"])
@@ -187,8 +202,8 @@ def compare_actor(name, inp):
         f32_err = max(f32_err, float(
             (getattr(sk, f) - getattr(sp, f)).abs()[ok_env].max()))
     f32_err = max(f32_err, float((rk - rp).abs()[ok_env].max()))
-    _, _, _, stk64 = run_actor(actor_rollout_cuda, inp, 64)
-    _, _, _, stp64 = run_actor(actor_rollout_plain, inp, 64)
+    _, _, _, stk64 = run_actor(actor_rollout_cuda, inp, 64, **tiles)
+    _, _, _, stp64 = run_actor(actor_rollout_plain, inp, 64, **tiles)
     gk, gp = float(stk64[0].sum() + stk64[2].sum()), float(
         stp64[0].sum() + stp64[2].sum())
     wk, wp = float(stk64[1].sum() + stk64[3].sum()), float(
@@ -441,22 +456,6 @@ def check_no_spills(logs, names):
         check(stores and not any(stores), f"{name} spills registers")
 
 
-def update_bound_ms(bs, K, nc, heads_only, idx):
-    fwd = 2 * (7 * 64 + 64 * 64) + 2 * 4 * 64
-    flops = 3 * bs * fwd + 2 * bs * 4 * 64 + nc + bs * 128
-    if not heads_only:
-        flops += bs * 2 * (4 * 64 + 2 * 64 * 64 + 7 * 64)
-    flops = (flops + 12 * 5192) * K
-    chunks = int(torch.unique(idx.long() // 128).numel())
-    slots = int(torch.unique(idx.long()).numel())
-    nbytes = (4 * K * bs + 4 * K * 260 + 8 * 4 * 5192 + 4 * nc
-              + 512 * chunks + 64 * slots + 4 * slots + 4 * chunks
-              + 8 * K * bs + 4 * K)
-    t_ops, t_bytes = flops / F32_PEAK, nbytes / HBM_RATE
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes \
-        else "bytes"
-
-
 # ---------------------------------------------------------------------------
 # main path
 # ---------------------------------------------------------------------------
@@ -514,16 +513,17 @@ def rnn_inputs(seed, n_slots, eval_mode, dev, B=None, rebind=False):
         opponents=rr.pack_qnet_rnn(members, mirror=True), eval_mode=eval_mode)
 
 
-def run_rnn(fn, inp, steps, seed=11):
+def run_rnn(fn, inp, steps, seed=11, tile=None, tile0=0):
     return fn(RNN_ENV, inp["state0"], inp["opp_idx"], inp["ep_return"],
               inp["hid"], inp["learner"], inp["sigma"], inp["opponents"],
               seed=seed, eps_i=0 if inp["eval_mode"] else 300000,
               steps=steps, max_episode_steps=RNN_CFG.max_episode_steps,
-              tile_rows=min(RNN_CFG.pallas_tile_rows, RNN_CFG.num_envs),
-              emit_transitions=not inp["eval_mode"])
+              tile_rows=tile or min(RNN_CFG.pallas_tile_rows,
+                                    RNN_CFG.num_envs),
+              emit_transitions=not inp["eval_mode"], tile0=tile0)
 
 
-def compare_rnn(name, inp):
+def compare_rnn(name, inp, **tiles):
     """16-step chunk: discrete streams equal on >= 99.9 % of (env, step);
     on matching envs, env floats within 1e-5 and the LSTM streams within
     1e-4 (the gate sums of 256 products run in another order, with FMAs,
@@ -534,8 +534,8 @@ def compare_rnn(name, inp):
         recurrent_rollout_plain,
     )
 
-    sk, rk, hk, tk, stk = run_rnn(recurrent_rollout_cuda, inp, 16)
-    sp, rp, hp, tp, stp = run_rnn(recurrent_rollout_plain, inp, 16)
+    sk, rk, hk, tk, stk = run_rnn(recurrent_rollout_cuda, inp, 16, **tiles)
+    sp, rp, hp, tp, stp = run_rnn(recurrent_rollout_plain, inp, 16, **tiles)
     torch.cuda.synchronize()
     if tk is not None:
         eq = ((tk["action"] == tp["action"]) & (tk["reward"] == tp["reward"])
@@ -556,8 +556,8 @@ def compare_rnn(name, inp):
             (getattr(sk, f) - getattr(sp, f)).abs()[ok_env].max()))
     f32_err = max(f32_err, float((rk - rp).abs()[ok_env].max()))
     hid_err = float((hk - hp).abs()[:, ok_env].max())
-    _, _, _, _, stk128 = run_rnn(recurrent_rollout_cuda, inp, 128)
-    _, _, _, _, stp128 = run_rnn(recurrent_rollout_plain, inp, 128)
+    _, _, _, _, stk128 = run_rnn(recurrent_rollout_cuda, inp, 128, **tiles)
+    _, _, _, _, stp128 = run_rnn(recurrent_rollout_plain, inp, 128, **tiles)
     gk, gp = float(stk128[0].sum() + stk128[2].sum()), float(
         stp128[0].sum() + stp128[2].sum())
     wk, wp = float(stk128[1].sum() + stk128[3].sum()), float(
@@ -1857,6 +1857,549 @@ def time_rollouts(resident_check=False):
     return times
 
 
+# ---------------------------------------------------------------------------
+# the multi-GPU learner: tile0, ranks sharing the card, the CLI, scaling
+# ---------------------------------------------------------------------------
+
+DIST_CASES = ("qnet_replicated", "qnet_sharded", "drqn_replicated",
+              "drqn_sharded")
+DIST_RANKS = 2
+DIST_ITERS = 3
+DIST_RTOL, DIST_ATOL = 2e-4, 1e-6
+
+
+def block_inputs(inp, sl):
+    """A rank's block of a rollout kernel's inputs."""
+    out = dict(inp, state0=type(inp["state0"])(*(x[sl].contiguous()
+                                                 for x in inp["state0"])),
+               opp_idx=inp["opp_idx"][sl].contiguous(),
+               ep_return=inp["ep_return"][sl].contiguous())
+    if "hid" in inp:
+        out["hid"] = inp["hid"][:, sl].contiguous()
+    return out
+
+
+def rollout_leaves(out):
+    """The tensors of a rollout kernel's outputs, each with its env axis
+    (0 for per-env vectors, 1 for ``(rows, B)`` and ``(T, B, ...)``)."""
+    leaves = []
+    for x in out:
+        if isinstance(x, dict):
+            leaves += [x[k] for k in sorted(x)]
+        elif isinstance(x, tuple):
+            leaves += list(x)
+        elif x is not None:
+            leaves.append(x)
+    return leaves
+
+
+def tile0_check(kind):
+    """``[tile0:actor]`` / ``[tile0:rnn]``: the train chunk of
+    ``configs/qnet.yaml`` (kernel 1) or ``configs/rnn.yaml`` (kernel 3) cut
+    into 2 and 4 rank blocks, each run with its ``tile0``: bit-equal to the
+    same block of the whole call (at the blocks' tile, ``min(tile_rows,
+    block)``); and a block with ``tile0 != 0`` against the plain version
+    with the ``compare_*`` tolerances."""
+    from pingpong_tpu_torch.ops import actor_rollout as ar
+    from pingpong_tpu_torch.ops import recurrent_rollout as rr
+
+    actor = kind == "actor"
+    inp = (actor_inputs(170, 2, True, False, QNET_B, DEV) if actor
+           else rnn_inputs(370, 2, False, DEV))
+    run, fn = ((run_actor, ar.actor_rollout_cuda) if actor
+               else (run_rnn, rr.recurrent_rollout_cuda))
+    B = inp["opp_idx"].shape[0]
+    steps = MAX_ROLLOUT if actor else RNN_CFG.rollout_length
+    tile_rows = TILE if actor else min(RNN_CFG.pallas_tile_rows, B)
+    diffs = {}
+    for n in (2, 4):
+        per = B // n
+        tile = min(tile_rows, per)
+        whole = rollout_leaves(run(fn, inp, steps, tile=tile))
+        bad = 0
+        for r in range(n):
+            sl = slice(r * per, (r + 1) * per)
+            part = rollout_leaves(run(fn, block_inputs(inp, sl), steps,
+                                      tile=tile, tile0=r * (per // tile)))
+            for w, p in zip(whole, part):
+                w = w[sl] if w.dim() == 1 else w[:, sl]
+                bad += int(not torch.equal(w, p))
+        diffs[n] = bad
+    print(f"[tile0:{kind}] {B} envs x {steps} steps cut into 2 and 4 rank "
+          f"blocks, each with its tile0: outputs differing from the whole "
+          f"call's block {diffs} (0 = bit-equal) | {CARD}", flush=True)
+    check(not any(diffs.values()),
+          f"tile0 {kind}: a rank block differs from the whole call")
+    per = B // 2
+    tile = min(tile_rows, per)
+    compare = compare_actor if actor else compare_rnn
+    return compare(f"tile0_rank1_of_2", block_inputs(
+        inp, slice(per, B)), tile=tile, tile0=per // tile)
+
+
+def state_leaves(state):
+    """``{path: leaf}`` of a train state on the host (a generator as its
+    state bytes)."""
+    from pingpong_tpu_torch.checkpoint.full_state import flatten_tree
+
+    out = {}
+    for k, v in flatten_tree(state).items():
+        if isinstance(v, torch.Generator):
+            v = v.get_state()
+        out[k] = v.detach().cpu().clone() if isinstance(v, torch.Tensor) \
+            else v
+    return out
+
+
+def dist_case(case, cfg, rcfg):
+    """``(kind, env config, learner config)`` of a ``[dist:*]`` case: the
+    shipped config at its widths and batch, in the case's layout."""
+    kind, layout = case.split("_")
+    env, c = (cfg.env, cfg.dqn) if kind == "qnet" else (rcfg.env, rcfg.drqn)
+    return kind, env, dataclasses.replace(c, learner_sharding=layout)
+
+
+def dist_learner(kind, env, c, mesh=None):
+    from pingpong_tpu_torch.models.qnet import qnet_init
+    from pingpong_tpu_torch.train.dqn import DQNLearner
+    from pingpong_tpu_torch.train.drqn import DRQNLearner
+
+    learner = (DQNLearner if kind == "qnet" else DRQNLearner)(
+        env, c, device="cuda", mesh=mesh)
+    g = torch.Generator().manual_seed(21)
+    nets = [qnet_init(g) if kind == "qnet" else learner.init_params(g)
+            for _ in range(2)]
+    return learner, learner.init_state(3), learner.prepare_opponents(nets)
+
+
+def dist_worker(spec) -> int:
+    """One rank of the ``[dist:*]`` phases (``--dist-worker``): every case
+    on this rank, two ranks sharing the card over gloo (NCCL takes one card
+    a rank); writes its results for the parent."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    a = json.loads(spec)
+    cfg, rcfg = setup(ROOT)
+    from pingpong_tpu_torch.ops import actor_rollout as ar
+    from pingpong_tpu_torch.ops import dqn_update as du
+    from pingpong_tpu_torch.ops import drqn_update as dru
+    from pingpong_tpu_torch.ops import recurrent_rollout as rr
+    from pingpong_tpu_torch.parallel.mesh import (
+        create_mesh,
+        initialize_distributed,
+    )
+
+    initialize_distributed(backend="gloo")   # ranks share one card
+    mesh = create_mesh()
+    kernels = [ar.KERNEL, du.KERNEL, rr.KERNEL, dru.KERNEL]
+    out = {}
+    for case in a["cases"]:
+        kind, env, c = dist_case(case, cfg, rcfg)
+        learner, st, opp = dist_learner(kind, env, c, mesh)
+        for _ in range(a["warm"][case]):
+            learner.train_iteration(st, opp, 1)
+        for k in kernels:
+            k.launches = 0
+        updates = []
+        for _ in range(DIST_ITERS):
+            _, m = learner.train_iteration(st, opp, 1)
+            updates.append(m.updates_run)
+        torch.cuda.synchronize()
+        res = dict(launches={k.name: k.launches for k in kernels},
+                   updates=updates, sharded=learner.sharded,
+                   local={k: v.detach().cpu().clone() for k, v in (
+                       ("params", st.params), ("target", st.target),
+                       ("opt_mu", st.opt_mu), ("opt_nu", st.opt_nu))})
+        whole = learner.gather_state(st)
+        if mesh.rank == 0:
+            res["global"] = state_leaves(whole)
+        del whole
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(DIST_ITERS):
+            learner.train_iteration(st, opp, 1)
+        torch.cuda.synchronize()
+        dist.barrier()
+        res["it_ms"] = (time.perf_counter() - t0) / DIST_ITERS * 1e3
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            learner.train_iteration(st, opp, 1)
+            torch.cuda.synchronize()
+        res["collectives"] = {
+            e.key: (e.count, e.cpu_time_total / 1e3)
+            for e in prof.key_averages() if e.key.startswith("mesh::")}
+        out[case] = res
+        del learner, st, opp
+        torch.cuda.empty_cache()
+    torch.save(out, Path(a["out"]) / f"rank{mesh.rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def emulate_sharded_dqn(env, c, iters, n=DIST_RANKS):
+    """A single-process emulation of the sharded DQN layout on ``n``
+    ranks: the whole batch's rollout (kernel 1, the same draws), each
+    rank's block pushed into its ring of ``cap / n`` rows, per update each
+    rank's ``bs / n`` rows with raw weights, the gradients and loss sums
+    added in rank order, the weights' maximum, Adam, the local write-backs
+    and the target sync. Returns the whole state's leaves."""
+    from pingpong_tpu_torch.models.noisy import NoisyNoise
+    from pingpong_tpu_torch.models.qnet import QNetNoise, qnet_sample_noise
+    from pingpong_tpu_torch.ops.dqn_update import pack_dqn_noise
+    from pingpong_tpu_torch.replay.per import (
+        PERBuffer,
+        Transition,
+        beta_schedule,
+        per_push,
+        per_sample,
+        per_update_priorities,
+    )
+    from pingpong_tpu_torch.train.dqn import unpack_dqn_noise
+    from pingpong_tpu_torch.train.optim import adam_
+
+    L, st, opp = dist_learner("qnet", env, dataclasses.replace(
+        c, learner_sharding="replicated", use_pallas_update=False))
+    cap, nch = c.memory_size // n, st.buffer.chunk_sums.shape[0] // n
+    B_l, K, bs_l = c.num_envs // n, c.updates_per_iteration, c.batch_size // n
+    b = st.buffer
+    rings = [PERBuffer(*(x[s * m:(s + 1) * m].clone() for x, m in (
+        (b.data, cap), (b.prios, cap), (b.p_alpha, cap),
+        (b.chunk_sums, nch)))) for s in range(n)]
+    for _ in range(iters):
+        _, _, tr = L._rollout_kernel(st, opp, 1, None)
+        for s, ring in enumerate(rings):
+            blk = {k: v[:, s * B_l:(s + 1) * B_l] for k, v in tr.items()}
+            per_push(ring, Transition(
+                obs=blk["obs"].reshape(-1, 7), action=blk["action"].reshape(-1),
+                reward=blk["reward"].reshape(-1),
+                next_obs=blk["next_obs"].reshape(-1, 7),
+                done=blk["done"].reshape(-1)), c.per_alpha)
+        nz = unpack_dqn_noise(pack_dqn_noise(qnet_sample_noise(
+            st.generator, L.template, batch=(K,))).to(DEV))
+        u01 = torch.rand((n, K, bs_l), generator=st.generator).to(DEV)
+        if rings[0].size < bs_l:
+            continue
+        for k in range(K):
+            st.frame_idx += 1
+            beta = beta_schedule(st.frame_idx, c.per_beta_start,
+                                 c.per_beta_frames)
+            noise = QNetNoise(v=NoisyNoise(nz.v.eps_w[k], nz.v.eps_b[k]),
+                              a=NoisyNoise(nz.a.eps_w[k], nz.a.eps_b[k]))
+            g_sum, wmax, writes = 0.0, None, []
+            for s, ring in enumerate(rings):
+                smp = per_sample(ring, bs_l, beta, u01[s, k], normalize=False)
+                flat = st.params.detach().requires_grad_(True)
+                td = L._double_dqn_td(flat, st.target, smp.batch, noise)
+                (g,) = torch.autograd.grad(torch.sum(smp.weights * td * td),
+                                           flat)
+                g_sum = g_sum + g
+                w = smp.weights.max()
+                wmax = w if wmax is None else torch.maximum(wmax, w)
+                writes.append((smp.indices, td.detach().abs()))
+            scale = 1.0 / (c.batch_size * torch.clamp(wmax, min=1e-30))
+            st.opt_count += 1
+            adam_(st.params, g_sum * scale * L._grad_mask, st.opt_mu,
+                  st.opt_nu, st.opt_count, c.lr)
+            for ring, (idx, td_abs) in zip(rings, writes):
+                per_update_priorities(ring, idx, td_abs, c.per_alpha,
+                                      c.per_eps)
+            st.train_steps += 1
+            L._sync_target(st)
+    st.buffer = PERBuffer(*(torch.cat([getattr(r, f) for r in rings])
+                            for f in ("data", "prios", "p_alpha",
+                                      "chunk_sums")),
+                          pos=rings[0].pos, size=rings[0].size)
+    return state_leaves(st)
+
+
+def emulate_sharded_drqn(env, c, iters, n=DIST_RANKS):
+    """A single-process emulation of the sharded DRQN layout on ``n``
+    ranks: the whole batch's rollout (kernel 3), each rank's envs pushed
+    into its rows of the ring and the admissions added into the global
+    count, each rank's ``K * bs / n`` windows, per update the gradients and
+    the masked mean's numerator and denominator added in rank order, the
+    clip, Adam and the target sync. Returns the whole state's leaves."""
+    from pingpong_tpu_torch.models.noisy import NoisyNoise
+    from pingpong_tpu_torch.models.qnet_rnn import (
+        QNetRNNNoise,
+        qnet_rnn_sample_noise,
+    )
+    from pingpong_tpu_torch.ops.drqn_update import flat_noise, unflat_noise
+    from pingpong_tpu_torch.replay.sequence import (
+        SeqSample,
+        draw_candidates,
+        seq_push_rollout,
+        seq_sample,
+    )
+    from pingpong_tpu_torch.train.optim import adam_, clip_by_global_norm
+
+    check(c.burn_in_length == 0, "the emulation takes no burn-in")
+    L, st, opp = dist_learner("drqn", env, dataclasses.replace(
+        c, learner_sharding="replicated", use_pallas_update=False))
+    B_l, K, bs_l, T = (c.num_envs // n, c.updates_per_iteration,
+                       c.batch_size // n, c.trace_length)
+    rows = ("data", "ep_id", "cur_ep_id", "cur_ep_len")
+    b = st.buffer
+    rings = [dataclasses.replace(b, **{f: getattr(b, f)[s * B_l:(s + 1) * B_l]
+                                       .clone() for f in rows})
+             for s in range(n)]
+    ep_count = b.ep_count
+    for _ in range(iters):
+        _, _, tr = L._rollout_kernel(st, opp, 1, None)
+        for s, ring in enumerate(rings):
+            ring.ep_count = 0
+            seq_push_rollout(ring, *(tr[k][:, s * B_l:(s + 1) * B_l] for k in
+                                     ("obs", "action", "reward", "done")), T)
+            ep_count += ring.ep_count
+        noise = flat_noise(qnet_rnn_sample_noise(st.generator, L.template,
+                                                 batch=(K,))).to(DEV)
+        cands = [draw_candidates(r, st.generator, K * bs_l, T) for r in rings]
+        if not ep_count > c.batch_size * c.min_episodes_for_training_start:
+            continue
+        smps = [seq_sample(r, K * bs_l, T, *cd) for r, cd in zip(rings, cands)]
+        nz = unflat_noise(noise, L.template)
+        qts = [L._target_q(st.target, s.next_obs)[0] for s in smps]
+        synced = c.target_tau > 0.0
+        for k in range(K):
+            sl = slice(k * bs_l, (k + 1) * bs_l)
+            noise_k = QNetRNNNoise(*(None if x is None else NoisyNoise(
+                x.eps_w[k], x.eps_b[k]) for x in nz))
+            g_sum, num, den = 0.0, 0.0, 0.0
+            for smp, qt in zip(smps, qts):
+                sk = SeqSample(*(x[sl] for x in smp))
+                q = (L._target_q(st.target, sk.next_obs)[0] if synced
+                     else qt[sl])
+                w = sk.valid.to(torch.float32)
+                flat = st.params.detach().requires_grad_(True)
+                nm = torch.sum(w * L._drqn_huber(flat, sk, noise_k, q,
+                                                 L._zero_hidden(bs_l)))
+                (g,) = torch.autograd.grad(nm, flat)
+                g_sum, num, den = g_sum + g, num + nm.detach(), den + w.sum()
+            st.opt_count += 1
+            adam_(st.params, clip_by_global_norm(
+                g_sum / torch.clamp(den, min=1.0), c.grad_clip_norm),
+                st.opt_mu, st.opt_nu, st.opt_count, c.lr)
+            st.train_steps += 1
+            if c.target_tau > 0.0:
+                st.target = st.target + c.target_tau * (st.params - st.target)
+            elif st.train_steps % c.target_update_interval == 0:
+                st.target = st.params.clone()
+                synced = True
+    st.buffer = dataclasses.replace(
+        b, **{f: torch.cat([getattr(r, f) for r in rings]) for f in rows},
+        cursor=rings[0].cursor, ep_count=ep_count)
+    return state_leaves(st)
+
+
+def dist_reference(case, cfg, rcfg):
+    """The single-process run a case is held against, from the same seed:
+    the learner itself without a mesh (replicated), or the emulation
+    (sharded), over ``warm + DIST_ITERS`` iterations, ``warm`` the
+    iterations before the first update block (the single-process learner
+    finds it). Returns ``(warm, leaves)``."""
+    kind, env, c = dist_case(case, cfg, rcfg)
+    learner, st, opp = dist_learner(kind, env, dataclasses.replace(
+        c, learner_sharding="replicated"))
+    warm = 0
+    while learner.train_iteration(st, opp, 1)[1].updates_run == 0:
+        warm += 1
+        check(warm < 40, f"{case}: the update block never ran")
+    if case.endswith("replicated"):
+        for _ in range(DIST_ITERS - 1):
+            learner.train_iteration(st, opp, 1)
+        return warm, state_leaves(st)
+    if kind == "qnet":   # the rank rings hold a batch after one push
+        warm = 0
+    del learner, st, opp
+    emulate = emulate_sharded_dqn if kind == "qnet" else emulate_sharded_drqn
+    return warm, emulate(env, c, warm + DIST_ITERS)
+
+
+def leaves_close(got, want, exact):
+    """Leaf paths of ``got`` that are not equal to ``want`` (bit for bit
+    with ``exact``, else floats within the JAX test's tolerances)."""
+    bad = [k for k in set(got) ^ set(want)]
+    for k, v in want.items():
+        g = got.get(k)
+        if not isinstance(v, torch.Tensor):
+            bad += [] if g == v else [k]
+        elif exact or not v.is_floating_point():
+            bad += [] if torch.equal(g, v) else [k]
+        elif not torch.allclose(g, v, rtol=DIST_RTOL, atol=DIST_ATOL):
+            bad.append(k)
+    return sorted(bad)
+
+
+def dist_phases(cfg, rcfg, fused_ms):
+    """``[dist:*]``: each case on ``DIST_RANKS`` ranks sharing the card
+    over gloo, 3 iterations from one state at the shipped config's widths
+    (the env batch split in 2): replicated bit-equal to the single-process
+    iteration, sharded ranks bit-equal to each other and within rtol 2e-4 /
+    atol 1e-6 of the emulation; kernel launches per rank and iteration;
+    iteration ms beside the single-process fused iteration (``fused_ms``)
+    and the collectives of one iteration (``torch.profiler``)."""
+    from pingpong_tpu_torch.parallel.mesh import free_port
+
+    refs, warm = {}, {}
+    for case in DIST_CASES:
+        warm[case], refs[case] = dist_reference(case, cfg, rcfg)
+        torch.cuda.empty_cache()
+    out = ROOT / "build" / "chip_smoke_dist"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    port = free_port()
+    spec = json.dumps(dict(cases=DIST_CASES, warm=warm, out=str(out)))
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--dist-worker", spec],
+        env=dict(os.environ, RANK=str(r), WORLD_SIZE=str(DIST_RANKS),
+                 LOCAL_RANK=str(r), MASTER_ADDR="localhost",
+                 MASTER_PORT=str(port)), cwd=str(ROOT))
+        for r in range(DIST_RANKS)]
+    try:
+        codes = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    check(not any(codes), f"[dist] rank processes failed: {codes}")
+    ranks = [torch.load(out / f"rank{r}.pt", weights_only=False)
+             for r in range(DIST_RANKS)]
+    print(f"[dist] {DIST_RANKS} ranks on one card over gloo ran "
+          f"{len(DIST_CASES)} cases in {time.time() - t0:.1f} s", flush=True)
+    for case in DIST_CASES:
+        kind, _, c = dist_case(case, cfg, rcfg)
+        sharded = case.endswith("sharded")
+        res = [rk[case] for rk in ranks]
+        upd = "dqn_update" if kind == "qnet" else "drqn_update"
+        roll = "actor_rollout" if kind == "qnet" else "recurrent_rollout"
+        bad = leaves_close(res[0]["global"], refs[case], exact=not sharded)
+        same = all(torch.equal(r["local"][k], res[0]["local"][k])
+                   for r in res[1:] for k in res[0]["local"])
+        launches = [r["launches"] for r in res]
+        coll = res[0]["collectives"]
+        print(f"[dist:{case}] {DIST_RANKS} ranks x {c.num_envs // DIST_RANKS}"
+              f" envs, {DIST_ITERS} iterations after {warm[case]} warm: "
+              f"leaves off the single-process "
+              f"{'emulation' if sharded else 'iteration'} {bad[:6]} "
+              f"({'rtol 2e-4 / atol 1e-6' if sharded else 'bit for bit'}); "
+              f"ranks bit-equal {same}; launches per rank {launches}; "
+              f"updates run {res[0]['updates']} | {CARD}", flush=True)
+        print(f"[dist:{case}] iteration {res[0]['it_ms']:.3f} ms on "
+              f"{DIST_RANKS} ranks sharing one card over gloo (a mechanism "
+              f"reading, not a scaling one: the ranks share the card), "
+              f"single-process fused iteration of this run "
+              f"{fused_ms[kind]:.3f} ms; collectives of one iteration "
+              f"(torch.profiler spans: count, ms until done, waits for the "
+              f"other rank included): "
+              f"{ {k: (n, round(ms, 3)) for k, (n, ms) in coll.items()} } | "
+              f"{CARD}", flush=True)
+        check(not bad, f"dist {case}: leaves {bad[:6]} off the reference")
+        check(same, f"dist {case}: the ranks' parameters differ")
+        check(all(r["sharded"] == sharded for r in res),
+              f"dist {case}: the learner chose another layout")
+        for lr_ in launches:
+            check(lr_[roll] == DIST_ITERS,
+                  f"dist {case}: {roll} launched {lr_[roll]} times")
+            check(lr_[upd] == (0 if sharded else DIST_ITERS),
+                  f"dist {case}: {upd} launched {lr_[upd]} times")
+        check(all(u == c.updates_per_iteration for u in res[0]["updates"]),
+              f"dist {case}: an iteration ran no update block")
+
+
+def dist_cli():
+    """``[dist:cli]``: ``cli train --distributed`` under torchrun, one rank
+    (NCCL): one generation at ``configs/qnet.yaml`` that promotes and is
+    written once. With two cards or more, 2 ranks on 2 cards over NCCL run
+    ``train`` and ``train-rnn``, their promoted parameters bit-equal to a
+    single-process run's; with one card that run is reported as not
+    possible."""
+    from pingpong_tpu_torch import cli
+    from pingpong_tpu_torch.selfplay.pool import load_params_any
+
+    def torchrun(n, args, workdir):
+        shutil.rmtree(workdir, ignore_errors=True)
+        args = [args[0], "--distributed", *args[1:]]
+        t0 = time.time()
+        r = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", str(n), "-m", "pingpong_tpu_torch.cli",
+             *args], cwd=str(ROOT), capture_output=True, text=True,
+            timeout=600)
+        events = metrics_events(workdir / ("train_qnet_metrics.jsonl"
+                                           if args[0] == "train"
+                                           else "train_rnn_metrics.jsonl"))
+        return r, events, time.time() - t0
+
+    w = ROOT / "build" / "chip_smoke_dist_cli"
+    r, events, dt = torchrun(1, train_args(w, 1), w)
+    promoted = [e for e in events if e["event"] == "promoted"]
+    print(f"[dist:cli] torchrun --nproc-per-node 1 cli train --distributed "
+          f"(NCCL): rc {r.returncode} in {dt:.1f} s, stdout "
+          f"{r.stdout.strip().splitlines()[-1:]}; promoted events "
+          f"{len(promoted)}; checkpoints "
+          f"{sorted(p.name for p in (w / 'checkpoints').iterdir())} | {CARD}",
+          flush=True)
+    check(r.returncode == 0, f"dist cli failed:\n{r.stderr[-3000:]}")
+    check("done: 1/1 generations promoted" in r.stdout
+          and len(promoted) == 1
+          and (w / "checkpoints" / "model5-1").is_dir(),
+          "dist cli: no single promotion written")
+    if torch.cuda.device_count() < 2:
+        print(f"[dist:cli] the NCCL run of 2 ranks on 2 cards was not "
+              f"possible: this machine has {torch.cuda.device_count()} card",
+              flush=True)
+        return
+    for args_fn, ckpt in ((train_args, "checkpoints/model5-1"),
+                          (train_rnn_args, "checkpoints_rnn/rnn_pong_soul_1")):
+        w2 = ROOT / "build" / "chip_smoke_dist_cli2"
+        r, _, dt = torchrun(2, args_fn(w2, 1), w2)
+        check(r.returncode == 0, f"dist cli 2 ranks failed:\n"
+              f"{r.stderr[-3000:]}")
+        w1 = ROOT / "build" / "chip_smoke_dist_cli1"
+        shutil.rmtree(w1, ignore_errors=True)
+        check(cli.main(args_fn(w1, 1)) == 0, "single-process run failed")
+        a, b = load_params_any(w2 / ckpt), load_params_any(w1 / ckpt)
+        equal = all(torch.equal(x, y) for x, y in zip(a.parameters(),
+                                                      b.parameters()))
+        print(f"[dist:cli] 2 ranks on 2 cards over NCCL, {args_fn(w2)[0]}: "
+              f"rc 0 in {dt:.1f} s, {ckpt} bit-equal to the single-process "
+              f"run: {equal} | {CARD}", flush=True)
+        check(equal, f"dist cli: {ckpt} differs from the single process's")
+
+
+def scaling_phase():
+    """``[scaling]``: the weak-scaling bench's ladder on the cards this
+    machine has, with its JSON contract."""
+    from pingpong_tpu_torch.tools import scaling_bench as sb
+
+    n = torch.cuda.device_count()
+    ladder = [d for d in (1, 2, 4, 8) if d <= n]
+    rows = sb.run_ladder(ladder, 4096, n1=3, n2=9, device="cuda")
+    summary = {"metric": "weak_scaling_efficiency",
+               "value": rows[-1]["scaling_efficiency"], "unit": "fraction",
+               "ladder": rows}
+    print(f"[scaling] {json.dumps(summary)} | {CARD}", flush=True)
+    check(all(r["env_steps_per_s"] > 0 for r in rows),
+          "scaling: a rung reported no rate")
+
+
+def roofline_phase(row_bound):
+    """``[roofline]``: the roofline tool at its shapes; its kernel-2 bound
+    must be the kernel table row's (``row_bound``)."""
+    from pingpong_tpu_torch.tools import dqn_roofline_bench as rb
+
+    r = rb.measure(DEV, windows=(5, 25), trials=3)
+    summary = rb.report(r, CARD)
+    print(f"[roofline] {json.dumps(summary)}", flush=True)
+    check(all(r[k] > 0 for k in ("full_s", "update_s", "rollout_s")),
+          "roofline: a stage time is not positive")
+    check((r["bound_ms"], r["bound_by"]) == tuple(row_bound)
+          and round(r["bound_ms"], 4) == 0.0073,
+          f"roofline bound {r['bound_ms']} {r['bound_by']} is not the "
+          f"kernel row's {row_bound}")
+
+
 def kernel_row(name, source, replaces, launches, err, ms, plain, bound):
     """One entry of the ``kernels`` line. No single PyTorch call computes
     any of these fused functions, so ``library_ms`` is null."""
@@ -1910,10 +2453,13 @@ def rollout_times_only(root: Path) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rollout-times", type=Path, metavar="DIR")
+    ap.add_argument("--dist-worker", metavar="SPEC", help=argparse.SUPPRESS)
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if a.dist_worker:
+        return dist_worker(a.dist_worker)
     if a.rollout_times is not None:
         return rollout_times_only(a.rollout_times.resolve())
     cfg, rcfg = setup(ROOT)
@@ -1930,6 +2476,7 @@ def main(argv=None) -> int:
     from pingpong_tpu_torch.ops import recurrent_rollout as rr
     from pingpong_tpu_torch.ops.build import build_all
     from pingpong_tpu_torch.selfplay.pool import load_params_any
+    from pingpong_tpu_torch.tools.dqn_roofline_bench import update_bound_ms
     from pingpong_tpu_torch.train.dqn import DQNLearner
     from pingpong_tpu_torch.train.drqn import DRQNLearner
 
@@ -1962,6 +2509,7 @@ def main(argv=None) -> int:
             ("bench_17slot_shared_trunk", 17, True, False, 8192)]):
         inp = actor_inputs(100 + i, n_slots, shared, eval_mode, n_envs, dev)
         actor_err = max(actor_err, compare_actor(name, inp))
+    actor_err = max(actor_err, tile0_check("actor"))
     upd_err = 0.0
     upd_inp = update_inputs(7, dev)
     upd_inp512 = update_inputs(8, dev, bs=512)
@@ -1985,6 +2533,7 @@ def main(argv=None) -> int:
             ("rebind_17slot", RNN_CFG.pool_max + 1, False, None, True)]):
         rnn_err = max(rnn_err, compare_rnn(name, rnn_inputs(
             300 + i, n_slots, eval_mode, dev, n_envs, rebind)))
+    rnn_err = max(rnn_err, tile0_check("rnn"))
     drqn_err = 0.0
     interval = RNN_CFG.target_update_interval
     for name, ts0, tau in [("no_sync", 0, 0.0),
@@ -2128,6 +2677,11 @@ def main(argv=None) -> int:
           f"{burn_ms / r_ms:.3f}x | {CARD}", flush=True)
     profile_bench(dev)
 
+    # ---- 3e. the multi-GPU learner, the CLI and the scaling bench -------
+    dist_phases(cfg, rcfg, {"qnet": q_ms, "drqn": r_ms})
+    dist_cli()
+    scaling_phase()
+
     ro = time_rollouts(resident_check=True)
     a_ms = ro["actor_rollout:train"]
     inp = actor_inputs(200, 2, True, False, B, dev)
@@ -2161,6 +2715,7 @@ def main(argv=None) -> int:
         "pong_kernel": pong_bound_ms(PONG_B, PONG_STEPS, pong_hits,
                                      pong_ends),
     }
+    roofline_phase(bounds["dqn_update"])
     e_bound = rnn_bound_ms(RB, 256, 1, RB // rtile, emit=False)
     print(f"[time] actor_rollout {a_ms:.4f} ms (plain {a_plain:.2f} ms), "
           f"eval chunk ({B} x 256, no transitions) "

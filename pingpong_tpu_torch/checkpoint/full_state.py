@@ -17,6 +17,14 @@ model checkpoint. The tree is any nest of dataclasses, NamedTuples, dicts,
 lists, tensors, generators and scalars (the learners' train states are
 such); a restore rebuilds it against a template made by the learner's
 ``init_state`` and raises on a key, type, shape or dtype mismatch.
+
+Data parallel (one process a card): a checkpoint always holds the WHOLE
+state, in the single-device layout. The loops gather it with the
+learner's ``gather_state`` (a collective every rank reaches at the same
+train step, in the train loop, never in the saver's worker), rank 0 alone
+hands it to the saver, and a restore reads the file on every rank and
+cuts it to the rank's block with ``shard_state``; so a sharded replay is
+saved whole and restored into the ring of each rank.
 """
 
 from __future__ import annotations

@@ -16,6 +16,15 @@ overrides apply to the YAML config as in the JAX package's CLI. A second
 ``train`` or ``train-rnn`` in the same workdir resumes from the full-state
 autosave. After training the reward (and gate) plots are drawn; a plot
 that fails prints a warning and the command still succeeds.
+
+``--distributed`` joins the process group that torchrun describes (one
+process a card; gloo for ``--device cpu``) before anything is built:
+
+    torchrun --nproc-per-node N -m pingpong_tpu_torch.cli train --distributed ...
+
+``train`` and ``train-rnn`` then run data-parallel over the ranks and rank
+0 alone writes the log, the checkpoints and the plots; the tournaments and
+the viewer run on rank 0 alone.
 """
 
 from __future__ import annotations
@@ -34,16 +43,37 @@ def _load(args):
     return cfg
 
 
+def _distributed_setup(args) -> bool:
+    """``--distributed``: join the process group before anything is built
+    (gloo for ``--device cpu``, else the backend of the card). Returns True
+    on the process that writes (rank 0, or a single process)."""
+    from pingpong_tpu_torch.parallel.mesh import (
+        initialize_distributed,
+        is_coordinator,
+    )
+
+    if args.distributed:
+        initialize_distributed(
+            backend="gloo" if args.device == "cpu" else None)
+    return is_coordinator()
+
+
 def _run(trainer_fn, log_name, args):
-    """Build the trainer and run it. Returns ``(driver, records)``."""
+    """Build the trainer and run it. Returns ``(driver, records)``, or
+    None on a rank that does not write."""
     from pingpong_tpu_torch.utils.metrics import MetricsLogger
 
-    logger = MetricsLogger(log_path=f"{args.workdir}/{log_name}")
+    writer = _distributed_setup(args)
+    logger = MetricsLogger(
+        log_path=f"{args.workdir}/{log_name}" if writer else None,
+        echo=writer)
     try:
         driver = trainer_fn(logger)
         records = driver.run()
     finally:
         logger.close()
+    if not writer:
+        return None
     promoted = sum(1 for r in records if r.promoted)
     print(f"done: {promoted}/{len(records)} generations promoted")
     return driver, records
@@ -60,9 +90,13 @@ def cmd_train(args) -> int:
     cfg = _load(args)
     from pingpong_tpu_torch.selfplay.loop import QNetSelfPlay
 
-    driver, records = _run(lambda logger: QNetSelfPlay(
+    ran = _run(lambda logger: QNetSelfPlay(
         cfg.env, cfg.dqn, workdir=args.workdir, seed=cfg.seed, logger=logger,
-        device=args.device), "train_qnet_metrics.jsonl", args)
+        device=args.device, mesh_cfg=cfg.mesh), "train_qnet_metrics.jsonl",
+        args)
+    if ran is None:
+        return 0
+    driver, records = ran
 
     def draw():
         from pingpong_tpu_torch.utils.plotting import (
@@ -85,9 +119,13 @@ def cmd_train_rnn(args) -> int:
     cfg = _load(args)
     from pingpong_tpu_torch.selfplay.loop_rnn import DRQNSelfPlay
 
-    driver, _ = _run(lambda logger: DRQNSelfPlay(
+    ran = _run(lambda logger: DRQNSelfPlay(
         cfg.env, cfg.drqn, workdir=args.workdir, seed=cfg.seed, logger=logger,
-        device=args.device), "train_rnn_metrics.jsonl", args)
+        device=args.device, mesh_cfg=cfg.mesh), "train_rnn_metrics.jsonl",
+        args)
+    if ran is None:
+        return 0
+    driver, _ = ran
 
     def draw():
         from pingpong_tpu_torch.utils.plotting import plot_reward_history
@@ -103,6 +141,8 @@ def cmd_train_rnn(args) -> int:
 
 def cmd_round_robin(args) -> int:
     cfg = _load(args)
+    if not _distributed_setup(args):
+        return 0
     from pingpong_tpu_torch.evaluation.round_robin import run_round_robin
 
     return run_round_robin(
@@ -113,6 +153,8 @@ def cmd_round_robin(args) -> int:
 
 def cmd_arena(args) -> int:
     cfg = _load(args)
+    if not _distributed_setup(args):
+        return 0
     from pingpong_tpu_torch.evaluation.arena import run_arena
 
     return run_arena(
@@ -124,6 +166,8 @@ def cmd_arena(args) -> int:
 
 def cmd_view(args) -> int:
     cfg = _load(args)
+    if not _distributed_setup(args):
+        return 0
     if args.live:
         # real-time match on the native C++ engine + host numpy policies
         # (no accelerator on the frame loop)
@@ -175,6 +219,11 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--seed", type=int, default=None,
                    help="override the config seed")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument(
+        "--distributed", action="store_true",
+        help="one process a card under torchrun: join the process group "
+             "before anything is built; rank 0 alone writes checkpoints, "
+             "logs and plots")
     p.add_argument("overrides", nargs="*", default=[],
                    help="dotted config overrides, e.g. dqn.num_envs=8192")
 

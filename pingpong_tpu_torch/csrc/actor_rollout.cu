@@ -38,8 +38,8 @@
 // (a block's 16 envs lie in one tile: tile_rows % 16 == 0); epsilon
 // arrives as int32(eps * 1e6); argmax ties go to the lowest index by
 // strict '>'; the random draws are the JAX interpreter's counter hash
-// (ops/pong_kernel.py::_hash_uniform) with seed_mix = seed ^ (tile *
-// 747796405) and ctr = 16 * step, so kernel, plain version and the JAX
+// (ops/pong_kernel.py::_hash_uniform) with seed_mix = seed ^ (global tile
+// * 747796405) and ctr = 16 * step, so kernel, plain version and the JAX
 // kernel in interpret mode draw identical bits. Float ops whose rounding
 // would change under FMA contraction in the env step, the serve and the
 // noise use the _rn intrinsics; the forwards use FMAs.
@@ -215,7 +215,8 @@ actor_rollout_kernel(EnvP p, const float* __restrict__ f_in,
                      float* __restrict__ tr_obs, float* __restrict__ tr_next,
                      int* __restrict__ tr_act, float* __restrict__ tr_rew,
                      int* __restrict__ tr_done, float* __restrict__ stats,
-                     int B, int T, int tile_rows, uint32_t seed, int eps_i) {
+                     int B, int T, int tile_rows, int tile0, uint32_t seed,
+                     int eps_i) {
   extern __shared__ float4 smem4[];
   const Smem sm(reinterpret_cast<float*>(smem4));
   const int tid = threadIdx.x;
@@ -223,8 +224,10 @@ actor_rollout_kernel(EnvP p, const float* __restrict__ f_in,
   const int li = tid % NET_THREADS;
   const int u = li & 15, q = li >> 4;   // unit group, env quad
   const int env0 = blockIdx.x * EB;
-  // every env of a block lies in one tile (tile_rows % EB == 0)
-  const uint32_t seed_mix = seed ^ ((uint32_t)(env0 / tile_rows) * 747796405u);
+  // every env of a block lies in one tile (tile_rows % EB == 0); the hash
+  // is keyed by the global tile, tile0 + local tile (a rank's first tile)
+  const uint32_t seed_mix =
+      seed ^ ((uint32_t)(tile0 + env0 / tile_rows) * 747796405u);
   const float eps = __fmul_rn(__int2float_rn(eps_i), 1e-6f);
 
   if (tid < EB) sm.member[tid] = i_in[4 * B + env0 + tid];
@@ -398,16 +401,17 @@ actor_rollout_kernel(EnvP p, const float* __restrict__ f_in,
 extern "C" {
 
 // Launch one rollout chunk on `stream`, B / 16 blocks. B % tile_rows == 0
-// and tile_rows % 16 == 0 (checked by the Python wrapper too). Transition
-// pointers may all be null (eval mode).
+// and tile_rows % 16 == 0 (checked by the Python wrapper too); tile0 is the
+// global index of this call's first tile. Transition pointers may all be
+// null (eval mode).
 // Returns the cudaError_t of the launch.
 int actor_rollout_launch(const EnvP* p, const float* f_in, const int* i_in,
                          const float* learner, const float* opp,
                          int shared_trunk, float* f_out, int* i_out,
                          float* tr_obs, float* tr_next, int* tr_act,
                          float* tr_rew, int* tr_done, float* stats, int B,
-                         int T, int tile_rows, unsigned int seed, int eps_i,
-                         cudaStream_t stream) {
+                         int T, int tile_rows, int tile0, unsigned int seed,
+                         int eps_i, cudaStream_t stream) {
   if (B % EB || tile_rows % EB) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       actor_rollout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -415,7 +419,8 @@ int actor_rollout_launch(const EnvP* p, const float* f_in, const int* i_in,
   if (err != cudaSuccess) return (int)err;
   actor_rollout_kernel<<<B / EB, THREADS, Smem::bytes, stream>>>(
       *p, f_in, i_in, learner, opp, shared_trunk, f_out, i_out, tr_obs,
-      tr_next, tr_act, tr_rew, tr_done, stats, B, T, tile_rows, seed, eps_i);
+      tr_next, tr_act, tr_rew, tr_done, stats, B, T, tile_rows, tile0, seed,
+      eps_i);
   return (int)cudaGetLastError();
 }
 

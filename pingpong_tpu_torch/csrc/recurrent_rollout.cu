@@ -202,7 +202,7 @@ struct Args {
   float* stats;
   const int* table;   // (rows, 1 + E): member, then env ids (-1 idle)
   const int* info;    // info[2]: the table's blocks (block_table_kernel)
-  int B, T, tile_rows;
+  int B, T, tile_rows, tile0;   // tile0: global index of the first tile
   uint32_t seed;
   int eps_i, F1, F, H, HH;
 };
@@ -604,7 +604,7 @@ __device__ void consume(const Args& a, const Layout& L, const Smem<E>& S,
     // the block's tile (lanes fill from 0; an all-idle block uses tile 0)
     const int env0 = S.env[0] < 0 ? 0 : S.env[0];
     const uint32_t seed_mix =
-        a.seed ^ ((uint32_t)(env0 / a.tile_rows) * 747796405u);
+        a.seed ^ ((uint32_t)(a.tile0 + env0 / a.tile_rows) * 747796405u);
     // both streams in: hid rows [h_b; c_b; h_opp; c_opp], column = env
     for (int o = t; o < HE; o += NC) {
       const int j = o / E, env = S.env[o % E];
@@ -899,7 +899,8 @@ int recurrent_rollout_config(int envs, int F1, int F, int H, int HH,
 // from info[2], where recurrent_rollout_table put it, and blocks beyond it
 // have nothing to do. Widths multiples of 4 and <= 128 (the Python wrapper
 // pads others with zero units), tile_rows a multiple of 8, envs in {8, 16,
-// 32} (checked by the Python wrapper).
+// 32} (checked by the Python wrapper); tile0 is the global index of this
+// call's first tile, which keys the hash.
 // Transition pointers may all be null (eval mode). Returns the cudaError_t
 // of the launch.
 int recurrent_rollout_launch(const EnvP* p, const float* f_in, const int* i_in,
@@ -908,7 +909,9 @@ int recurrent_rollout_launch(const EnvP* p, const float* f_in, const int* i_in,
                              float* f_out, int* i_out, float* hid_out,
                              float* tr_obs, int* tr_act, float* tr_rew,
                              int* tr_done, float* stats, const int* table,
-                             const int* info, int envs, int grid, int B, int T, int tile_rows, unsigned int seed,
+                             const int* info, int envs, int grid, int B,
+                             int T, int tile_rows, int tile0,
+                             unsigned int seed,
                              int eps_i, int F1, int F, int H, int HH,
                              cudaStream_t stream) {
   if (grid < 1) return (int)cudaErrorInvalidValue;
@@ -919,7 +922,8 @@ int recurrent_rollout_launch(const EnvP* p, const float* f_in, const int* i_in,
   a.hid_out = hid_out; a.tr_obs = tr_obs; a.tr_act = tr_act;
   a.tr_rew = tr_rew; a.tr_done = tr_done; a.stats = stats; a.table = table;
   a.info = info;
-  a.B = B; a.T = T; a.tile_rows = tile_rows; a.seed = seed; a.eps_i = eps_i;
+  a.B = B; a.T = T; a.tile_rows = tile_rows; a.tile0 = tile0; a.seed = seed;
+  a.eps_i = eps_i;
   a.F1 = F1; a.F = F; a.H = H; a.HH = HH;
   RR_DISPATCH(launch_t, a, grid, stream)
 }

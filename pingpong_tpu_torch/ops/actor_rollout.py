@@ -22,7 +22,10 @@ Random draws are the JAX interpreter's counter hash
 (``ops/pong_kernel.py::_hash_uniform``), so all three agree bit for bit on
 every draw: the learner's head noise is one factorized draw per (tile of
 ``tile_rows`` envs, step) from an ``(8, 128)`` hash grid, exploration and
-serves are per env (row 0, column = lane in the tile).
+serves are per env (row 0, column = lane in the tile). The hash is keyed by
+the GLOBAL tile ``tile0 + local tile``: a rank that rolls out its block of
+a data-parallel env batch passes the global index of its first tile, and
+its draws are those of the same envs in the single-device call.
 """
 
 from __future__ import annotations
@@ -236,17 +239,18 @@ def actor_rollout_plain(env_params: EnvParams, state: EnvState, opp_idx,
                         ep_return, learner: PackedQNet, opponents: PackedQNet,
                         *, seed: int, eps_i: int, steps: int,
                         max_episode_steps: int, tile_rows: int,
-                        emit_transitions: bool, shared_trunk: bool):
+                        emit_transitions: bool, shared_trunk: bool,
+                        tile0: int = 0):
     """Step-by-step version of the kernel. Returns ``(state, ep_return,
     transitions or None, stats (8, B))`` with transitions as five
     ``(T, B[, 7])`` tensors ``obs, action, reward, next_obs, done``."""
     dev = state.ball_x.device
     B = state.ball_x.shape[0]
     env = torch.arange(B, device=dev)
-    gtile = env // tile_rows
+    tile = env // tile_rows
     lane = env % tile_rows
-    mix_tiles = tile_seed_mix(seed, B // tile_rows, dev)
-    mix_env = mix_tiles[gtile]
+    mix_tiles = tile_seed_mix(seed, B // tile_rows, dev, tile0)
+    mix_env = mix_tiles[tile]
     rows, cols = _noise_grid(dev)
     pool_f = (opp_idx > 0).to(torch.float32)
     lw = learner
@@ -268,8 +272,8 @@ def actor_rollout_plain(env_params: EnvParams, state: EnvState, opp_idx,
                             st.bottom_paddle_x, st.top_paddle_x, st.spin], -1)
         act_a = argmax3(_opponent_adv(opponents, obs7, opp_idx, shared_trunk))
         h2 = _trunk(lw.w1t, lw.b1t, lw.w2t, lw.b2t, obs7)
-        greedy_b = argmax3(torch.einsum("bh,bah->ba", h2, wa[gtile])
-                           + ba[gtile])
+        greedy_b = argmax3(torch.einsum("bh,bah->ba", h2, wa[tile])
+                           + ba[tile])
         act_b = explore_plain(mix_env, lane, ctr, eps_i, greedy_b)
 
         obs_next, reward, done, srow, st, ret = env_step_plain(
@@ -295,7 +299,8 @@ _vp, _i = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
     "actor_rollout", "actor_rollout_launch",
     [ctypes.POINTER(EnvConsts), _vp, _vp, _vp, _vp, _i, _vp, _vp,
-     _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, ctypes.c_uint, _i, _vp],
+     _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, ctypes.c_uint, _i,
+     _vp],
 )
 
 
@@ -303,7 +308,8 @@ def actor_rollout_cuda(env_params: EnvParams, state: EnvState, opp_idx,
                        ep_return, learner: PackedQNet, opponents: PackedQNet,
                        *, seed: int, eps_i: int, steps: int,
                        max_episode_steps: int, tile_rows: int,
-                       emit_transitions: bool, shared_trunk: bool):
+                       emit_transitions: bool, shared_trunk: bool,
+                       tile0: int = 0):
     """Launch the CUDA kernel; same contract as :func:`actor_rollout_plain`
     (``opp_idx`` is returned unchanged by both)."""
     dev = state.ball_x.device
@@ -342,7 +348,7 @@ def actor_rollout_cuda(env_params: EnvParams, state: EnvState, opp_idx,
     consts = EnvConsts.build(env_params, max_episode_steps)
     KERNEL.launch(ctypes.byref(consts), ptr(f_in), ptr(i_in), ptr(lw),
                   ptr(ow), int(shared_trunk), ptr(f_out), ptr(i_out),
-                  *tr_ptrs, ptr(stats), B, steps, tile_rows,
+                  *tr_ptrs, ptr(stats), B, steps, tile_rows, tile0,
                   seed & _M32, eps_i, stream_ptr(dev))
     new_state = EnvState(
         ball_x=f_out[0], ball_y=f_out[1], ball_vx=f_out[2], ball_vy=f_out[3],
@@ -361,14 +367,16 @@ def actor_rollout(env_params: EnvParams, state: EnvState, opp_idx,
                   ep_return, learner: PackedQNet, opponents: PackedQNet, *,
                   seed: int, epsilon: float, steps: int,
                   max_episode_steps: int = 0, tile_rows: int = 512,
-                  emit_transitions: bool = True,
+                  tile0: int = 0, emit_transitions: bool = True,
                   member_shared_trunk: bool = False):
     """One rollout chunk. ``state`` is batched ``(B,)``, ``opp_idx (B,)``
     i32 binds each env to a slot of the stacked ``opponents`` (fixed for
     the chunk; callers sort or bucket envs by slot), ``learner`` is one
     unmirrored net, ``opponents`` mirror-folded. ``member_shared_trunk``
     promises that every slot has slot 0's feature trunk (checked by the
-    caller, ``train/dqn.py::DQNLearner.prepare_opponents``).
+    caller, ``train/dqn.py::DQNLearner.prepare_opponents``). ``tile0`` is
+    the global index of the first tile (a rank's block of a data-parallel
+    batch; 0 for a whole batch).
 
     Runs the CUDA kernel for CUDA tensors and the plain version for CPU
     tensors. Returns ``(state, opp_idx, ep_return, transitions,
@@ -382,7 +390,7 @@ def actor_rollout(env_params: EnvParams, state: EnvState, opp_idx,
         raise ValueError(f"batch {B} must be a multiple of {tile_rows}")
     kw = dict(seed=int(seed), eps_i=epsilon_to_int(epsilon), steps=steps,
               max_episode_steps=int(max_episode_steps), tile_rows=tile_rows,
-              emit_transitions=emit_transitions,
+              tile0=int(tile0), emit_transitions=emit_transitions,
               shared_trunk=bool(member_shared_trunk))
     if state.ball_x.is_cuda:
         new_state, ret, trans, stats = actor_rollout_cuda(

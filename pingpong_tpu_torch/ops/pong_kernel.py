@@ -77,9 +77,12 @@ def hash_u01(seed_mix, ctr, k, row, col) -> torch.Tensor:
     return x.to(torch.float32) * (1.0 / 4294967296.0)
 
 
-def tile_seed_mix(seed: int, n_tiles: int, device) -> torch.Tensor:
-    """``seed ^ (tile * 747796405)`` per tile, as uint32 in int64."""
-    tiles = torch.arange(n_tiles, dtype=torch.int64, device=device)
+def tile_seed_mix(seed: int, n_tiles: int, device,
+                  tile0: int = 0) -> torch.Tensor:
+    """``seed ^ (tile * 747796405)`` per tile, as uint32 in int64, for the
+    global tiles ``tile0 .. tile0 + n_tiles - 1``."""
+    tiles = torch.arange(tile0, tile0 + n_tiles, dtype=torch.int64,
+                         device=device)
     return (seed & _M32) ^ ((tiles * 747796405) & _M32)
 
 

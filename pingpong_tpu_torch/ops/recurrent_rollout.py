@@ -28,9 +28,10 @@ in the flat layouts of :func:`net_layout` and :func:`sigma_layout`, each
 width padded with zero units to a multiple of 4 (:func:`kernel_dims`).
 
 Random draws follow the JAX kernel's interpret path (``_rnn_kernel``):
-the counter hash with ``seed_mix = seed ^ (tile * 747796405)`` and
-``ctr = 16 * step``; the learner noise of a step is one factorized draw
-shared by a tile of ``tile_rows`` envs (``_draw_noise``).
+the counter hash with ``seed_mix = seed ^ (tile * 747796405)``, the tile
+global (``tile0`` + the local tile, for a rank's block of a data-parallel
+batch), and ``ctr = 16 * step``; the learner noise of a step is one
+factorized draw shared by a tile of ``tile_rows`` envs (``_draw_noise``).
 """
 
 from __future__ import annotations
@@ -372,7 +373,7 @@ def recurrent_rollout_plain(env_params: EnvParams, state: EnvState, opp_idx,
                             sigma: RNNSigma, opponents: PackedQNetRNN, *,
                             seed: int, eps_i: int, steps: int,
                             max_episode_steps: int, tile_rows: int,
-                            emit_transitions: bool):
+                            emit_transitions: bool, tile0: int = 0):
     """Step-by-step version of the kernel. Returns ``(state, ep_return,
     hid (4H, B), transitions or None, stats (8, B))`` with transitions as
     four ``(T, B[, 7])`` tensors ``obs, action, reward, done``."""
@@ -381,10 +382,9 @@ def recurrent_rollout_plain(env_params: EnvParams, state: EnvState, opp_idx,
     dims = packed_dims(learner)
     H = dims[2]
     env = torch.arange(B, device=dev)
-    gtile = env // tile_rows
     lane = env % tile_rows
-    mix_tiles = tile_seed_mix(seed, B // tile_rows, dev)
-    mix_env = mix_tiles[gtile]
+    mix_tiles = tile_seed_mix(seed, B // tile_rows, dev, tile0)
+    mix_env = mix_tiles[env // tile_rows]
     pool_f = (opp_idx > 0).to(torch.float32)
     members = [int(m) for m in torch.unique(opp_idx).tolist()]
     h_b, c_b, h_o, c_o = (hid[i * H:(i + 1) * H].T for i in range(4))
@@ -436,7 +436,7 @@ def recurrent_rollout_plain(env_params: EnvParams, state: EnvState, opp_idx,
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
     "recurrent_rollout", "recurrent_rollout_launch",
-    [ctypes.POINTER(EnvConsts)] + [_vp] * 16 + [_i] * 5 + [ctypes.c_uint]
+    [ctypes.POINTER(EnvConsts)] + [_vp] * 16 + [_i] * 6 + [ctypes.c_uint]
     + [_i] * 5 + [_vp],
 )
 
@@ -541,7 +541,7 @@ def recurrent_rollout_cuda(env_params: EnvParams, state: EnvState, opp_idx,
                            sigma: RNNSigma, opponents: PackedQNetRNN, *,
                            seed: int, eps_i: int, steps: int,
                            max_episode_steps: int, tile_rows: int,
-                           emit_transitions: bool,
+                           emit_transitions: bool, tile0: int = 0,
                            opponents_flat: Optional[torch.Tensor] = None):
     """Launch the CUDA kernel; same contract as
     :func:`recurrent_rollout_plain`. ``opponents_flat``:
@@ -600,7 +600,7 @@ def recurrent_rollout_cuda(env_params: EnvParams, state: EnvState, opp_idx,
                   ptr(lw), ptr(sw), ptr(ow), ptr(f_out), ptr(i_out),
                   ptr(hid_out), *tr_ptrs, ptr(stats), ptr(plan.table),
                   ptr(plan.info), plan.envs, plan.grid, B, steps, tile_rows,
-                  seed & _M32, eps_i, *kdims, stream_ptr(dev))
+                  tile0, seed & _M32, eps_i, *kdims, stream_ptr(dev))
     copied.synchronize()
     lo, hi, _ = info.tolist()
     if lo < 0 or hi >= n_slots:
@@ -624,7 +624,7 @@ def recurrent_rollout(env_params: EnvParams, state: EnvState, opp_idx,
                       sigma: RNNSigma, opponents: PackedQNetRNN, *,
                       seed: int, epsilon: float, steps: int,
                       max_episode_steps: int = 0, tile_rows: int = 512,
-                      emit_transitions: bool = True,
+                      tile0: int = 0, emit_transitions: bool = True,
                       opponents_flat: Optional[torch.Tensor] = None):
     """One recurrent rollout chunk. ``state`` is batched ``(B,)``,
     ``opp_idx (B,)`` i32 binds each env to a slot of the stacked
@@ -634,6 +634,8 @@ def recurrent_rollout(env_params: EnvParams, state: EnvState, opp_idx,
     its ``sigma``, ``opponents`` mirror-folded; ``opponents_flat``, for
     CUDA tensors, is :func:`rnn_kernel_flat` of ``opponents`` made once by
     a caller that keeps the stack for many chunks (else made per call).
+    ``tile0`` is the global index of the first tile, which keys the hash
+    (a rank's block of a data-parallel batch; 0 for a whole batch).
 
     Runs the CUDA kernel for CUDA tensors and the plain version for CPU
     tensors. Returns ``(state, opp_idx, ep_return, hid, transitions,
@@ -647,7 +649,7 @@ def recurrent_rollout(env_params: EnvParams, state: EnvState, opp_idx,
         raise ValueError(f"batch {B} must be a multiple of {tile_rows}")
     kw = dict(seed=int(seed), eps_i=epsilon_to_int(epsilon), steps=steps,
               max_episode_steps=int(max_episode_steps), tile_rows=tile_rows,
-              emit_transitions=emit_transitions)
+              tile0=int(tile0), emit_transitions=emit_transitions)
     if state.ball_x.is_cuda:
         kw["opponents_flat"] = opponents_flat
         run = recurrent_rollout_cuda

@@ -18,6 +18,13 @@ port of ``pingpong_tpu/selfplay/loop.py``.
   (``checkpoint/full_state.py``), restored as tier 0 at start-up: an
   interrupted generation continues with the same label and a bit-equal
   state;
+* data parallel (``mesh_cfg``, one process a card under torch.distributed):
+  a mesh over the process group when it has more than one rank (a ``mesh``
+  event); every rank runs the same seeded gates, and rank 0's win rates are
+  broadcast, so the promotions and faults are the same on every rank; the
+  autosave gathers the whole state (a collective every rank reaches at the
+  same train step) and only rank 0 writes it, the model checkpoints, the
+  retention and (through the CLI) the logs and plots;
 * checkpoint retention after every save (``keep_checkpoints``,
   ``keep_fault_checkpoints``);
 * gates through the fused kernels (``use_pallas_eval``) or the batched
@@ -46,7 +53,7 @@ from pingpong_tpu_torch.checkpoint.serialize import (
     qnet_to_dict,
 )
 from pingpong_tpu_torch.checkpoint.store import load_checkpoint, save_checkpoint
-from pingpong_tpu_torch.config.schema import DQNConfig, EnvConfig
+from pingpong_tpu_torch.config.schema import DQNConfig, EnvConfig, MeshConfig
 from pingpong_tpu_torch.evaluation.fast_eval import (
     fused_win_rate,
     fused_win_rate_balanced,
@@ -65,6 +72,11 @@ from pingpong_tpu_torch.models.qnet import (
     qnet_init,
     qnet_sample_noise,
     qnet_to_flat,
+)
+from pingpong_tpu_torch.parallel.mesh import (
+    broadcast_values,
+    is_coordinator,
+    mesh_for_world,
 )
 from pingpong_tpu_torch.selfplay.pool import load_params_any, load_pool
 from pingpong_tpu_torch.train.dqn import DQNLearner, stack_opponents
@@ -91,13 +103,21 @@ class QNetSelfPlay:
 
     def __init__(self, env_cfg: EnvConfig, cfg: DQNConfig,
                  workdir: str = ".", seed: int = 0,
-                 logger: Optional[MetricsLogger] = None, device="cuda"):
+                 logger: Optional[MetricsLogger] = None, device="cuda",
+                 mesh_cfg: Optional[MeshConfig] = None):
         self.env_cfg = env_cfg
         self.cfg = cfg
         self.workdir = Path(workdir)
         self.ckpt_dir = self.workdir / cfg.ckpt_dir
         self.logger = logger or MetricsLogger()
-        self.learner = DQNLearner(env_cfg, cfg, device=device)
+        # data-parallel when the process group has more than one rank
+        self.mesh = mesh_for_world(mesh_cfg)
+        if self.mesh is not None:
+            self.logger.log({"event": "mesh",
+                             "devices": torch.distributed.get_world_size(),
+                             "shape": dict(self.mesh.shape)})
+        self.coordinator = is_coordinator()
+        self.learner = DQNLearner(env_cfg, cfg, device=device, mesh=self.mesh)
         self.device = self.learner.device
         self.gen = torch.Generator().manual_seed(int(seed))
 
@@ -153,19 +173,23 @@ class QNetSelfPlay:
     def autosave(self, wait: bool = False) -> str:
         """Full-state autosave. With ``cfg.async_autosave`` (the default)
         the call takes a device snapshot and a worker thread writes it;
-        ``wait=True`` blocks until the file is on disk."""
+        ``wait=True`` blocks until the file is on disk. Under a mesh every
+        rank gathers the whole state here and rank 0 alone saves it."""
         target = self.ckpt_dir / self.cfg.latest_checkpoint_filename
+        state = self.learner.gather_state(self.state)   # collective
+        if not self.coordinator:
+            return str(target.resolve())
         meta = {"generation": self.current_generation,
                 "done_generations": self.done_generations,
                 "model_kind": "qnet"}
         flat_a = qnet_to_flat(self.params_a)
         if self.cfg.async_autosave:
             path = self._autosaver.save(target, full_state_tree(
-                self.state, flat_a, self.gen, self._a_fold_noise), meta)
+                state, flat_a, self.gen, self._a_fold_noise), meta)
             if wait:
                 self._autosaver.wait()
         else:
-            path = autosave_full_state(target, self.state, flat_a, self.gen,
+            path = autosave_full_state(target, state, flat_a, self.gen,
                                        meta, self._a_fold_noise)
         self.logger.log({"event": "autosave",
                          "train_steps": self.state.train_steps})
@@ -182,9 +206,9 @@ class QNetSelfPlay:
         noise = (qnet_sample_noise(torch.Generator(), like)
                  if self.cfg.selfplay.frozen_a_stale_noise else None)
         state, flat_a, gen, noise, meta = restore_full_state(
-            path, self.learner.init_state(0, like), qnet_to_flat(like),
+            path, self.learner.init_global_state(0, like), qnet_to_flat(like),
             self.gen, noise, device=self.device)
-        self.state = state
+        self.state = self.learner.shard_state(state)
         self.params_a = qnet_from_flat(flat_a, like)
         self.gen = gen
         self.current_generation = int(meta.get("generation", 0))
@@ -270,6 +294,8 @@ class QNetSelfPlay:
         return wins / max(total, 1)
 
     def _save(self, name: str, generation: int) -> str:
+        if not self.coordinator:   # rank 0 owns the checkpoint writes
+            return str(self.ckpt_dir / name)
         st = self.state
         payload = {
             "params_b": qnet_to_dict(self.learner.params_b(st)),
@@ -355,6 +381,8 @@ class QNetSelfPlay:
                 t0 = time.perf_counter()
                 w_a = self._eval_vs([self.params_a_play], sp.eval_episodes)
                 w_pool = self._eval_vs(self.pool, sp.eval_episodes)
+                w_a, w_pool = broadcast_values([w_a, w_pool], self.mesh,
+                                               self.device)
                 self.logger.log({"event": "eval", "generation": gen,
                                  "win_vs_A": w_a, "win_vs_pool": w_pool,
                                  "epsilon": self.state.epsilon,

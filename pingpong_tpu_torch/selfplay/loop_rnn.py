@@ -21,10 +21,14 @@ port of ``pingpong_tpu/selfplay/loop_rnn.py``.
   save;
 * gates through the fused recurrent kernel (``use_pallas_eval`` and a
   net of kernel 3's architecture) or the batched match runner
-  (``evaluation/match.py``), as the JAX loop decides.
+  (``evaluation/match.py``), as the JAX loop decides;
+* data parallel (``mesh_cfg``), as ``selfplay/loop.py``: a mesh when the
+  process group has more than one rank, the same seeded gates on every
+  rank with rank 0's win rates broadcast, the gathered autosave and every
+  file written by rank 0 alone.
 
 The learner picks its route from the config (``train/drqn.py``); every
-DRQN option of the JAX trainer runs on one device.
+DRQN option of the JAX trainer runs on one device or on a mesh.
 """
 
 from __future__ import annotations
@@ -52,7 +56,7 @@ from pingpong_tpu_torch.checkpoint.store import (
     load_checkpoint,
     save_checkpoint,
 )
-from pingpong_tpu_torch.config.schema import DRQNConfig, EnvConfig
+from pingpong_tpu_torch.config.schema import DRQNConfig, EnvConfig, MeshConfig
 from pingpong_tpu_torch.evaluation.fast_eval import (
     rnn_win_rate,
     rnn_win_rate_balanced,
@@ -70,6 +74,11 @@ from pingpong_tpu_torch.models.qnet_rnn import (
     qnet_rnn_to_flat,
 )
 from pingpong_tpu_torch.selfplay.loop import GenerationRecord
+from pingpong_tpu_torch.parallel.mesh import (
+    broadcast_values,
+    is_coordinator,
+    mesh_for_world,
+)
 from pingpong_tpu_torch.selfplay.pool import load_pool
 from pingpong_tpu_torch.train.drqn import (
     DRQNLearner,
@@ -88,13 +97,21 @@ class DRQNSelfPlay:
 
     def __init__(self, env_cfg: EnvConfig, cfg: DRQNConfig,
                  workdir: str = ".", seed: int = 0,
-                 logger: Optional[MetricsLogger] = None, device="cuda"):
+                 logger: Optional[MetricsLogger] = None, device="cuda",
+                 mesh_cfg: Optional[MeshConfig] = None):
         self.env_cfg = env_cfg
         self.cfg = cfg
         self.workdir = Path(workdir)
         self.ckpt_dir = self.workdir / cfg.ckpt_dir_rnn
         self.logger = logger or MetricsLogger()
-        self.learner = DRQNLearner(env_cfg, cfg, device=device)
+        # data-parallel when the process group has more than one rank
+        self.mesh = mesh_for_world(mesh_cfg)
+        if self.mesh is not None:
+            self.logger.log({"event": "mesh",
+                             "devices": torch.distributed.get_world_size(),
+                             "shape": dict(self.mesh.shape)})
+        self.coordinator = is_coordinator()
+        self.learner = DRQNLearner(env_cfg, cfg, device=device, mesh=self.mesh)
         self.device = self.learner.device
         self.env_params = self.learner.env_params
         self.gen = torch.Generator().manual_seed(int(seed))
@@ -155,19 +172,23 @@ class DRQNSelfPlay:
         env and hidden states, optimizer, counters), frozen A and the
         loop's generator. With ``cfg.async_autosave`` (the default) a
         worker thread writes a snapshot; ``wait=True`` blocks until the
-        file is on disk."""
+        file is on disk. Under a mesh every rank gathers the whole state
+        here and rank 0 alone saves it."""
         target = self.ckpt_dir / self.cfg.latest_checkpoint_filename
+        state = self.learner.gather_state(self.state)   # collective
+        if not self.coordinator:
+            return str(target.resolve())
         meta = {"generation": self.current_generation,
                 "done_generations": self.done_generations,
                 "model_kind": "qnet_rnn"}
         flat_a = qnet_rnn_to_flat(self.params_a)
         if self.cfg.async_autosave:
             path = self._autosaver.save(
-                target, full_state_tree(self.state, flat_a, self.gen), meta)
+                target, full_state_tree(state, flat_a, self.gen), meta)
             if wait:
                 self._autosaver.wait()
         else:
-            path = autosave_full_state(target, self.state, flat_a, self.gen,
+            path = autosave_full_state(target, state, flat_a, self.gen,
                                        meta)
         self.logger.log({"event": "autosave",
                          "train_steps": self.state.train_steps})
@@ -182,9 +203,9 @@ class DRQNSelfPlay:
     def _restore_full_state(self, path) -> None:
         like = self.learner.template
         state, flat_a, gen, _, meta = restore_full_state(
-            path, self.learner.init_state(0, like), qnet_rnn_to_flat(like),
-            self.gen, device=self.device)
-        self.state = state
+            path, self.learner.init_global_state(0, like),
+            qnet_rnn_to_flat(like), self.gen, device=self.device)
+        self.state = self.learner.shard_state(state)
         self.params_a = qnet_rnn_from_flat(flat_a, like)
         self.init_params = self.params_a
         self.gen = gen
@@ -256,6 +277,8 @@ class DRQNSelfPlay:
         return float(result.win_b.to(torch.float32).mean())
 
     def _save(self, name: str, generation: int) -> str:
+        if not self.coordinator:   # rank 0 owns the checkpoint writes
+            return str(self.ckpt_dir / name)
         st = self.state
         payload = {
             "params_b": qnet_rnn_to_dict(self.learner.params_b(st)),
@@ -342,6 +365,8 @@ class DRQNSelfPlay:
                 t0 = time.perf_counter()
                 w_a = self._eval_vs([self.params_a], sp.eval_episodes)
                 w_pool = self._eval_vs(self.pool, sp.eval_episodes)
+                w_a, w_pool = broadcast_values([w_a, w_pool], self.mesh,
+                                               self.device)
                 self.logger.log({"event": "eval", "generation": gen,
                                  "win_vs_A": w_a, "win_vs_pool": w_pool,
                                  "eval_s": time.perf_counter() - t0})

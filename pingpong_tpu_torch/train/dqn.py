@@ -36,9 +36,33 @@ update uniforms and noise, opponent draws, env resets) comes from the
 state's CPU ``torch.Generator``, so a CPU run and a card run of the same
 seed draw the same numbers.
 
-Not ported yet (``ROADMAP.md``): the multi-device learners; on one device
-``learner_sharding="sharded"`` warns and runs this learner, as the JAX
-learner does with one data shard.
+Data parallelism (``mesh``, ``parallel/mesh.py``): one process a card,
+the env batch split into contiguous rank blocks. Each rank rolls out its
+block (kernel 1 with ``tile0`` = the rank's first global tile, so its
+draws are the single-device call's; or the scan rollout on its columns of
+the global draws); the episode counts and return sums are all-reduced.
+``learner_sharding`` picks the learner layout as the JAX learner does
+(``pingpong_tpu/train/dqn.py:261-320``): "auto" is replicated up to 16
+data shards and sharded above, "sharded" needs the batch and the replay to
+divide and warns and falls back otherwise, and with one data shard it
+warns and runs the single-device learner.
+
+* replicated: the rank-order all-gather of the ``(T, B_local, ...)`` chunk
+  rebuilds the global chunk, every rank pushes it into its whole replay and
+  runs the identical update block from the same draws, so every rank's
+  parameters are bit-equal to the single-process iteration's;
+* sharded (``_update_sharded``): each rank pushes its own chunk into its
+  ring of ``memory_size / n`` rows (rank s holds the global rows ``[s cap /
+  n, (s+1) cap / n)``), samples ``batch_size / n`` rows from it per update
+  (stratified, raw weights), and one all-reduce of the raw-weighted
+  gradient and loss plus one MAX of the weights' maximum join the ranks;
+  priorities are written back locally, Adam runs on every rank alike.
+
+Under a mesh the state's per-env leaves (and, sharded, the replay) hold
+this rank's block; :meth:`DQNLearner.shard_state` cuts a whole state to it
+and :meth:`DQNLearner.gather_state` (collective) rebuilds the whole state.
+Every rank draws the whole batch's host randomness from the same
+generator and keeps its columns, so the generators stay in step.
 """
 
 from __future__ import annotations
@@ -62,6 +86,7 @@ from pingpong_tpu_torch.env.pong import (
     step_autoreset_batch,
 )
 from pingpong_tpu_torch.models.noisy import NoisyNoise
+from pingpong_tpu_torch.parallel.mesh import Mesh, RankBlocks, all_reduce_
 from pingpong_tpu_torch.models.policy import epsilon_greedy
 from pingpong_tpu_torch.models.qnet import (
     QNet,
@@ -101,6 +126,32 @@ from pingpong_tpu_torch.utils.device import resolve_device
 ONE_SHARD_WARNING = (
     "learner_sharding='sharded' requested but the mesh has one data shard "
     "— running the single-device learner")
+
+
+def fallback_warning(mode: str, ndata: int) -> str:
+    return (f"learner_sharding={mode!r} wants the sharded learner on {ndata} "
+            "shards but needs num_envs and batch_size divisible by the "
+            "data-axis size and memory_size divisible by 128*n; falling back "
+            "to 'replicated' (per-chip all-gather grows with n)")
+
+
+def resolve_layout(cfg, mesh: Optional[Mesh], divisible: bool,
+                   warning) -> bool:
+    """The JAX learners' layout rule: True for the sharded learner. One
+    data shard with "sharded" warns :data:`ONE_SHARD_WARNING`; "sharded",
+    or "auto" above 16 data shards, is sharded when ``divisible`` and
+    otherwise warns ``warning(mode, n)`` and stays replicated."""
+    mode = cfg.learner_sharding
+    if mode not in ("auto", "replicated", "sharded"):
+        raise ValueError(f"unknown learner_sharding={mode!r}")
+    ndata = 1 if mesh is None else mesh.n_data
+    if mode == "sharded" and ndata <= 1:
+        warnings.warn(ONE_SHARD_WARNING, stacklevel=3)
+    elif ndata > 1 and (mode == "sharded" or (mode == "auto" and ndata > 16)):
+        if divisible:
+            return True
+        warnings.warn(warning(mode, ndata), stacklevel=3)
+    return False
 
 _M32 = 0xFFFFFFFF
 
@@ -201,9 +252,13 @@ class EpisodeTally:
     statistics ``[games_vs_a, wins_vs_a, games_vs_pool, wins_vs_pool]``
     and the return sum of the episodes that end, epsilon decayed by
     ``decay ** done`` (floored at ``min_epsilon``; ``eps`` is the value
-    the next step explores with), and iid re-binding of the ended envs."""
+    the next step explores with), and iid re-binding of the ended envs.
+    On a rank of a mesh the statistics are the rank's block's, while
+    ``reduce`` makes a step's done count the whole batch's, which epsilon
+    decays by."""
 
-    def __init__(self, cfg, epsilon: float, pool_size: int, device):
+    def __init__(self, cfg, epsilon: float, pool_size: int, device,
+                 reduce=None):
         f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=device)
         self.ratio, self.pool_size = cfg.selfplay.opponent_pool_ratio, \
             pool_size
@@ -213,6 +268,7 @@ class EpisodeTally:
         self.stats = torch.zeros((4,), dtype=torch.int32, device=device)
         self.ret_sum = f32(0.0)
         self.n_done = torch.zeros((), dtype=torch.int64, device=device)
+        self.reduce = reduce or (lambda x: x)
 
     def step(self, done, reward_b, ep_return, opp_idx, gate_u, pick):
         """Tally one step; returns the next ``(ep_return, opp_idx)``."""
@@ -224,7 +280,7 @@ class EpisodeTally:
                                    (done & vs_pool).sum(),
                                    (win & vs_pool).sum()]).to(torch.int32)
         self.ret_sum += torch.where(done, ep_ret, 0.0).sum()
-        nd = done.sum()
+        nd = self.reduce(done.sum())
         self.n_done += nd
         self.eps = torch.maximum(self.min_eps,
                                  self.eps * self.decay ** nd.to(torch.float32))
@@ -303,11 +359,13 @@ def stack_opponents(params_a: QNet, pool: Sequence[QNet],
     return members, len(pool)
 
 
-class DQNLearner:
-    """Binds (EnvConfig, DQNConfig) to one device and runs train
-    iterations on a :class:`DQNTrainState`."""
+class DQNLearner(RankBlocks):
+    """Binds (EnvConfig, DQNConfig) to one device, and with ``mesh`` to this
+    rank's block of a data-parallel run, and runs train iterations on a
+    :class:`DQNTrainState`."""
 
-    def __init__(self, env_cfg: EnvConfig, cfg: DQNConfig, device="cuda"):
+    def __init__(self, env_cfg: EnvConfig, cfg: DQNConfig, device="cuda",
+                 mesh: Optional[Mesh] = None):
         if cfg.rollout_length * cfg.num_envs > cfg.memory_size:
             raise ValueError(
                 "one rollout chunk may not exceed replay capacity: "
@@ -315,15 +373,22 @@ class DQNLearner:
         if cfg.opponent_binding not in ("bucketed", "sorted"):
             raise ValueError(
                 f"unknown opponent_binding={cfg.opponent_binding!r}")
-        if cfg.learner_sharding not in ("auto", "replicated", "sharded"):
-            raise ValueError(
-                f"unknown learner_sharding={cfg.learner_sharding!r}")
-        if cfg.learner_sharding == "sharded":
-            warnings.warn(ONE_SHARD_WARNING, stacklevel=2)
+        ndata = 1 if mesh is None else mesh.n_data
+        if cfg.num_envs % ndata:
+            raise ValueError(f"num_envs {cfg.num_envs} does not split over "
+                             f"{ndata} data shards")
+        self.sharded = resolve_layout(
+            cfg, mesh, cfg.num_envs % ndata == 0
+            and cfg.batch_size % ndata == 0
+            and cfg.memory_size % (128 * ndata) == 0, fallback_warning)
+        self.mesh = mesh if ndata > 1 else None
+        self.n_data = ndata
         self.env_cfg = env_cfg
         self.cfg = cfg
         self.device = resolve_device(device)
         self.route = dqn_route(cfg)
+        if self.sharded:   # the sharded layout runs the row update per rank
+            self.route = self.route._replace(update="autodiff")
         self.env_params: EnvParams = env_params_from_config(env_cfg)
         # shapes (and device) of the learner's QNet; values unused
         self.template = qnet_init(torch.Generator().manual_seed(0),
@@ -333,10 +398,14 @@ class DQNLearner:
             torch.full((p.numel(),), 0.0 if cfg.train_heads_only
                        and n.startswith("feat") else 1.0, device=self.device)
             for n, p in self.template.named_parameters()])
+        layout = ""
+        if self.mesh is not None:
+            layout = (f", {'sharded' if self.sharded else 'replicated'} "
+                      f"learner, rank {mesh.rank} of {ndata}")
         print(f"[route:dqn] rollout {self.route.rollout}, update "
               f"{self.route.update}, replay "
               f"{'block' if self._block else 'row'} layout, on "
-              f"{self.device}", file=sys.stderr, flush=True)
+              f"{self.device}{layout}", file=sys.stderr, flush=True)
 
     @property
     def _block(self) -> bool:
@@ -353,6 +422,15 @@ class DQNLearner:
     # -- state init --------------------------------------------------------
     def init_state(self, seed: int, params_b: Optional[QNet] = None,
                    epsilon: float = 1.0, episodes: int = 0) -> DQNTrainState:
+        """A fresh state (this rank's block of it under a mesh)."""
+        return self.shard_state(self.init_global_state(seed, params_b,
+                                                       epsilon, episodes))
+
+    def init_global_state(self, seed: int, params_b: Optional[QNet] = None,
+                          epsilon: float = 1.0,
+                          episodes: int = 0) -> DQNTrainState:
+        """A fresh state of the whole batch and replay (the single-device
+        state; the layout :meth:`gather_state` returns)."""
         gen = torch.Generator().manual_seed(int(seed))
         if params_b is None:
             params_b = qnet_init(gen)
@@ -378,6 +456,11 @@ class DQNLearner:
             episodes=int(episodes),
         )
 
+    def _fresh_buffer(self) -> PERBuffer:
+        buf = per_init(self.cfg.memory_size, device=self.device,
+                       block=self._block)
+        return self._shard_buffer(buf) if self.sharded else buf
+
     def reset_learner(self, state: DQNTrainState,
                       params_b: QNet) -> DQNTrainState:
         """The reference's ``reset_B()``: fresh learner weights, target,
@@ -388,12 +471,54 @@ class DQNLearner:
         state.opt_count = 0
         state.opt_mu = torch.zeros_like(flat)
         state.opt_nu = torch.zeros_like(flat)
-        state.buffer = per_init(self.cfg.memory_size, device=self.device,
-                                block=self._block)
+        state.buffer = self._fresh_buffer()
         state.epsilon = 1.0
         state.train_steps = 0
         state.frame_idx = 0
         return state
+
+    # -- data-parallel layout ----------------------------------------------
+    def _shard_buffer(self, buf: PERBuffer) -> PERBuffer:
+        """Rank s's rows ``[s cap / n, (s+1) cap / n)`` of a whole replay
+        (its cursor and fill are the ring's own, alike on every rank)."""
+        return PERBuffer(data=self._blk(buf.data), prios=self._blk(buf.prios),
+                         p_alpha=self._blk(buf.p_alpha),
+                         chunk_sums=self._blk(buf.chunk_sums), pos=buf.pos,
+                         size=buf.size)
+
+    def shard_state(self, state: DQNTrainState) -> DQNTrainState:
+        """This rank's part of a whole state: its block of the per-env
+        leaves and, in the sharded layout, of the replay; the rest is
+        replicated. The identity without a mesh."""
+        if self.mesh is None:
+            return state
+        return dataclasses.replace(
+            state, env_state=EnvState(*(self._blk(x)
+                                        for x in state.env_state)),
+            opp_idx=self._blk(state.opp_idx),
+            ep_return=self._blk(state.ep_return),
+            ended=self._blk(state.ended),
+            buffer=(self._shard_buffer(state.buffer) if self.sharded
+                    else state.buffer))
+
+    def gather_state(self, state: DQNTrainState) -> DQNTrainState:
+        """The whole state from every rank's part (collective: every rank
+        calls it at the same point); the identity without a mesh."""
+        if self.mesh is None:
+            return state
+        buf = state.buffer
+        if self.sharded:
+            buf = PERBuffer(data=self._cat(buf.data),
+                            prios=self._cat(buf.prios),
+                            p_alpha=self._cat(buf.p_alpha),
+                            chunk_sums=self._cat(buf.chunk_sums),
+                            pos=buf.pos, size=buf.size)
+        return dataclasses.replace(
+            state, env_state=EnvState(*(self._cat(x)
+                                        for x in state.env_state)),
+            opp_idx=self._cat(state.opp_idx),
+            ep_return=self._cat(state.ep_return),
+            ended=self._cat(state.ended), buffer=buf)
 
     def prepare_opponents(self, opp_stack: Sequence[QNet]) -> PreparedOpponents:
         """Prepare an opponent stack once per generation block: packed for
@@ -418,14 +543,26 @@ class DQNLearner:
     def _rollout(self, state: DQNTrainState, opp: PreparedOpponents,
                  pool_size: int, seed: Optional[int] = None):
         """One rollout chunk on the learner's route and its PER push (in
-        place on ``state``). Returns ``(stat_counts, ret_sum)``, the
-        counts ``[games_vs_a, wins_vs_a, games_vs_pool, wins_vs_pool,
-        ...]``."""
+        place on ``state``). Returns ``(stat_counts, ret_sum)`` of the
+        whole batch, the counts ``[games_vs_a, wins_vs_a, games_vs_pool,
+        wins_vs_pool, ...]``. Under a mesh the replicated layout pushes the
+        all-gathered chunk, the sharded one this rank's own."""
         if self.route.rollout == "kernel":
             counts, ret_sum, tr = self._rollout_kernel(state, opp, pool_size,
                                                        seed)
         else:
             counts, ret_sum, tr = self._rollout_scan(state, opp, pool_size)
+        if self.mesh is not None and not self.sharded:
+            # one rank-order all-gather of the packed (T, B_local, 17)
+            # chunk: the envs come back in the global order
+            packed = self._cat(torch.cat([
+                tr["obs"], tr["next_obs"],
+                tr["action"].to(torch.float32)[..., None],
+                tr["reward"][..., None],
+                tr["done"].to(torch.float32)[..., None]], dim=-1), dim=1)
+            tr = dict(obs=packed[..., :7], next_obs=packed[..., 7:14],
+                      action=packed[..., 14].to(torch.int32),
+                      reward=packed[..., 15], done=packed[..., 16] > 0.5)
         per_push(state.buffer, Transition(
             obs=tr["obs"].reshape(-1, 7), action=tr["action"].reshape(-1),
             reward=tr["reward"].reshape(-1),
@@ -436,7 +573,12 @@ class DQNLearner:
     def _rollout_kernel(self, state: DQNTrainState, opp: PreparedOpponents,
                         pool_size: int, seed: Optional[int]):
         """One fused rollout chunk (kernel 1), in place on ``state``.
-        Returns ``(stat_counts (5,) ints, ret_sum, transitions)``."""
+        Returns ``(stat_counts (5,) ints, ret_sum, transitions)``. Under a
+        mesh the rank runs its block with ``tile0`` its first global tile,
+        unless the block does not split into whole tiles: then, as the JAX
+        learner, every rank runs the whole batch and keeps its block. Sorted
+        binding sorts the WHOLE batch by slot, as the JAX learner does, so
+        envs move between ranks."""
         cfg = self.cfg
         n = cfg.num_envs
         dev = self.device
@@ -448,26 +590,43 @@ class DQNLearner:
         if opp.n_slots == 1:
             opp_idx = state.opp_idx
         elif cfg.opponent_binding == "bucketed":
-            target = bucket_opp_idx(n, ratio, pool_size,
-                                    phase=state.episodes, device=dev)
+            target = self._blk(bucket_opp_idx(n, ratio, pool_size,
+                                              phase=state.episodes,
+                                              device=dev))
             opp_idx = torch.where(state.ended, target, state.opp_idx)
         else:
             draw = sorted_binding_draws(gen, n, ratio, pool_size).to(dev)
-            opp_idx = torch.where(state.ended, draw, state.opp_idx)
+            opp_idx = torch.where(self._cat(state.ended), draw,
+                                  self._cat(state.opp_idx))
             perm = torch.sort(opp_idx, stable=True).indices
-            opp_idx = opp_idx[perm]
-            env_state = EnvState(*(x[perm] for x in env_state))
-            ep_return = ep_return[perm]
+            opp_idx = self._blk(opp_idx[perm])
+            env_state = EnvState(*(self._blk(self._cat(x)[perm])
+                                   for x in env_state))
+            ep_return = self._blk(self._cat(ep_return)[perm])
 
-        tile = min(cfg.pallas_tile_rows, n)
+        tile, tile0, whole = self._tiling(cfg.pallas_tile_rows, n,
+                                          opp_idx.shape[0])
+        if whole:
+            env_state = EnvState(*(self._cat(x) for x in env_state))
+            opp_idx, ep_return = self._cat(opp_idx), self._cat(ep_return)
         lw = pack_qnet(qnet_from_flat(state.params, self.template))
         (new_env, new_opp, new_ret, tr, counts, ret_sum,
          ended) = actor_rollout(
             self.env_params, env_state, opp_idx, ep_return, lw, opp.packed,
             seed=seed, epsilon=state.epsilon, steps=cfg.rollout_length,
             max_episode_steps=self.env_cfg.max_episode_steps,
-            tile_rows=tile, member_shared_trunk=opp.shared_trunk)
-        counts = [int(c) for c in counts.tolist()]
+            tile_rows=tile, tile0=tile0,
+            member_shared_trunk=opp.shared_trunk)
+        if whole:
+            counts = [int(c) for c in counts.tolist()]
+            ret_sum = float(ret_sum)
+            new_env = EnvState(*(self._blk(x) for x in new_env))
+            new_opp, new_ret, ended = (self._blk(x) for x in (new_opp,
+                                                                new_ret,
+                                                                ended))
+            tr = {k: self._blk(v, 1) for k, v in tr.items()}
+        else:
+            counts, ret_sum = self._sum_counts(counts, ret_sum)
         n_done = counts[0] + counts[2]
         state.epsilon = float(max(
             np.float32(cfg.min_epsilon),
@@ -478,7 +637,7 @@ class DQNLearner:
         state.ep_return = new_ret
         state.ended = ended
         state.episodes += n_done
-        return counts, float(ret_sum), tr
+        return counts, ret_sum, tr
 
     def _rollout_scan(self, state: DQNTrainState, opp: PreparedOpponents,
                       pool_size: int):
@@ -487,7 +646,9 @@ class DQNLearner:
         A's view with the bound slot's action gathered, the learner's
         noisy Q and epsilon-greedy action, the env step with auto-reset,
         the episode statistics, epsilon decayed by ``decay ** done`` and
-        iid re-binding of the envs whose episode ended. Returns
+        iid re-binding of the envs whose episode ended. Under a mesh the
+        rank takes its columns of the whole batch's draws and a step's done
+        count is all-reduced (epsilon decays by the batch's). Returns
         ``(stat_counts (4,) ints, ret_sum, transitions)``."""
         cfg = self.cfg
         dev = self.device
@@ -495,8 +656,10 @@ class DQNLearner:
                                   batch=(cfg.rollout_length,))
         dr = scan_step_draws(state.generator, cfg.rollout_length,
                              cfg.num_envs, pool_size, dev)
+        dr = {k: self._blk(v, v.dim() - 1) for k, v in dr.items()}
         learner = self.params_b(state)
-        tally = EpisodeTally(cfg, state.epsilon, pool_size, dev)
+        tally = EpisodeTally(cfg, state.epsilon, pool_size, dev,
+                             reduce=self._reducer())
         env, opp_idx, ep_return = state.env_state, state.opp_idx, \
             state.ep_return
         keys = ("obs", "action", "reward", "next_obs", "done")
@@ -525,30 +688,40 @@ class DQNLearner:
         state.ep_return = ep_return
         state.epsilon = float(tally.eps)
         state.episodes += int(tally.n_done)
-        return ([int(c) for c in tally.stats.tolist()],
-                float(tally.ret_sum), {k: torch.stack(v)
-                                       for k, v in tr.items()})
+        counts, ret_sum = self._sum_counts(tally.stats, tally.ret_sum)
+        return counts, ret_sum, {k: torch.stack(v) for k, v in tr.items()}
 
     # -- update --------------------------------------------------------------
     def _update(self, state: DQNTrainState, u01=None, noise=None):
         """K updates on the learner's route (in place on ``state``) when
         the buffer holds at least a batch. ``u01 (K, bs)`` and ``noise (K,
-        260)`` are drawn from the state's generator unless given. Returns
-        ``(mean_loss, updates_run)``."""
+        260)`` are drawn from the state's generator unless given; in the
+        sharded layout ``u01`` is ``(n, K, bs / n)``, every rank's uniforms,
+        of which this rank takes its own, and the readiness is its ring's
+        (``bs / n`` rows). Returns ``(mean_loss, updates_run)``."""
         cfg = self.cfg
         bs, K = cfg.batch_size, cfg.updates_per_iteration
         gen = state.generator
         if noise is None:
             noise = pack_dqn_noise(
                 qnet_sample_noise(gen, self.template, batch=(K,)))
-        if u01 is None:
+        if self.sharded:
+            n = self.n_data
+            if u01 is None:
+                u01 = torch.rand((n, K, bs // n), generator=gen)
+            u01, bs = u01[self.mesh.rank], bs // n
+        elif u01 is None:
             u01 = torch.rand((K, bs), generator=gen)
         if state.buffer.size < bs:
             return 0.0, 0
         u01 = u01.to(self.device).contiguous()
         noise = noise.to(self.device).contiguous()
-        run = (self._update_kernel if self.route.update == "kernel"
-               else self._update_autodiff)
+        if self.sharded:
+            run = self._update_sharded
+        elif self.route.update == "kernel":
+            run = self._update_kernel
+        else:
+            run = self._update_autodiff
         losses, _ = run(state, u01, noise)
         return float(losses.sum()) / K, K
 
@@ -648,13 +821,56 @@ class DQNLearner:
             sampled.append(smp.indices)
         return torch.stack(losses), torch.stack(sampled)
 
+    def _update_sharded(self, state: DQNTrainState, u01, noise):
+        """K updates of the sharded layout
+        (``pingpong_tpu/train/dqn.py:936-1103``) on this rank's ring: per
+        update ``bs / n`` rows sampled with the raw (unnormalized) weights
+        ``(N_local P(i))^-beta``, the exact importance weights of the
+        stratified proposal; the raw-weighted loss sum and its gradient,
+        summed over the ranks by ONE all-reduce, and the weights' maximum by
+        one MAX; the global normalization ``1 / (bs max w)``, the heads-only
+        mask and Adam (alike on every rank); the local priority write-back;
+        the target sync. Returns ``(losses (K,), local indices (K, bs /
+        n))``."""
+        cfg = self.cfg
+        K, bs_local = cfg.updates_per_iteration, u01.shape[1]
+        buf = state.buffer
+        nz = unpack_dqn_noise(noise)
+        losses, sampled = [], []
+        for k in range(K):
+            state.frame_idx += 1
+            beta = beta_schedule(state.frame_idx, cfg.per_beta_start,
+                                 cfg.per_beta_frames)
+            smp = per_sample(buf, bs_local, beta, u01[k], normalize=False)
+            flat = state.params.detach().requires_grad_(True)
+            td = self._double_dqn_td(flat, state.target, smp.batch, QNetNoise(
+                v=NoisyNoise(nz.v.eps_w[k], nz.v.eps_b[k]),
+                a=NoisyNoise(nz.a.eps_w[k], nz.a.eps_b[k])))
+            raw_sum = torch.sum(smp.weights * td * td)
+            (g_raw,) = torch.autograd.grad(raw_sum, flat)
+            g_sum = all_reduce_(torch.cat([g_raw, raw_sum.detach()[None]]),
+                                self.mesh)
+            wmax = all_reduce_(smp.weights.max(), self.mesh, op="max")
+            scale = 1.0 / (cfg.batch_size * torch.clamp(wmax, min=1e-30))
+            state.opt_count += 1
+            adam_(state.params, g_sum[:-1] * scale * self._grad_mask,
+                  state.opt_mu, state.opt_nu, state.opt_count, cfg.lr)
+            per_update_priorities(buf, smp.indices, td.detach().abs(),
+                                  cfg.per_alpha, cfg.per_eps)
+            state.train_steps += 1
+            self._sync_target(state)
+            losses.append(g_sum[-1] * scale)
+            sampled.append(smp.indices)
+        return torch.stack(losses), torch.stack(sampled)
+
     # -- one full iteration ------------------------------------------------
     def train_iteration(self, state: DQNTrainState, opp: PreparedOpponents,
                         pool_size: int, *, seed: Optional[int] = None,
                         u01=None, noise=None):
         """One rollout chunk, its push and one update block. ``seed``,
         ``u01`` and ``noise`` replace the state generator's draws (the
-        tests inject the JAX side's)."""
+        tests inject the JAX side's). The metrics are the whole batch's;
+        ``buffer_size`` is the global fill (n local rings, sharded)."""
         ep_before = state.episodes
         counts, ret_sum = self._rollout(state, opp, pool_size, seed=seed)
         mean_loss, n_ran = self._update(state, u01=u01, noise=noise)
@@ -664,7 +880,9 @@ class DQNLearner:
             games_vs_pool=counts[2], wins_vs_pool=counts[3],
             episode_return_sum=ret_sum, mean_loss=mean_loss,
             updates_run=n_ran, epsilon=state.epsilon,
-            train_steps=state.train_steps, buffer_size=state.buffer.size,
+            train_steps=state.train_steps,
+            buffer_size=state.buffer.size * (self.n_data if self.sharded
+                                             else 1),
             env_steps=self.cfg.rollout_length * self.cfg.num_envs,
         )
         return state, metrics

@@ -43,9 +43,23 @@ Host-side randomness (rollout seeds and draws, update noise, window
 candidates, env resets) comes from the state's CPU ``torch.Generator``,
 so a CPU run and a card run of the same seed draw the same numbers.
 
-Not ported yet (``ROADMAP.md``): the multi-device learners; on one device
-``learner_sharding="sharded"`` warns and runs this learner, as the JAX
-learner does with one data shard.
+Data parallelism (``mesh``, ``parallel/mesh.py``), as in ``train/dqn.py``:
+each rank rolls out its block of the env batch (kernel 3 with ``tile0``,
+or the scan rollout on its columns of the global draws), and the layout
+follows ``learner_sharding`` by the JAX learner's rule
+(``pingpong_tpu/train/drqn.py:174-220``):
+
+* replicated: the all-gathered chunk goes into the whole sequence ring on
+  every rank and every rank runs the identical update (kernel 4 or the
+  autodiff update) from the same draws;
+* sharded (``_update_sharded``): each rank's ring holds its own envs'
+  traces; the admitted-episode count is the global one (an all-reduce of
+  the push's local admissions); each update samples ``batch_size / n``
+  windows locally (exact: the window-uniform rule draws the env uniformly
+  and the envs split evenly) and one all-reduce sums the gradient and the
+  masked mean's numerator and denominator. Episode-uniform sampling (a
+  global directory) or a batch that does not divide falls back to the
+  replicated layout with the JAX learner's warning.
 """
 
 from __future__ import annotations
@@ -69,6 +83,7 @@ from pingpong_tpu_torch.env.pong import (
     step_autoreset_batch,
 )
 from pingpong_tpu_torch.models.noisy import NoisyNoise
+from pingpong_tpu_torch.parallel.mesh import Mesh, RankBlocks, all_reduce_
 from pingpong_tpu_torch.models.policy import epsilon_greedy
 from pingpong_tpu_torch.models.qnet import argmax3, flat_views
 from pingpong_tpu_torch.models.qnet_rnn import (
@@ -106,9 +121,9 @@ from pingpong_tpu_torch.replay.sequence import (
     seq_sample,
 )
 from pingpong_tpu_torch.train.dqn import (
-    ONE_SHARD_WARNING,
     EpisodeTally,
     bucket_opp_idx,
+    resolve_layout,
     scan_step_draws,
     sorted_binding_draws,
 )
@@ -119,6 +134,13 @@ BURN_IN_WARNING = (
     "burn_in_length > 0 is served by the autodiff update path, not the "
     "fused update kernel, and costs iteration time (PERF.md has its price "
     "on the card). Set burn_in_length=0 for the fast path.")
+
+
+def fallback_warning(mode: str, ndata: int) -> str:
+    return (f"learner_sharding={mode!r} wants the sharded learner on {ndata} "
+            "shards but needs num_envs and batch_size divisible by the "
+            "data-axis size and episode_uniform_sampling=False (the episode "
+            "directory is global bookkeeping); falling back to 'replicated'")
 
 
 @dataclasses.dataclass
@@ -255,23 +277,31 @@ def join_hidden(parts: torch.Tensor) -> torch.Tensor:
     return parts.transpose(2, 3).reshape(-1, parts.shape[2]).contiguous()
 
 
-class DRQNLearner:
-    """Binds (EnvConfig, DRQNConfig) to one device and runs train
-    iterations on a :class:`DRQNTrainState`."""
+class DRQNLearner(RankBlocks):
+    """Binds (EnvConfig, DRQNConfig) to one device, and with ``mesh`` to this
+    rank's block of a data-parallel run, and runs train iterations on a
+    :class:`DRQNTrainState`."""
 
-    def __init__(self, env_cfg: EnvConfig, cfg: DRQNConfig, device="cuda"):
-        if cfg.learner_sharding not in ("auto", "replicated", "sharded"):
-            raise ValueError(
-                f"unknown learner_sharding={cfg.learner_sharding!r}")
+    def __init__(self, env_cfg: EnvConfig, cfg: DRQNConfig, device="cuda",
+                 mesh: Optional[Mesh] = None):
         if cfg.opponent_binding not in ("bucketed", "sorted"):
             raise ValueError(
                 f"unknown opponent_binding={cfg.opponent_binding!r}")
+        ndata = 1 if mesh is None else mesh.n_data
+        if cfg.num_envs % ndata:
+            raise ValueError(f"num_envs {cfg.num_envs} does not split over "
+                             f"{ndata} data shards")
+        self.sharded = resolve_layout(
+            cfg, mesh, cfg.batch_size % ndata == 0
+            and not cfg.episode_uniform_sampling, fallback_warning)
+        self.mesh = mesh if ndata > 1 else None
+        self.n_data = ndata
         self.env_cfg = env_cfg
         self.cfg = cfg
         self.device = resolve_device(device)
         self.route = drqn_route(cfg, self.device)
-        if cfg.learner_sharding == "sharded":
-            warnings.warn(ONE_SHARD_WARNING, stacklevel=2)
+        if self.sharded:   # the sharded layout runs the autodiff update
+            self.route = self.route._replace(update="autodiff")
         if (cfg.use_pallas_update and cfg.burn_in_length > 0
                 and self.device.type == "cuda"):
             warnings.warn(BURN_IN_WARNING, stacklevel=2)
@@ -281,11 +311,15 @@ class DRQNLearner:
         # shapes (and device) of the learner's QNetRNN; values unused
         self.template = self.init_params(torch.Generator().manual_seed(0))
         self.template = self.template.to(self.device)
+        layout = ""
+        if self.mesh is not None:
+            layout = (f", {'sharded' if self.sharded else 'replicated'} "
+                      f"learner, rank {mesh.rank} of {ndata}")
         print(f"[route:drqn] rollout {self.route.rollout}, update "
               f"{self.route.update}, binding {cfg.opponent_binding}, "
               f"{'episode' if cfg.episode_uniform_sampling else 'window'}"
               f"-uniform sampling, burn-in {cfg.burn_in_length}, on "
-              f"{self.device}", file=sys.stderr, flush=True)
+              f"{self.device}{layout}", file=sys.stderr, flush=True)
 
     # -- parameters --------------------------------------------------------
     def init_params(self, generator) -> QNetRNN:
@@ -317,6 +351,15 @@ class DRQNLearner:
     def init_state(self, seed: int, params_b: Optional[QNetRNN] = None,
                    epsilon: Optional[float] = None,
                    episodes: int = 0) -> DRQNTrainState:
+        """A fresh state (this rank's block of it under a mesh)."""
+        return self.shard_state(self.init_global_state(seed, params_b,
+                                                       epsilon, episodes))
+
+    def init_global_state(self, seed: int, params_b: Optional[QNetRNN] = None,
+                          epsilon: Optional[float] = None,
+                          episodes: int = 0) -> DRQNTrainState:
+        """A fresh state of the whole batch and ring (the single-device
+        state; the layout :meth:`gather_state` returns)."""
         c = self.cfg
         gen = torch.Generator().manual_seed(int(seed))
         if params_b is None:
@@ -340,6 +383,43 @@ class DRQNLearner:
             epsilon=float(np.float32(epsilon)), train_steps=0,
             episodes=int(episodes),
         )
+
+    # -- data-parallel layout ----------------------------------------------
+    _RING_ROWS = ("data", "ep_id", "cur_ep_id", "cur_ep_len")
+
+    def shard_state(self, state: DRQNTrainState) -> DRQNTrainState:
+        """This rank's part of a whole state: its block of the per-env
+        leaves (the hidden block's columns) and, in the sharded layout, its
+        envs' rows of the ring (the cursor, the global admitted count and
+        the dummy directory are kept). The identity without a mesh."""
+        if self.mesh is None:
+            return state
+        buf = state.buffer
+        if self.sharded:
+            buf = dataclasses.replace(buf, **{
+                f: self._blk(getattr(buf, f)) for f in self._RING_ROWS})
+        return dataclasses.replace(
+            state, env_state=EnvState(*(self._blk(x)
+                                        for x in state.env_state)),
+            hid=self._blk(state.hid, 1), opp_idx=self._blk(state.opp_idx),
+            ep_return=self._blk(state.ep_return),
+            ended=self._blk(state.ended), buffer=buf)
+
+    def gather_state(self, state: DRQNTrainState) -> DRQNTrainState:
+        """The whole state from every rank's part (collective: every rank
+        calls it at the same point); the identity without a mesh."""
+        if self.mesh is None:
+            return state
+        buf = state.buffer
+        if self.sharded:
+            buf = dataclasses.replace(buf, **{
+                f: self._cat(getattr(buf, f)) for f in self._RING_ROWS})
+        return dataclasses.replace(
+            state, env_state=EnvState(*(self._cat(x)
+                                        for x in state.env_state)),
+            hid=self._cat(state.hid, 1), opp_idx=self._cat(state.opp_idx),
+            ep_return=self._cat(state.ep_return),
+            ended=self._cat(state.ended), buffer=buf)
 
     def new_generation(self, state: DRQNTrainState,
                        params_a: QNetRNN) -> DRQNTrainState:
@@ -372,16 +452,36 @@ class DRQNLearner:
     def _rollout(self, state: DRQNTrainState, opp: PreparedRNNOpponents,
                  pool_size: int, seed: Optional[int] = None):
         """One rollout chunk on the learner's route and its ring push (in
-        place on ``state``). Returns ``(stat_counts, ret_sum)``, the
-        counts ``[games_vs_a, wins_vs_a, games_vs_pool, wins_vs_pool,
-        ...]``."""
+        place on ``state``). Returns ``(stat_counts, ret_sum)`` of the
+        whole batch, the counts ``[games_vs_a, wins_vs_a, games_vs_pool,
+        wins_vs_pool, ...]``. Under a mesh the replicated layout pushes the
+        all-gathered chunk into the whole ring; the sharded one pushes this
+        rank's chunk into its rows and all-reduces the admissions into the
+        global admitted count."""
         if self.route.rollout == "kernel":
             counts, ret_sum, tr = self._rollout_kernel(state, opp, pool_size,
                                                        seed)
         else:
             counts, ret_sum, tr = self._rollout_scan(state, opp, pool_size)
-        seq_push_rollout(state.buffer, tr["obs"], tr["action"], tr["reward"],
+        buf = state.buffer
+        if self.mesh is not None and not self.sharded:
+            # one rank-order all-gather of the packed (T, B_local, 10) chunk
+            packed = self._cat(torch.cat([
+                tr["obs"], tr["action"].to(torch.float32)[..., None],
+                tr["reward"][..., None],
+                tr["done"].to(torch.float32)[..., None]], dim=-1), dim=1)
+            tr = dict(obs=packed[..., :7],
+                      action=packed[..., 7].to(torch.int32),
+                      reward=packed[..., 8], done=packed[..., 9] > 0.5)
+        before = buf.ep_count
+        if self.sharded:
+            buf.ep_count = 0
+        seq_push_rollout(buf, tr["obs"], tr["action"], tr["reward"],
                          tr["done"], self.cfg.trace_length)
+        if self.sharded:
+            admitted = torch.tensor(buf.ep_count, dtype=torch.int64,
+                                    device=self.device)
+            buf.ep_count = before + int(all_reduce_(admitted, self.mesh))
         return counts, ret_sum
 
     def _rollout_kernel(self, state: DRQNTrainState,
@@ -389,8 +489,13 @@ class DRQNLearner:
                         seed: Optional[int]):
         """One fused rollout chunk (kernel 3), in place on ``state``.
         With sorted binding the envs go to the kernel sorted by slot and
-        everything comes back in env order (the ring is per env). Returns
-        ``(stat_counts (5,) ints, ret_sum, transitions)``."""
+        everything comes back in env order (the ring is per env); under a
+        mesh the WHOLE batch is sorted, as the JAX learner does, so the
+        ranks exchange their envs before the kernel and after it. A rank
+        runs its block with ``tile0`` its first global tile, unless the
+        block does not split into whole tiles (then every rank runs the
+        whole batch and keeps its block). Returns ``(stat_counts (5,)
+        ints, ret_sum, transitions)``."""
         cfg = self.cfg
         n = cfg.num_envs
         H = cfg.lstm_hidden_dim
@@ -402,24 +507,33 @@ class DRQNLearner:
         if opp.n_slots == 1:
             opp_idx = state.opp_idx
         elif cfg.opponent_binding == "bucketed":
-            target = bucket_opp_idx(n, ratio, pool_size,
-                                    phase=state.episodes, device=self.device)
+            target = self._blk(bucket_opp_idx(n, ratio, pool_size,
+                                              phase=state.episodes,
+                                              device=self.device))
             opp_idx = torch.where(state.ended, target, state.opp_idx)
         else:
             draw = sorted_binding_draws(gen, n, ratio, pool_size).to(
                 self.device)
-            opp_idx = torch.where(state.ended, draw, state.opp_idx)
+            opp_idx = torch.where(self._cat(state.ended), draw,
+                                  self._cat(state.opp_idx))
             perm = torch.sort(opp_idx, stable=True).indices
         # envs that ended last chunk start the opponent stream from zero
         hid = state.hid.clone()
         hid[2 * H:] *= (~state.ended).to(torch.float32)[None, :]
         env_state, ep_return = state.env_state, state.ep_return
         if perm is not None:
-            env_state = EnvState(*(x[perm] for x in env_state))
-            opp_idx, ep_return, hid = opp_idx[perm], ep_return[perm], \
-                hid[:, perm]
+            env_state = EnvState(*(self._blk(self._cat(x)[perm])
+                                   for x in env_state))
+            opp_idx = self._blk(opp_idx[perm])
+            ep_return = self._blk(self._cat(ep_return)[perm])
+            hid = self._blk(self._cat(hid, 1)[:, perm], 1)
 
-        tile = min(cfg.pallas_tile_rows, n)
+        tile, tile0, whole = self._tiling(cfg.pallas_tile_rows, n,
+                                          opp_idx.shape[0])
+        if whole:
+            env_state = EnvState(*(self._cat(x) for x in env_state))
+            opp_idx, ep_return = self._cat(opp_idx), self._cat(ep_return)
+            hid = self._cat(hid, 1)
         learner = self.params_b(state)
         (new_env, new_opp, new_ret, hid_out, tr, counts, ret_sum,
          ended) = recurrent_rollout(
@@ -427,14 +541,32 @@ class DRQNLearner:
             pack_qnet_rnn(learner), pack_rnn_sigma(learner), opp.packed,
             seed=seed, epsilon=state.epsilon, steps=cfg.rollout_length,
             max_episode_steps=cfg.max_episode_steps, tile_rows=tile,
-            opponents_flat=opp.flat)
-        if perm is not None:
-            inv = torch.argsort(perm)
-            new_env = EnvState(*(x[inv] for x in new_env))
-            new_opp, new_ret, ended = new_opp[inv], new_ret[inv], ended[inv]
-            hid_out = hid_out[:, inv]
-            tr = {k: v[:, inv] for k, v in tr.items()}
-        counts = [int(c) for c in counts.tolist()]
+            tile0=tile0, opponents_flat=opp.flat)
+        if whole:
+            counts = [int(c) for c in counts.tolist()]
+            ret_sum = float(ret_sum)
+        else:
+            counts, ret_sum = self._sum_counts(counts, ret_sum)
+        if perm is not None or whole:
+            # the whole batch's outputs, in the kernel's env order
+            g = (lambda x, dim=0: x) if whole else self._cat
+            new_env = EnvState(*(g(x) for x in new_env))
+            new_opp, new_ret, ended = g(new_opp), g(new_ret), g(ended)
+            hid_out = g(hid_out, 1)
+            tr = {k: g(v, 1) for k, v in tr.items()}
+            if perm is not None:
+                inv = torch.argsort(perm)
+                new_env = EnvState(*(x[inv] for x in new_env))
+                new_opp, new_ret, ended = new_opp[inv], new_ret[inv], \
+                    ended[inv]
+                hid_out = hid_out[:, inv]
+                tr = {k: v[:, inv] for k, v in tr.items()}
+            new_env = EnvState(*(self._blk(x) for x in new_env))
+            new_opp, new_ret, ended = (self._blk(x) for x in (new_opp,
+                                                                new_ret,
+                                                                ended))
+            hid_out = self._blk(hid_out, 1)
+            tr = {k: self._blk(v, 1) for k, v in tr.items()}
         n_done = counts[0] + counts[2]
         state.epsilon = float(max(
             np.float32(cfg.min_epsilon),
@@ -446,7 +578,7 @@ class DRQNLearner:
         state.hid = hid_out
         state.ended = ended
         state.episodes += n_done
-        return counts, float(ret_sum), tr
+        return counts, ret_sum, tr
 
     def _rollout_scan(self, state: DRQNTrainState, opp: PreparedRNNOpponents,
                       pool_size: int):
@@ -458,17 +590,22 @@ class DRQNLearner:
         learner's epsilon-greedy action, the env step with auto-reset, the
         statistics, both streams zeroed where the episode ended, epsilon
         decayed by ``decay ** done`` and iid re-binding of the ended envs.
-        Returns ``(stat_counts (4,) ints, ret_sum, transitions)``."""
+        Under a mesh the rank takes its columns of the whole batch's draws
+        and a step's done count is all-reduced. Returns ``(stat_counts (4,)
+        ints, ret_sum, transitions)``."""
         cfg = self.cfg
         dev = self.device
-        T, n, L = cfg.rollout_length, cfg.num_envs, cfg.lstm_layers
+        T, L = cfg.rollout_length, cfg.lstm_layers
+        n = cfg.num_envs // self.n_data
         gen = state.generator
         noise = qnet_rnn_sample_noise(gen, self.template, batch=(T,))
-        dr = scan_step_draws(gen, T, n, pool_size, dev)
+        dr = scan_step_draws(gen, T, cfg.num_envs, pool_size, dev)
+        dr = {k: self._blk(v, v.dim() - 1) for k, v in dr.items()}
         S = opp.n_slots
         learner = flat_views(state.params, self.template)
         P = {k: torch.cat([v, learner[k][None]]) for k, v in opp.raw.items()}
-        tally = EpisodeTally(cfg, state.epsilon, pool_size, dev)
+        tally = EpisodeTally(cfg, state.epsilon, pool_size, dev,
+                             reduce=self._reducer())
         h_b, c_b, h_o, c_o = split_hidden(state.hid, L)
         env, opp_idx, ep_return = state.env_state, state.opp_idx, \
             state.ep_return
@@ -518,9 +655,8 @@ class DRQNLearner:
         state.ended = ended
         state.epsilon = float(tally.eps)
         state.episodes += int(tally.n_done)
-        return ([int(v) for v in tally.stats.tolist()],
-                float(tally.ret_sum), {k: torch.stack(v)
-                                       for k, v in tr.items()})
+        counts, ret_sum = self._sum_counts(tally.stats, tally.ret_sum)
+        return counts, ret_sum, {k: torch.stack(v) for k, v in tr.items()}
 
     # -- update --------------------------------------------------------------
     def _update(self, state: DRQNTrainState, noise=None, candidates=None):
@@ -529,25 +665,39 @@ class DRQNLearner:
         min_episodes_for_training_start`` episodes. ``noise (K, NN)``
         (``flat_noise`` rows) and the window candidates are drawn from the
         state's generator unless given: ``(env, t0)``, or ``(directory
-        slot, offset)`` with ``episode_uniform_sampling``. Returns
-        ``(mean_loss, updates_run)``."""
+        slot, offset)`` with ``episode_uniform_sampling``. In the sharded
+        layout ``candidates`` is every rank's ``K * bs / n`` windows over
+        its own ring (a list in rank order), of which this rank takes its
+        own. Returns ``(mean_loss, updates_run)``."""
         cfg = self.cfg
         bs, K = cfg.batch_size, cfg.updates_per_iteration
         gen = state.generator
         episodic = cfg.episode_uniform_sampling
+        gate = bs * cfg.min_episodes_for_training_start
         if noise is None:
             noise = flat_noise(qnet_rnn_sample_noise(gen, self.template,
                                                      batch=(K,)))
-        if candidates is None:
+        if self.sharded:
+            bs //= self.n_data
+            if candidates is None:
+                candidates = [draw_candidates(state.buffer, gen, K * bs,
+                                              cfg.trace_length)
+                              for _ in range(self.n_data)]
+            candidates = candidates[self.mesh.rank]
+        elif candidates is None:
             draw = draw_episode_candidates if episodic else draw_candidates
             candidates = draw(state.buffer, gen, K * bs, cfg.trace_length)
-        if not state.buffer.ep_count > bs * cfg.min_episodes_for_training_start:
+        if not state.buffer.ep_count > gate:
             return 0.0, 0
         smp = seq_sample(state.buffer, K * bs, cfg.trace_length, *candidates,
                          episode_uniform=episodic)
         noise = noise.to(self.device)
-        run = (self._update_kernel if self.route.update == "kernel"
-               else self._update_autodiff)
+        if self.sharded:
+            run = self._update_sharded
+        elif self.route.update == "kernel":
+            run = self._update_kernel
+        else:
+            run = self._update_autodiff
         losses = run(state, smp, noise)
         return float(losses.sum()) / K, K
 
@@ -634,17 +784,21 @@ class DRQNLearner:
         td = q_a - y
         return torch.where(td.abs() <= 1.0, 0.5 * td * td, td.abs() - 0.5)
 
-    def _update_autodiff(self, state: DRQNTrainState, smp: SeqSample, noise):
+    def _update_autodiff(self, state: DRQNTrainState, smp: SeqSample, noise,
+                         reduce=None):
         """K autodiff updates (``pingpong_tpu/train/drqn.py:918-1041``) on
         the K minibatches of ``smp``: the target's Q(s') for all K in one
         batch up front, recomputed per update from the live target once a
         sync lands inside the block (every update under Polyak); per
         update the masked-mean Huber loss, its gradient by
         ``torch.autograd.grad``, the gradient clipped to
-        ``grad_clip_norm``, Adam, the target sync. Returns the losses
-        ``(K,)``."""
+        ``grad_clip_norm``, Adam, the target sync. ``reduce`` (the sharded
+        layout's) sums ``[gradient of the numerator, numerator,
+        denominator]`` of the local masked sum over the ranks before the
+        mean is taken. Returns the losses ``(K,)``."""
         cfg = self.cfg
-        bs, K = cfg.batch_size, cfg.updates_per_iteration
+        K = cfg.updates_per_iteration
+        bs = smp.obs.shape[0] // K
         nz = unflat_noise(noise, self.template)
         qt_all, h0t_all = self._target_q(state.target, smp.next_obs)
         synced = cfg.target_tau > 0.0
@@ -664,8 +818,16 @@ class DRQNLearner:
             w = sk.valid.to(torch.float32)
             flat = state.params.detach().requires_grad_(True)
             huber = self._drqn_huber(flat, sk, noise_k, qt, h0t)
-            loss = torch.sum(w * huber) / torch.clamp(w.sum(), min=1.0)
-            (grad,) = torch.autograd.grad(loss, flat)
+            if reduce is None:
+                loss = torch.sum(w * huber) / torch.clamp(w.sum(), min=1.0)
+                (grad,) = torch.autograd.grad(loss, flat)
+            else:
+                num = torch.sum(w * huber)
+                (g_num,) = torch.autograd.grad(num, flat)
+                g = reduce(torch.cat([g_num, num.detach()[None],
+                                      w.sum()[None]]))
+                denom = torch.clamp(g[-1], min=1.0)
+                grad, loss = g[:-2] / denom, g[-2] / denom
             state.opt_count += 1
             adam_(state.params, clip_by_global_norm(grad, cfg.grad_clip_norm),
                   state.opt_mu, state.opt_nu, state.opt_count, cfg.lr)
@@ -678,6 +840,15 @@ class DRQNLearner:
                 synced = True
             losses.append(loss.detach())
         return torch.stack(losses)
+
+    def _update_sharded(self, state: DRQNTrainState, smp: SeqSample, noise):
+        """K updates of the sharded layout
+        (``pingpong_tpu/train/drqn.py:1044-1200``) on this rank's ``bs / n``
+        windows an update: the autodiff update with one all-reduce an update
+        of the gradient and the masked mean's numerator and denominator.
+        Returns the losses ``(K,)``."""
+        return self._update_autodiff(
+            state, smp, noise, reduce=lambda x: all_reduce_(x, self.mesh))
 
     # -- one full iteration ------------------------------------------------
     def train_iteration(self, state: DRQNTrainState,
