@@ -1,0 +1,267 @@
+"""Frozen copy of ``pingpong_tpu_torch/ops/actor_rollout.py`` (kernel 1's plain
+version: the env step, both seats' forwards, the counter-hash draws), as the
+port had it when the benchmark was written.
+
+The benchmark's reference computes with this copy and never imports the
+program; a later change to the program does not change this file.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Sequence, Union
+
+import numpy as np
+import torch
+
+from .env import (
+    EnvParams,
+    EnvState,
+    serve_from_uniforms,
+    step,
+)
+from .qnet import QNet, argmax3
+from .hashrng import hash_u01, tile_seed_mix
+
+NEG_BIG = -1e30
+HIDDEN = 64
+NET = 5776            # floats per packed net (see csrc/actor_rollout.cu)
+CUDA_ENVS = 16        # envs per CUDA block; tile_rows must be a multiple
+
+# obs_a = _MIRROR @ obs_b (+ e_y): x, 1-y, vx, -vy, top, bottom, spin
+_MIRROR = np.zeros((8, 8), np.float32)
+for _i, _j, _v in [(0, 0, 1), (1, 1, -1), (2, 2, 1), (3, 3, -1),
+                   (4, 5, 1), (5, 4, 1), (6, 6, 1)]:
+    _MIRROR[_i, _j] = _v
+
+
+class PackedQNet(NamedTuple):
+    """Transposed, padded advantage-path weights, the JAX package's layout
+    (optionally with a leading slot axis). Rows 3-7 of the advantage head
+    are padding; the padding rows of ``bat_mu`` hold -1e30."""
+
+    w1t: torch.Tensor       # (..., 64, 8)
+    b1t: torch.Tensor       # (..., 64, 1)
+    w2t: torch.Tensor       # (..., 64, 64)
+    b2t: torch.Tensor       # (..., 64, 1)
+    wat_mu: torch.Tensor    # (..., 8, 64)
+    bat_mu: torch.Tensor    # (..., 8, 1)
+    wat_sigma: torch.Tensor
+    bat_sigma: torch.Tensor
+
+
+def pack_qnet(params: Union[QNet, Sequence[QNet]],
+              mirror: bool = False) -> PackedQNet:
+    """Pad and transpose one QNet, or stack a sequence of them along a new
+    leading slot axis. ``mirror=True`` folds player A's view into the
+    first layer, so the net consumes player B's observation directly."""
+    if not isinstance(params, QNet):
+        packs = [pack_qnet(p, mirror) for p in params]
+        return PackedQNet(*(torch.stack(f) for f in zip(*packs)))
+
+    def pad_rows(x, rows, fill=0.0):
+        out = torch.full((rows,) + tuple(x.shape[1:]), fill,
+                         dtype=torch.float32, device=x.device)
+        out[:x.shape[0]] = x
+        return out
+
+    w1 = params.feat1.w.detach()
+    w1t = pad_rows(w1, 8).T.contiguous()              # (64, 8)
+    b1t = params.feat1.b.detach()[:, None].clone()    # (64, 1)
+    if mirror:
+        # w1t @ obs_a == (w1t @ M) @ obs_b + w1t[:, y]
+        b1t = b1t + w1t[:, 1:2]
+        w1t = w1t @ torch.as_tensor(_MIRROR, device=w1t.device)
+    fa = params.fc_a
+    return PackedQNet(
+        w1t=w1t,
+        b1t=b1t,
+        w2t=params.feat2.w.detach().T.contiguous(),
+        b2t=params.feat2.b.detach()[:, None].clone(),
+        wat_mu=pad_rows(fa.w_mu.detach().T, 8),
+        bat_mu=pad_rows(fa.b_mu.detach()[:, None], 8, fill=NEG_BIG),
+        wat_sigma=pad_rows(fa.w_sigma.detach().T, 8),
+        bat_sigma=pad_rows(fa.b_sigma.detach()[:, None], 8),
+    )
+
+
+def epsilon_to_int(epsilon: float) -> int:
+    """The kernel's epsilon argument: ``int32(float32(eps) * 1e6)``."""
+    return int(np.float32(epsilon) * np.float32(1e6))
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version
+# ---------------------------------------------------------------------------
+
+def _trunk(w1t, b1t, w2t, b2t, obs7):
+    """(B, 7) -> (B, 64) second hidden layer, one net."""
+    h = torch.relu(obs7 @ w1t[:, :7].T + b1t[:, 0])
+    return torch.relu(h @ w2t.T + b2t[:, 0])
+
+
+def _opponent_adv(opp: PackedQNet, obs7, opp_idx, shared_trunk):
+    """Advantages of each env's bound member, ``(B, 3)``: every slot's
+    forward over the whole batch, then a per-env select."""
+    if shared_trunk:
+        h2 = _trunk(opp.w1t[0], opp.b1t[0], opp.w2t[0], opp.b2t[0], obs7)
+        adv = torch.einsum("bh,kah->kba", h2, opp.wat_mu[:, :3])
+    else:
+        h1 = torch.relu(torch.einsum("bi,kji->kbj", obs7, opp.w1t[..., :7])
+                        + opp.b1t[:, None, :, 0])
+        h2 = torch.relu(torch.einsum("kbi,kji->kbj", h1, opp.w2t)
+                        + opp.b2t[:, None, :, 0])
+        adv = torch.einsum("kbh,kah->kba", h2, opp.wat_mu[:, :3])
+    adv = adv + opp.bat_mu[:, None, :3, 0]
+    env = torch.arange(obs7.shape[0], device=obs7.device)
+    return adv[opp_idx.long(), env]
+
+
+def _noise_grid(device):
+    """The (row, col) hash coordinates of eps_in (row 0, cols 0-63) and
+    eps_out[0:3] (rows 0-2, col 64) in the TPU kernel's (8, 128) draw."""
+    rows = torch.tensor([0] * HIDDEN + [0, 1, 2], device=device)
+    cols = torch.tensor(list(range(HIDDEN)) + [HIDDEN] * 3, device=device)
+    return rows, cols
+
+
+def _scale_noise(x):
+    return torch.sign(x) * torch.sqrt(torch.abs(x))
+
+
+def hash_noise(seed_mix, ctr, k_u1, k_u2, row, col) -> torch.Tensor:
+    """``f(N(0,1))`` from the hash at ``(k_u1, k_u2)``: Box-Muller (cos
+    half) on U[1e-7, 1) and U[0, 1), then ``sign(x) sqrt|x|``."""
+    u1 = 1e-7 + hash_u01(seed_mix, ctr, k_u1, row, col) * (1.0 - 1e-7)
+    u2 = hash_u01(seed_mix, ctr, k_u2, row, col)
+    return _scale_noise(torch.sqrt(-2.0 * torch.log(u1))
+                        * torch.cos(2.0 * math.pi * u2))
+
+
+def env_step_plain(env_params: EnvParams, st: EnvState, ret, act_a, act_b,
+                   mix_env, lane, ctr: int, max_episode_steps: int, pool_f):
+    """One env step of a rollout kernel, step by step: the transition, the
+    ``max_episode_steps`` cap, the accounting rows ``[games/wins vs A,
+    games/wins vs pool, return sum, ended, draws, 0]`` and the auto-reset
+    with a counter-hash serve (``ctr + 8``, column = lane). Returns
+    ``(next_obs_b, reward_b, done, stat_rows (8, B), state', return')``."""
+    new, out = step(env_params, st, act_a, act_b)
+    done = out.done
+    if max_episode_steps:
+        done = done | (new.t >= max_episode_steps)
+    ep_ret = ret + out.reward_b
+    d_f = done.to(torch.float32)
+    w_f = (done & (ep_ret > 0.0)).to(torch.float32)
+    srow = torch.stack([
+        d_f * (1 - pool_f), w_f * (1 - pool_f), d_f * pool_f, w_f * pool_f,
+        torch.where(done, ep_ret, 0.0), d_f,
+        (done & (ep_ret == 0.0)).to(torch.float32), torch.zeros_like(d_f)])
+    u = [hash_u01(mix_env, ctr + 8, k, 0, lane) for k in (1, 2, 3, 4)]
+    svx, svy, ssp = serve_from_uniforms(env_params, *u)
+    zi = torch.zeros_like(new.t)
+    st = EnvState(
+        ball_x=torch.where(done, 0.5, new.ball_x),
+        ball_y=torch.where(done, 0.5, new.ball_y),
+        ball_vx=torch.where(done, svx, new.ball_vx),
+        ball_vy=torch.where(done, svy, new.ball_vy),
+        spin=torch.where(done, ssp, new.spin),
+        top_paddle_x=torch.where(done, 0.5, new.top_paddle_x),
+        bottom_paddle_x=torch.where(done, 0.5, new.bottom_paddle_x),
+        score_a=torch.where(done, zi, new.score_a),
+        score_b=torch.where(done, zi, new.score_b),
+        bounce_count=torch.where(done, zi, new.bounce_count),
+        t=torch.where(done, zi, new.t),
+        done=torch.zeros_like(done),
+    )
+    return out.obs_b, out.reward_b, done, srow, st, torch.where(
+        done, 0.0, ep_ret)
+
+
+def explore_plain(mix_env, lane, ctr: int, eps_i: int, greedy):
+    """Epsilon-greedy of the rollout kernels: hash draws (k 5, 6) per env
+    against ``eps = eps_i * 1e-6``."""
+    eps = float(np.float32(eps_i) * np.float32(1e-6))
+    u_expl = hash_u01(mix_env, ctr, 5, 0, lane)
+    rand_a = torch.clamp((hash_u01(mix_env, ctr, 6, 0, lane) * 3.0)
+                         .to(torch.int32), 0, 2)
+    return torch.where(u_expl < eps, rand_a, greedy)
+
+
+def actor_rollout_plain(env_params: EnvParams, state: EnvState, opp_idx,
+                        ep_return, learner: PackedQNet, opponents: PackedQNet,
+                        *, seed: int, eps_i: int, steps: int,
+                        max_episode_steps: int, tile_rows: int,
+                        emit_transitions: bool, shared_trunk: bool,
+                        tile0: int = 0):
+    """Step-by-step version of the kernel. Returns ``(state, ep_return,
+    transitions or None, stats (8, B))`` with transitions as five
+    ``(T, B[, 7])`` tensors ``obs, action, reward, next_obs, done``."""
+    dev = state.ball_x.device
+    B = state.ball_x.shape[0]
+    env = torch.arange(B, device=dev)
+    tile = env // tile_rows
+    lane = env % tile_rows
+    mix_tiles = tile_seed_mix(seed, B // tile_rows, dev, tile0)
+    mix_env = mix_tiles[tile]
+    rows, cols = _noise_grid(dev)
+    pool_f = (opp_idx > 0).to(torch.float32)
+    lw = learner
+
+    st = state
+    ret = ep_return
+    stats = torch.zeros((8, B), dtype=torch.float32, device=dev)
+    tr = {k: [] for k in ("obs", "action", "reward", "next_obs", "done")}
+    for s in range(steps):
+        ctr = s * 16
+        # learner head noise: one factorized draw per (tile, step)
+        sn = hash_noise(mix_tiles[:, None], ctr, 1, 2, rows, cols)
+        ein, eout = sn[:, :HIDDEN], sn[:, HIDDEN:]
+        wa = lw.wat_mu[:3] + lw.wat_sigma[:3] * (eout[:, :, None]
+                                                 * ein[:, None, :])
+        ba = lw.bat_mu[:3, 0] + lw.bat_sigma[:3, 0] * eout
+
+        obs7 = torch.stack([st.ball_x, st.ball_y, st.ball_vx, st.ball_vy,
+                            st.bottom_paddle_x, st.top_paddle_x, st.spin], -1)
+        act_a = argmax3(_opponent_adv(opponents, obs7, opp_idx, shared_trunk))
+        h2 = _trunk(lw.w1t, lw.b1t, lw.w2t, lw.b2t, obs7)
+        greedy_b = argmax3(torch.einsum("bh,bah->ba", h2, wa[tile])
+                           + ba[tile])
+        act_b = explore_plain(mix_env, lane, ctr, eps_i, greedy_b)
+
+        obs_next, reward, done, srow, st, ret = env_step_plain(
+            env_params, st, ret, act_a, act_b, mix_env, lane, ctr,
+            max_episode_steps, pool_f)
+        if emit_transitions:
+            tr["obs"].append(obs7)
+            tr["next_obs"].append(obs_next)
+            tr["action"].append(act_b)
+            tr["reward"].append(reward)
+            tr["done"].append(done)
+        stats += srow
+    trans = ({k: torch.stack(v) for k, v in tr.items()}
+             if emit_transitions else None)
+    return st, ret, trans, stats
+
+
+def actor_rollout(env_params: EnvParams, state: EnvState, opp_idx,
+                  ep_return, learner: PackedQNet, opponents: PackedQNet, *,
+                  seed: int, epsilon: float, steps: int,
+                  max_episode_steps: int = 0, tile_rows: int = 512,
+                  tile0: int = 0, emit_transitions: bool = True,
+                  member_shared_trunk: bool = False):
+    """The plain version behind the program's dispatcher, with its
+    returns: ``(state, opp_idx, ep_return, transitions, stat_counts,
+    ret_sum, ended)``."""
+    B = state.ball_x.shape[0]
+    if B % tile_rows:
+        raise ValueError(f"batch {B} must be a multiple of {tile_rows}")
+    new_state, ret, trans, stats = actor_rollout_plain(
+        env_params, state, opp_idx, ep_return, learner, opponents,
+        seed=int(seed), eps_i=epsilon_to_int(epsilon), steps=steps,
+        max_episode_steps=int(max_episode_steps), tile_rows=tile_rows,
+        tile0=int(tile0), emit_transitions=emit_transitions,
+        shared_trunk=bool(member_shared_trunk))
+    totals = stats.sum(dim=1)
+    stat_counts = totals[[0, 1, 2, 3, 6]].to(torch.int32)
+    return (new_state, opp_idx, ret, trans, stat_counts, totals[4],
+            stats[5] > 0.0)

@@ -1,0 +1,168 @@
+"""Frozen copy of ``pingpong_tpu_torch/evaluation/fast_eval.py`` (the greedy
+gates), as the port had it when the benchmark was written.
+
+The benchmark's reference computes with this copy and never imports the
+program; a later change to the program does not change this file.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .env import EnvParams, reset
+from .qnet import QNet, qnet_copy
+from .qnet_rnn import QNetRNN, qnet_rnn_copy
+from .actor import actor_rollout, pack_qnet
+from .recurrent import (
+    pack_qnet_rnn,
+    pack_rnn_sigma,
+    recurrent_rollout,
+)
+
+
+def _zero_sigma(params: QNet) -> QNet:
+    out = qnet_copy(params)
+    out.fc_a.w_sigma.data.zero_()
+    out.fc_a.b_sigma.data.zero_()
+    return out
+
+
+def _stream_seat(env_params, bottom, top, generator, min_episodes, n_envs,
+                 chunk_steps, max_chunks, tile_rows, device):
+    """Greedy episodes with ``bottom`` in the kernel's learner seat
+    (player B) and ``top`` as the bound opponent (player A, mirror-folded).
+    Returns (bottom_wins, draws, episodes)."""
+    learner = pack_qnet(_zero_sigma(bottom).to(device))
+    opp = pack_qnet([qnet_copy(top).to(device)], mirror=True)
+    state = reset(env_params, n_envs, generator, device)
+    opp_idx = torch.zeros((n_envs,), dtype=torch.int32, device=device)
+    ep_ret = torch.zeros((n_envs,), dtype=torch.float32, device=device)
+    wins = draws = episodes = 0
+    for _ in range(max_chunks):
+        seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
+        state, opp_idx, ep_ret, _, stats, _, _ = actor_rollout(
+            env_params, state, opp_idx, ep_ret, learner, opp, seed=seed,
+            epsilon=0.0, steps=chunk_steps, tile_rows=tile_rows,
+            emit_transitions=False)
+        s = stats.tolist()
+        episodes += s[0] + s[2]
+        wins += s[1] + s[3]
+        draws += s[4]
+        if episodes >= min_episodes:
+            break
+    return wins, draws, episodes
+
+
+def fused_win_rate(env_params: EnvParams, params_a: QNet, params_b: QNet,
+                   generator: torch.Generator, min_episodes: int,
+                   n_envs: int = 4096, chunk_steps: int = 256,
+                   max_chunks: int = 32, tile_rows: int = 512,
+                   device="cuda"):
+    """B's win rate vs frozen A (``pallas_win_rate`` in the JAX package).
+    Returns ``(win_rate_b, episodes_played)``."""
+    wins, _, episodes = _stream_seat(
+        env_params, params_b, params_a, generator, min_episodes, n_envs,
+        chunk_steps, max_chunks, tile_rows, device)
+    return (wins / episodes if episodes else 0.0), episodes
+
+
+def fused_win_rate_balanced(env_params: EnvParams, params_a: QNet,
+                            params_b: QNet, generator: torch.Generator,
+                            min_episodes: int, n_envs: int = 4096,
+                            chunk_steps: int = 256, max_chunks: int = 32,
+                            tile_rows: int = 512, device="cuda"):
+    """Side-balanced gate (``pallas_win_rate_balanced``): >= min/2
+    episodes per seating; seat 2 puts A in the learner seat, so B's wins
+    there are ``episodes - A wins - draws``. The two seats weigh equally.
+    Returns ``(win_rate_total, win_rate_as_b, win_rate_as_a,
+    episodes_total)``."""
+    half = max(1, min_episodes // 2)
+    wins_b, _, eps_b = _stream_seat(
+        env_params, params_b, params_a, generator, half, n_envs,
+        chunk_steps, max_chunks, tile_rows, device)
+    wins_a_opp, draws_a, eps_a = _stream_seat(
+        env_params, params_a, params_b, generator, half, n_envs,
+        chunk_steps, max_chunks, tile_rows, device)
+    rate_b = wins_b / max(eps_b, 1)
+    rate_a = (eps_a - wins_a_opp - draws_a) / max(eps_a, 1)
+    return (rate_b + rate_a) / 2, rate_b, rate_a, eps_b + eps_a
+
+
+# ---- recurrent (DRQN) family --------------------------------------------
+
+
+def _zero_rnn_sigma(params: QNetRNN) -> QNetRNN:
+    out = qnet_rnn_copy(params)
+    for layer in (out.fc_a, out.shared):
+        if layer is not None:
+            layer.w_sigma.data.zero_()
+            layer.b_sigma.data.zero_()
+    return out
+
+
+def _stream_seat_rnn(env_params, bottom, top, generator, min_episodes,
+                     n_envs, chunk_steps, max_chunks, tile_rows,
+                     max_episode_steps, device):
+    """Recurrent analog of :func:`_stream_seat`: greedy episodes with
+    ``bottom`` in the kernel's learner seat, hidden states carried across
+    chunks (zero-reset on episode ends in-kernel). Returns
+    (bottom_wins, draws, episodes)."""
+    learner = _zero_rnn_sigma(bottom).to(device)
+    lw, sig = pack_qnet_rnn(learner), pack_rnn_sigma(learner)
+    opp = pack_qnet_rnn([qnet_rnn_copy(top).to(device)], mirror=True)
+    state = reset(env_params, n_envs, generator, device)
+    H = bottom.lstm[0].w_hh.shape[0]
+    hid = torch.zeros((4 * H, n_envs), dtype=torch.float32, device=device)
+    opp_idx = torch.zeros((n_envs,), dtype=torch.int32, device=device)
+    ep_ret = torch.zeros((n_envs,), dtype=torch.float32, device=device)
+    wins = draws = episodes = 0
+    for _ in range(max_chunks):
+        seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
+        state, opp_idx, ep_ret, hid, _, stats, _, _ = recurrent_rollout(
+            env_params, state, opp_idx, ep_ret, hid, lw, sig, opp, seed=seed,
+            epsilon=0.0, steps=chunk_steps,
+            max_episode_steps=max_episode_steps, tile_rows=tile_rows,
+            emit_transitions=False)
+        s = stats.tolist()
+        episodes += s[0] + s[2]
+        wins += s[1] + s[3]
+        draws += s[4]
+        if episodes >= min_episodes:
+            break
+    return wins, draws, episodes
+
+
+def rnn_win_rate(env_params: EnvParams, params_a: QNetRNN,
+                 params_b: QNetRNN, generator: torch.Generator,
+                 min_episodes: int, n_envs: int = 2048,
+                 chunk_steps: int = 256, max_chunks: int = 32,
+                 tile_rows: int = 512, max_episode_steps: int = 1000,
+                 device="cuda"):
+    """Fused single-seat gate for the recurrent family. Returns
+    ``(win_rate_b, episodes_played)``."""
+    wins, _, episodes = _stream_seat_rnn(
+        env_params, params_b, params_a, generator, min_episodes, n_envs,
+        chunk_steps, max_chunks, tile_rows, max_episode_steps, device)
+    return (wins / episodes if episodes else 0.0), episodes
+
+
+def rnn_win_rate_balanced(env_params: EnvParams, params_a: QNetRNN,
+                          params_b: QNetRNN, generator: torch.Generator,
+                          min_episodes: int, n_envs: int = 2048,
+                          chunk_steps: int = 256, max_chunks: int = 32,
+                          tile_rows: int = 512, max_episode_steps: int = 1000,
+                          device="cuda"):
+    """Side-balanced recurrent gate: >= min/2 episodes per seating, the
+    two seats weighted equally. Returns ``(win_rate_total, win_rate_as_b,
+    win_rate_as_a, episodes_total)``."""
+    half = max(1, min_episodes // 2)
+    kw = dict(n_envs=n_envs, chunk_steps=chunk_steps, max_chunks=max_chunks,
+              tile_rows=tile_rows, max_episode_steps=max_episode_steps,
+              device=device)
+    wins_b, _, eps_b = _stream_seat_rnn(env_params, params_b, params_a,
+                                        generator, half, **kw)
+    wins_a_opp, draws_a, eps_a = _stream_seat_rnn(
+        env_params, params_a, params_b, generator, half, **kw)
+    rate_b = wins_b / max(eps_b, 1)
+    rate_a = (eps_a - wins_a_opp - draws_a) / max(eps_a, 1)
+    return (rate_b + rate_a) / 2, rate_b, rate_a, eps_b + eps_a
