@@ -1989,6 +1989,7 @@ def dist_worker(spec) -> int:
         create_mesh,
         initialize_distributed,
     )
+    from pingpong_tpu_torch.utils import trace
 
     initialize_distributed(backend="gloo")   # ranks share one card
     mesh = create_mesh()
@@ -2022,9 +2023,12 @@ def dist_worker(spec) -> int:
         torch.cuda.synchronize()
         dist.barrier()
         res["it_ms"] = (time.perf_counter() - t0) / DIST_ITERS * 1e3
+        trace.enable()     # the mesh::* spans are the tracer's
         with profile(activities=[ProfilerActivity.CPU]) as prof:
             learner.train_iteration(st, opp, 1)
             torch.cuda.synchronize()
+        trace.disable()
+        trace.drain()
         res["collectives"] = {
             e.key: (e.count, e.cpu_time_total / 1e3)
             for e in prof.key_averages() if e.key.startswith("mesh::")}

@@ -25,6 +25,12 @@ process a card; gloo for ``--device cpu``) before anything is built:
 ``train`` and ``train-rnn`` then run data-parallel over the ranks and rank
 0 alone writes the log, the checkpoints and the plots; the tournaments and
 the viewer run on rank 0 alone.
+
+``train --trace`` and ``train-rnn --trace`` turn the program's tracer on
+(``utils/trace.py``) and write one ``spans`` record into the metrics JSONL
+at each gate: for each span name its count, total and self seconds over
+the try, with the counters and the kernels' launches (the records are
+drained, so memory stays bounded over a long run).
 """
 
 from __future__ import annotations
@@ -64,6 +70,10 @@ def _run(trainer_fn, log_name, args):
     from pingpong_tpu_torch.utils.metrics import MetricsLogger
 
     writer = _distributed_setup(args)
+    if args.trace:
+        from pingpong_tpu_torch.utils import trace
+
+        trace.enable()
     logger = MetricsLogger(
         log_path=f"{args.workdir}/{log_name}" if writer else None,
         echo=writer)
@@ -92,8 +102,8 @@ def cmd_train(args) -> int:
 
     ran = _run(lambda logger: QNetSelfPlay(
         cfg.env, cfg.dqn, workdir=args.workdir, seed=cfg.seed, logger=logger,
-        device=args.device, mesh_cfg=cfg.mesh), "train_qnet_metrics.jsonl",
-        args)
+        device=args.device, mesh_cfg=cfg.mesh, log_spans=args.trace),
+        "train_qnet_metrics.jsonl", args)
     if ran is None:
         return 0
     driver, records = ran
@@ -121,8 +131,8 @@ def cmd_train_rnn(args) -> int:
 
     ran = _run(lambda logger: DRQNSelfPlay(
         cfg.env, cfg.drqn, workdir=args.workdir, seed=cfg.seed, logger=logger,
-        device=args.device, mesh_cfg=cfg.mesh), "train_rnn_metrics.jsonl",
-        args)
+        device=args.device, mesh_cfg=cfg.mesh, log_spans=args.trace),
+        "train_rnn_metrics.jsonl", args)
     if ran is None:
         return 0
     driver, _ = ran
@@ -247,6 +257,10 @@ def main(argv=None) -> int:
                              "DRQN (LSTM) self-play training")):
         p = sub.add_parser(name, help=help_)
         _add_common(p)
+        p.add_argument(
+            "--trace", action="store_true",
+            help="turn the tracer on and log a 'spans' record (time by "
+                 "span name, counters) into the metrics JSONL at each gate")
         p.set_defaults(fn=fn)
 
     p = sub.add_parser("round-robin",

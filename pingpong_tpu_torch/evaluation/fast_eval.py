@@ -4,12 +4,13 @@
 Streams greedy episodes through a rollout kernel in eval mode (learner
 sigmas and epsilon zero, no transitions) and reads the win/episode
 counters: one launch per ``chunk_steps`` steps of ``n_envs`` envs, until at
-least ``min_episodes`` episodes finished. The QNet gates run the actor
-kernel with no step cap; the recurrent gates run the recurrent kernel
-with both LSTM streams carried across chunks and the DRQN config's
-``max_episode_steps``. The estimator differs from exactly-N games only in
-that the episode count is >= N; the per-episode win distribution is the
-same.
+least ``min_episodes`` episodes finished (each chunk counted in the
+tracer's ``gate::chunks``, ``gate::env_steps`` and ``gate::episodes``).
+The QNet gates run the actor kernel with no step cap; the recurrent gates
+run the recurrent kernel with both LSTM streams carried across chunks and
+the DRQN config's ``max_episode_steps``. The estimator differs from
+exactly-N games only in that the episode count is >= N; the per-episode
+win distribution is the same.
 """
 
 from __future__ import annotations
@@ -26,6 +27,15 @@ from pingpong_tpu_torch.ops.recurrent_rollout import (
     recurrent_rollout,
     rnn_kernel_flat,
 )
+from pingpong_tpu_torch.utils import trace
+
+
+def _count_chunk(env_steps: int, episodes: int) -> None:
+    """A gate chunk in the tracer's counters (``gate::chunks``,
+    ``gate::env_steps``, ``gate::episodes``)."""
+    trace.count("gate::chunks")
+    trace.count("gate::env_steps", env_steps)
+    trace.count("gate::episodes", episodes)
 
 
 def _zero_sigma(params: QNet) -> QNet:
@@ -52,7 +62,8 @@ def _stream_seat(env_params, bottom, top, generator, min_episodes, n_envs,
             env_params, state, opp_idx, ep_ret, learner, opp, seed=seed,
             epsilon=0.0, steps=chunk_steps, tile_rows=tile_rows,
             emit_transitions=False)
-        s = stats.tolist()
+        s = trace.readback(stats)
+        _count_chunk(n_envs * chunk_steps, s[0] + s[2])
         episodes += s[0] + s[2]
         wins += s[1] + s[3]
         draws += s[4]
@@ -132,7 +143,8 @@ def _stream_seat_rnn(env_params, bottom, top, generator, min_episodes,
             epsilon=0.0, steps=chunk_steps,
             max_episode_steps=max_episode_steps, tile_rows=tile_rows,
             emit_transitions=False, opponents_flat=opp_flat)
-        s = stats.tolist()
+        s = trace.readback(stats)
+        _count_chunk(n_envs * chunk_steps, s[0] + s[2])
         episodes += s[0] + s[2]
         wins += s[1] + s[3]
         draws += s[4]

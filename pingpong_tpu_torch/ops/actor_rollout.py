@@ -56,6 +56,7 @@ from pingpong_tpu_torch.ops.pong_kernel import (
     hash_u01,
     tile_seed_mix,
 )
+from pingpong_tpu_torch.utils import trace
 
 NEG_BIG = -1e30
 HIDDEN = 64
@@ -324,7 +325,7 @@ def actor_rollout_cuda(env_params: EnvParams, state: EnvState, opp_idx,
     check_cuda("opponents", ow, torch.float32, (n_slots, NET))
     check_cuda("opp_idx", opp_idx, torch.int32, (B,))
     lo, hi = torch.aminmax(opp_idx)
-    if int(lo) < 0 or int(hi) >= n_slots:
+    if trace.readback(lo, int) < 0 or trace.readback(hi, int) >= n_slots:
         raise ValueError(f"opp_idx outside [0, {n_slots})")
     f_in = torch.stack([state.ball_x, state.ball_y, state.ball_vx,
                         state.ball_vy, state.bottom_paddle_x,

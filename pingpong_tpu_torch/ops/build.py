@@ -17,9 +17,11 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 import torch
+
+from pingpong_tpu_torch.utils import trace
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -35,12 +37,15 @@ def nvcc_path() -> str:
     return path
 
 
+_KERNELS: List["CudaKernel"] = []
+
+
 class CudaKernel:
     """One CUDA source, its entry point and its launch counter.
 
     ``launches`` counts successful launches of the kernel: the wrapper
     adds one right after the entry point returned ``cudaSuccess``, and
-    nowhere else."""
+    nowhere else. Every instance is listed for :func:`launch_counts`."""
 
     def __init__(self, name: str, symbol: str, argtypes: list):
         self.name = name
@@ -52,6 +57,7 @@ class CudaKernel:
         self.launches = 0
         self._fn = None
         self._lib = None
+        _KERNELS.append(self)
 
     def _stale(self) -> bool:
         """The library or its log is missing, or older than its source or
@@ -74,9 +80,13 @@ class CudaKernel:
                                 stderr=subprocess.STDOUT, text=True)
 
     def finish_build(self, proc: Optional[subprocess.Popen]) -> None:
+        """Wait for ``nvcc`` (an ``ops::build`` span, counted in
+        ``ops::builds``) and move the library into place."""
         if proc is None:
             return
-        out, _ = proc.communicate()
+        with trace.span("ops::build"):
+            trace.count("ops::builds")
+            out, _ = proc.communicate()
         tmp = self.library.with_name(self.library.name + f".tmp-{os.getpid()}")
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {self.source}:\n{out}")
@@ -118,6 +128,14 @@ class CudaKernel:
             raise RuntimeError(f"{self.name} kernel launch failed: {msg} "
                                f"(cudaError {rc})")
         self.launches += 1
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every kernel's launches so far, by kernel name."""
+    out: Dict[str, int] = {}
+    for k in _KERNELS:
+        out[k.name] = out.get(k.name, 0) + k.launches
+    return out
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> Dict[str, str]:

@@ -59,6 +59,7 @@ from pingpong_tpu_torch.ops.build import (
     stream_ptr,
 )
 from pingpong_tpu_torch.ops.pong_kernel import _M32, EnvConsts, tile_seed_mix
+from pingpong_tpu_torch.utils import trace
 
 MAX_WIDTH = 128       # every width the kernel takes
 CUDA_ENVS = 8         # the fewest envs a CUDA block takes; tile_rows must be
@@ -601,7 +602,7 @@ def recurrent_rollout_cuda(env_params: EnvParams, state: EnvState, opp_idx,
                   ptr(hid_out), *tr_ptrs, ptr(stats), ptr(plan.table),
                   ptr(plan.info), plan.envs, plan.grid, B, steps, tile_rows,
                   tile0, seed & _M32, eps_i, *kdims, stream_ptr(dev))
-    copied.synchronize()
+    trace.readback(copied, torch.cuda.Event.synchronize)
     lo, hi, _ = info.tolist()
     if lo < 0 or hi >= n_slots:
         raise ValueError(f"opp_idx outside [0, {n_slots})")

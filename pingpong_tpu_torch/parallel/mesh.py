@@ -14,10 +14,11 @@ and lets XLA insert the collectives. The port runs one process per card:
   parameters and optimizer state are replicated: every rank computes the
   same values (``replicate`` broadcasts rank 0's where they could differ);
 * collectives are explicit calls: ``all_gather_cat`` (rank order),
-  ``all_reduce_`` (SUM or MAX) and ``broadcast_``, each inside a
-  ``torch.profiler`` span (``mesh::all_gather``, ``mesh::all_reduce``,
-  ``mesh::broadcast``) that lasts until the collective is done, so a
-  profile of an iteration reads the collectives' time. The backend follows the
+  ``all_reduce_`` (SUM or MAX) and ``broadcast_``, each inside a span of
+  the program's tracer (``utils/trace.py``: ``mesh::all_gather``,
+  ``mesh::all_reduce``, ``mesh::broadcast``) that lasts until the
+  collective is done, so with tracing on a profile of an iteration reads
+  the collectives' time. The backend follows the
   device: NCCL for CUDA tensors, gloo for CPU tensors (gloo also carries
   these three collectives for CUDA tensors, which lets several ranks share
   one card in a check).
@@ -31,9 +32,9 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from pingpong_tpu_torch.config.schema import MeshConfig
+from pingpong_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,7 +129,7 @@ def all_gather_cat(x: torch.Tensor, mesh: Mesh, dim: int = 0) -> torch.Tensor:
     """Every rank's ``x`` concatenated along ``dim`` in rank order."""
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(mesh.n_data)]
-    with record_function("mesh::all_gather"):
+    with trace.span("mesh::all_gather"):
         dist.all_gather(parts, x, group=mesh.group)
     return torch.cat(parts, dim=dim)
 
@@ -136,7 +137,7 @@ def all_gather_cat(x: torch.Tensor, mesh: Mesh, dim: int = 0) -> torch.Tensor:
 def all_reduce_(x: torch.Tensor, mesh: Mesh, op: str = "sum") -> torch.Tensor:
     """In-place SUM (or MAX) over the data axis; every rank gets the same
     bits."""
-    with record_function("mesh::all_reduce"):
+    with trace.span("mesh::all_reduce"):
         dist.all_reduce(x, op=dist.ReduceOp.SUM if op == "sum"
                         else dist.ReduceOp.MAX, group=mesh.group)
     return x
@@ -144,7 +145,7 @@ def all_reduce_(x: torch.Tensor, mesh: Mesh, op: str = "sum") -> torch.Tensor:
 
 def broadcast_(x: torch.Tensor, mesh: Mesh, src: int = 0) -> torch.Tensor:
     """In place: data rank ``src``'s ``x`` on every rank."""
-    with record_function("mesh::broadcast"):
+    with trace.span("mesh::broadcast"):
         dist.broadcast(x, src=_src(mesh, src), group=mesh.group)
     return x
 
@@ -156,7 +157,7 @@ def broadcast_values(values: Sequence[float], mesh: Optional[Mesh],
         return [float(v) for v in values]
     t = torch.tensor([float(v) for v in values], dtype=torch.float64,
                      device=device)
-    return broadcast_(t, mesh).tolist()
+    return trace.readback(broadcast_(t, mesh))
 
 
 def initialize_distributed(coordinator_address: Optional[str] = None,
@@ -247,7 +248,7 @@ class RankBlocks:
                                        device=counts.device).reshape(1)])
         if self.mesh is not None:
             all_reduce_(v, self.mesh)
-        v = v.tolist()
+        v = trace.readback(v)
         return [int(c) for c in v[:-1]], float(v[-1])
 
     def _reducer(self):

@@ -30,6 +30,8 @@ from typing import NamedTuple
 
 import torch
 
+from pingpong_tpu_torch.utils import trace
+
 CHUNK = 128        # the block layout's chunk, and every chunk's upper bound
 
 
@@ -202,12 +204,14 @@ def per_sample(buf: PERBuffer, batch_size: int, beta, u01: torch.Tensor,
 
 def last_writer_wins(idx: torch.Tensor, vals: torch.Tensor):
     """Deduplicate a chronological stream of ``(slot, value)`` writes:
-    returns the distinct slots and, for each, the value written last."""
+    returns the distinct slots and, for each, the value written last.
+    Selecting by the mask sizes the result on the host, so it waits for
+    the device: a ``trace.readback``."""
     srt = torch.sort(idx, stable=True).indices
     si, sv = idx[srt], vals[srt]
     last = torch.ones_like(si, dtype=torch.bool)
     last[:-1] = si[:-1] != si[1:]
-    return si[last], sv[last]
+    return trace.readback(last, lambda keep: (si[keep], sv[keep]))
 
 
 def per_update_priorities(buf: PERBuffer, indices: torch.Tensor,

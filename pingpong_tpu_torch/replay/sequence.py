@@ -34,6 +34,8 @@ from typing import NamedTuple
 
 import torch
 
+from pingpong_tpu_torch.utils import trace
+
 
 @dataclasses.dataclass
 class SeqReplay:
@@ -127,7 +129,7 @@ def seq_push_rollout(buf: SeqReplay, obs, action, reward, done,
                            buf.cur_ep_len[:, None] + idx + 1,
                            idx - last_done_excl)
     admitted = (done_bt > 0) & (length_t >= trace_length)
-    n_admitted = int(admitted.sum())
+    n_admitted = trace.readback(admitted.sum(), int)
     if buf.has_directory and n_admitted:
         # an episode ending at absolute position cursor + t with length L
         # started at cursor + t - L + 1; appended time-major, as T single

@@ -28,13 +28,20 @@ port of ``pingpong_tpu/selfplay/loop.py``.
 * checkpoint retention after every save (``keep_checkpoints``,
   ``keep_fault_checkpoints``);
 * gates through the fused kernels (``use_pallas_eval``) or the batched
-  match runner (``evaluation/match.py``).
+  match runner (``evaluation/match.py``);
+* spans of the program's tracer (``utils/trace.py``) around a try
+  (``loop::try``, marked with ``(generation, try)``), its opponents
+  (``loop::opponents``), its train block (``loop::train_block``, with the
+  autosave stall ``loop::autosave``), its gate (``loop::gate``, one
+  ``gate::opponent`` each; ``eval_s`` is that span's length), the
+  checkpoint (``loop::checkpoint``) and the reset after a fault
+  (``loop::reset``); with ``log_spans`` each try ends in a ``spans`` event
+  that drains the tracer (``cli train --trace``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import time
 from pathlib import Path
 from typing import List, Optional
 
@@ -80,6 +87,7 @@ from pingpong_tpu_torch.parallel.mesh import (
 )
 from pingpong_tpu_torch.selfplay.pool import load_params_any, load_pool
 from pingpong_tpu_torch.train.dqn import DQNLearner, stack_opponents
+from pingpong_tpu_torch.utils import trace
 from pingpong_tpu_torch.utils.metrics import (
     MetricsLogger,
     Stopwatch,
@@ -104,8 +112,10 @@ class QNetSelfPlay:
     def __init__(self, env_cfg: EnvConfig, cfg: DQNConfig,
                  workdir: str = ".", seed: int = 0,
                  logger: Optional[MetricsLogger] = None, device="cuda",
-                 mesh_cfg: Optional[MeshConfig] = None):
+                 mesh_cfg: Optional[MeshConfig] = None,
+                 log_spans: bool = False):
         self.env_cfg = env_cfg
+        self.log_spans = log_spans
         self.cfg = cfg
         self.workdir = Path(workdir)
         self.ckpt_dir = self.workdir / cfg.ckpt_dir
@@ -175,25 +185,26 @@ class QNetSelfPlay:
         the call takes a device snapshot and a worker thread writes it;
         ``wait=True`` blocks until the file is on disk. Under a mesh every
         rank gathers the whole state here and rank 0 alone saves it."""
-        target = self.ckpt_dir / self.cfg.latest_checkpoint_filename
-        state = self.learner.gather_state(self.state)   # collective
-        if not self.coordinator:
-            return str(target.resolve())
-        meta = {"generation": self.current_generation,
-                "done_generations": self.done_generations,
-                "model_kind": "qnet"}
-        flat_a = qnet_to_flat(self.params_a)
-        if self.cfg.async_autosave:
-            path = self._autosaver.save(target, full_state_tree(
-                state, flat_a, self.gen, self._a_fold_noise), meta)
-            if wait:
-                self._autosaver.wait()
-        else:
-            path = autosave_full_state(target, state, flat_a, self.gen,
-                                       meta, self._a_fold_noise)
-        self.logger.log({"event": "autosave",
-                         "train_steps": self.state.train_steps})
-        return str(path)
+        with trace.span("loop::autosave"):
+            target = self.ckpt_dir / self.cfg.latest_checkpoint_filename
+            state = self.learner.gather_state(self.state)   # collective
+            if not self.coordinator:
+                return str(target.resolve())
+            meta = {"generation": self.current_generation,
+                    "done_generations": self.done_generations,
+                    "model_kind": "qnet"}
+            flat_a = qnet_to_flat(self.params_a)
+            if self.cfg.async_autosave:
+                path = self._autosaver.save(target, full_state_tree(
+                    state, flat_a, self.gen, self._a_fold_noise), meta)
+                if wait:
+                    self._autosaver.wait()
+            else:
+                path = autosave_full_state(target, state, flat_a, self.gen,
+                                           meta, self._a_fold_noise)
+            self.logger.log({"event": "autosave",
+                             "train_steps": self.state.train_steps})
+            return str(path)
 
     def flush_autosave(self) -> None:
         """Join any in-flight async autosave write, then stop the saver's
@@ -251,15 +262,18 @@ class QNetSelfPlay:
                                 dtype=torch.int32)
         idx_b = torch.zeros((n_games,), dtype=torch.int32)
         if cfg.selfplay.swap_sides_eval:
-            total, as_b, as_a = eval_win_rate_balanced(
-                self.match_fn, list(opponents), [params_b], idx_opp, idx_b,
-                self.gen, n_games)
+            with trace.span("gate::opponent"):
+                total, as_b, as_a = eval_win_rate_balanced(
+                    self.match_fn, list(opponents), [params_b], idx_opp,
+                    idx_b, self.gen, n_games)
             self.logger.log({"event": "eval_seats", "win_as_b": as_b,
                              "win_as_a": as_a})
             return total
-        result = self.match_fn(list(opponents), [params_b], idx_opp, idx_b,
-                               generator=self.gen)
-        return float(result.win_b.to(torch.float32).mean())
+        with trace.span("gate::opponent"):
+            result = self.match_fn(list(opponents), [params_b], idx_opp,
+                                   idx_b, generator=self.gen)
+            return trace.readback(result.win_b.to(torch.float32).mean(),
+                                  float)
 
     def _fused_eval_vs(self, opponents: List[QNet], params_b: QNet,
                        n_games: int) -> float:
@@ -272,9 +286,10 @@ class QNetSelfPlay:
             wins = w_b = w_a = 0.0
             total = 0
             for opp in opponents:
-                wr, as_b, as_a, eps = fused_win_rate_balanced(
-                    self.env_params, opp, params_b, self.gen,
-                    min_episodes=per, **kw)
+                with trace.span("gate::opponent"):
+                    wr, as_b, as_a, eps = fused_win_rate_balanced(
+                        self.env_params, opp, params_b, self.gen,
+                        min_episodes=per, **kw)
                 wins += wr * eps
                 w_b += as_b * eps
                 w_a += as_a * eps
@@ -287,38 +302,40 @@ class QNetSelfPlay:
         wins = 0.0
         total = 0
         for opp in opponents:
-            wr, eps = fused_win_rate(self.env_params, opp, params_b,
-                                     self.gen, min_episodes=per, **kw)
+            with trace.span("gate::opponent"):
+                wr, eps = fused_win_rate(self.env_params, opp, params_b,
+                                         self.gen, min_episodes=per, **kw)
             wins += wr * eps
             total += eps
         return wins / max(total, 1)
 
     def _save(self, name: str, generation: int) -> str:
-        if not self.coordinator:   # rank 0 owns the checkpoint writes
-            return str(self.ckpt_dir / name)
-        st = self.state
-        payload = {
-            "params_b": qnet_to_dict(self.learner.params_b(st)),
-            "params_a": qnet_to_dict(self.params_a),
-            "opt_state": opt_state_to_leaves(st.opt_count, st.opt_mu,
-                                             st.opt_nu),
-            "epsilon": float(st.epsilon),
-            "episode": int(st.episodes),
-            "generation": generation,
-            "train_steps": int(st.train_steps),
-            "model_kind": "qnet",
-        }
-        path = save_checkpoint(self.ckpt_dir / name, payload)
-        cfg = self.cfg
-        if cfg.keep_checkpoints > 0 or cfg.keep_fault_checkpoints > 0:
-            deleted = apply_retention(
-                self.ckpt_dir, keep_promoted=cfg.keep_checkpoints,
-                keep_faults=cfg.keep_fault_checkpoints,
-                protect=[Path(cfg.init_model_path).name]
-                if cfg.init_model_path else None)
-            if deleted:
-                self.logger.log({"event": "retention", "deleted": deleted})
-        return str(path)
+        with trace.span("loop::checkpoint"):
+            if not self.coordinator:   # rank 0 owns the checkpoint writes
+                return str(self.ckpt_dir / name)
+            st = self.state
+            payload = {
+                "params_b": qnet_to_dict(self.learner.params_b(st)),
+                "params_a": qnet_to_dict(self.params_a),
+                "opt_state": opt_state_to_leaves(st.opt_count, st.opt_mu,
+                                                 st.opt_nu),
+                "epsilon": float(st.epsilon),
+                "episode": int(st.episodes),
+                "generation": generation,
+                "train_steps": int(st.train_steps),
+                "model_kind": "qnet",
+            }
+            path = save_checkpoint(self.ckpt_dir / name, payload)
+            cfg = self.cfg
+            if cfg.keep_checkpoints > 0 or cfg.keep_fault_checkpoints > 0:
+                deleted = apply_retention(
+                    self.ckpt_dir, keep_promoted=cfg.keep_checkpoints,
+                    keep_faults=cfg.keep_fault_checkpoints,
+                    protect=[Path(cfg.init_model_path).name]
+                    if cfg.init_model_path else None)
+                if deleted:
+                    self.logger.log({"event": "retention", "deleted": deleted})
+            return str(path)
 
     def _train_block(self, episodes_target: int) -> None:
         """Train iterations until ``episodes_target`` more episodes
@@ -328,39 +345,85 @@ class QNetSelfPlay:
         interval = self.cfg.save_latest_checkpoint_interval_steps
         goal = self.state.episodes + episodes_target
         watch = Stopwatch()
-        stack, pool_size = stack_opponents(self.params_a_play, self.pool,
-                                           len(self.pool))
-        opp = self.learner.prepare_opponents(stack)
+        with trace.span("loop::opponents"):
+            stack, pool_size = stack_opponents(self.params_a_play, self.pool,
+                                               len(self.pool))
+            opp = self.learner.prepare_opponents(stack)
         env_steps = 0
         last_log_eps = self.state.episodes
-        while self.state.episodes < goal:
-            steps_before = self.state.train_steps
-            self.state, m = self.learner.train_iteration(self.state, opp,
-                                                         pool_size)
-            env_steps += m.env_steps
-            self._since_autosave += self.state.train_steps - steps_before
-            if interval > 0 and self._since_autosave >= interval:
-                self._since_autosave = 0
-                self.autosave()
-            self.win_a_window.add(m.games_vs_a, m.wins_vs_a)
-            self.win_pool_window.add(m.games_vs_pool, m.wins_vs_pool)
-            if m.episodes > 0:
-                self.reward_history.append(m.episode_return_sum / m.episodes)
-            eps_now = self.state.episodes
-            if eps_now - last_log_eps >= sp.win_rate_interval:
-                dt = watch.lap()
-                self.logger.log({
-                    "event": "interval",
-                    "episode": eps_now,
-                    "win_vs_A": self.win_a_window.rate(),
-                    "win_vs_pool": self.win_pool_window.rate(),
-                    "epsilon": m.epsilon,
-                    "loss": m.mean_loss,
-                    "env_steps_per_s": env_steps / max(dt, 1e-9),
-                    "buffer": m.buffer_size,
-                })
-                env_steps = 0
-                last_log_eps = eps_now
+        with trace.span("loop::train_block"):
+            while self.state.episodes < goal:
+                steps_before = self.state.train_steps
+                self.state, m = self.learner.train_iteration(
+                    self.state, opp, pool_size)
+                env_steps += m.env_steps
+                self._since_autosave += (self.state.train_steps
+                                         - steps_before)
+                if interval > 0 and self._since_autosave >= interval:
+                    self._since_autosave = 0
+                    self.autosave()
+                self.win_a_window.add(m.games_vs_a, m.wins_vs_a)
+                self.win_pool_window.add(m.games_vs_pool, m.wins_vs_pool)
+                if m.episodes > 0:
+                    self.reward_history.append(
+                        m.episode_return_sum / m.episodes)
+                eps_now = self.state.episodes
+                if eps_now - last_log_eps >= sp.win_rate_interval:
+                    dt = watch.lap()
+                    self.logger.log({
+                        "event": "interval",
+                        "episode": eps_now,
+                        "win_vs_A": self.win_a_window.rate(),
+                        "win_vs_pool": self.win_pool_window.rate(),
+                        "epsilon": m.epsilon,
+                        "loss": m.mean_loss,
+                        "env_steps_per_s": env_steps / max(dt, 1e-9),
+                        "buffer": m.buffer_size,
+                    })
+                    env_steps = 0
+                    last_log_eps = eps_now
+
+    def _try(self, gen: int, tries: int) -> bool:
+        """One try of generation ``gen``: its train block, its gate and
+        the decision. Returns True when the generation is done (promoted,
+        or a fault after the last try)."""
+        sp = self.cfg.selfplay
+        self.logger.log({"event": "try", "generation": gen, "try": tries})
+        self._train_block(sp.episodes_per_generation)
+        with trace.timed_span("loop::gate") as gate:
+            w_a = self._eval_vs([self.params_a_play], sp.eval_episodes)
+            w_pool = self._eval_vs(self.pool, sp.eval_episodes)
+            w_a, w_pool = broadcast_values([w_a, w_pool], self.mesh,
+                                           self.device)
+        self.logger.log({"event": "eval", "generation": gen,
+                         "win_vs_A": w_a, "win_vs_pool": w_pool,
+                         "epsilon": self.state.epsilon,
+                         "eval_s": gate.seconds})
+        if (w_a >= sp.curr_win_threshold
+                and w_pool >= sp.pool_win_threshold):
+            self.params_a = self.learner.params_b(self.state)
+            self._refresh_a_play()
+            name = f"model{self.cfg.model_id}-{gen}"
+            path = self._save(name, gen)
+            self.records.append(GenerationRecord(
+                gen, True, tries, w_a, w_pool, self.state.episodes, path))
+            self.logger.log({"event": "promoted", "generation": gen,
+                             "checkpoint": path})
+            self.done_generations += 1
+            return True
+        if tries >= sp.max_retries_for_generation:
+            name = f"model{self.cfg.model_id}-{gen}_fault"
+            path = self._save(name, gen)
+            self.records.append(GenerationRecord(
+                gen, False, tries, w_a, w_pool, self.state.episodes, path))
+            self.logger.log({"event": "fault", "generation": gen,
+                             "checkpoint": path})
+            with trace.span("loop::reset"):
+                self.state = self.learner.reset_learner(
+                    self.state, self.init_params)
+            self.done_generations += 1
+            return True
+        return False
 
     def run(self) -> List[GenerationRecord]:
         sp = self.cfg.selfplay
@@ -373,45 +436,15 @@ class QNetSelfPlay:
                 self.current_generation += 1
             gen = self.current_generation
             tries = 0
-            while True:
+            done = False
+            while not done:
                 tries += 1
-                self.logger.log({"event": "try", "generation": gen,
-                                 "try": tries})
-                self._train_block(sp.episodes_per_generation)
-                t0 = time.perf_counter()
-                w_a = self._eval_vs([self.params_a_play], sp.eval_episodes)
-                w_pool = self._eval_vs(self.pool, sp.eval_episodes)
-                w_a, w_pool = broadcast_values([w_a, w_pool], self.mesh,
-                                               self.device)
-                self.logger.log({"event": "eval", "generation": gen,
-                                 "win_vs_A": w_a, "win_vs_pool": w_pool,
-                                 "epsilon": self.state.epsilon,
-                                 "eval_s": time.perf_counter() - t0})
-                if (w_a >= sp.curr_win_threshold
-                        and w_pool >= sp.pool_win_threshold):
-                    self.params_a = self.learner.params_b(self.state)
-                    self._refresh_a_play()
-                    name = f"model{self.cfg.model_id}-{gen}"
-                    path = self._save(name, gen)
-                    self.records.append(GenerationRecord(
-                        gen, True, tries, w_a, w_pool, self.state.episodes,
-                        path))
-                    self.logger.log({"event": "promoted", "generation": gen,
-                                     "checkpoint": path})
-                    self.done_generations += 1
-                    break
-                if tries >= sp.max_retries_for_generation:
-                    name = f"model{self.cfg.model_id}-{gen}_fault"
-                    path = self._save(name, gen)
-                    self.records.append(GenerationRecord(
-                        gen, False, tries, w_a, w_pool, self.state.episodes,
-                        path))
-                    self.logger.log({"event": "fault", "generation": gen,
-                                     "checkpoint": path})
-                    self.state = self.learner.reset_learner(
-                        self.state, self.init_params)
-                    self.done_generations += 1
-                    break
+                with trace.span("loop::try", try_id=(gen, tries)):
+                    done = self._try(gen, tries)
+                if self.log_spans:
+                    self.logger.log({"event": "spans", "generation": gen,
+                                     "try": tries,
+                                     **trace.summarize(trace.drain())})
         if self.cfg.save_latest_checkpoint_interval_steps > 0:
             self.autosave()            # the final full state
         self.flush_autosave()

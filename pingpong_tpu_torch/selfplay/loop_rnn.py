@@ -25,7 +25,9 @@ port of ``pingpong_tpu/selfplay/loop_rnn.py``.
 * data parallel (``mesh_cfg``), as ``selfplay/loop.py``: a mesh when the
   process group has more than one rank, the same seeded gates on every
   rank with rank 0's win rates broadcast, the gathered autosave and every
-  file written by rank 0 alone.
+  file written by rank 0 alone;
+* the tracer's spans (``utils/trace.py``) and the ``spans`` event of
+  ``log_spans``, as ``selfplay/loop.py`` has them.
 
 The learner picks its route from the config (``train/drqn.py``); every
 DRQN option of the JAX trainer runs on one device or on a mesh.
@@ -33,7 +35,6 @@ DRQN option of the JAX trainer runs on one device or on a mesh.
 
 from __future__ import annotations
 
-import time
 from pathlib import Path
 from typing import List, Optional
 
@@ -85,6 +86,7 @@ from pingpong_tpu_torch.train.drqn import (
     kernel_architecture,
     stack_rnn_opponents,
 )
+from pingpong_tpu_torch.utils import trace
 from pingpong_tpu_torch.utils.metrics import (
     MetricsLogger,
     Stopwatch,
@@ -98,8 +100,10 @@ class DRQNSelfPlay:
     def __init__(self, env_cfg: EnvConfig, cfg: DRQNConfig,
                  workdir: str = ".", seed: int = 0,
                  logger: Optional[MetricsLogger] = None, device="cuda",
-                 mesh_cfg: Optional[MeshConfig] = None):
+                 mesh_cfg: Optional[MeshConfig] = None,
+                 log_spans: bool = False):
         self.env_cfg = env_cfg
+        self.log_spans = log_spans
         self.cfg = cfg
         self.workdir = Path(workdir)
         self.ckpt_dir = self.workdir / cfg.ckpt_dir_rnn
@@ -174,25 +178,26 @@ class DRQNSelfPlay:
         worker thread writes a snapshot; ``wait=True`` blocks until the
         file is on disk. Under a mesh every rank gathers the whole state
         here and rank 0 alone saves it."""
-        target = self.ckpt_dir / self.cfg.latest_checkpoint_filename
-        state = self.learner.gather_state(self.state)   # collective
-        if not self.coordinator:
-            return str(target.resolve())
-        meta = {"generation": self.current_generation,
-                "done_generations": self.done_generations,
-                "model_kind": "qnet_rnn"}
-        flat_a = qnet_rnn_to_flat(self.params_a)
-        if self.cfg.async_autosave:
-            path = self._autosaver.save(
-                target, full_state_tree(state, flat_a, self.gen), meta)
-            if wait:
-                self._autosaver.wait()
-        else:
-            path = autosave_full_state(target, state, flat_a, self.gen,
-                                       meta)
-        self.logger.log({"event": "autosave",
-                         "train_steps": self.state.train_steps})
-        return str(path)
+        with trace.span("loop::autosave"):
+            target = self.ckpt_dir / self.cfg.latest_checkpoint_filename
+            state = self.learner.gather_state(self.state)   # collective
+            if not self.coordinator:
+                return str(target.resolve())
+            meta = {"generation": self.current_generation,
+                    "done_generations": self.done_generations,
+                    "model_kind": "qnet_rnn"}
+            flat_a = qnet_rnn_to_flat(self.params_a)
+            if self.cfg.async_autosave:
+                path = self._autosaver.save(
+                    target, full_state_tree(state, flat_a, self.gen), meta)
+                if wait:
+                    self._autosaver.wait()
+            else:
+                path = autosave_full_state(target, state, flat_a, self.gen,
+                                           meta)
+            self.logger.log({"event": "autosave",
+                             "train_steps": self.state.train_steps})
+            return str(path)
 
     def flush_autosave(self) -> None:
         """Join any in-flight async autosave write, then stop the saver's
@@ -237,15 +242,16 @@ class DRQNSelfPlay:
         wins = w_b = w_a = 0.0
         total = 0
         for opp in opponents:
-            if cfg.selfplay.swap_sides_eval:
-                wr, as_b, as_a, eps = rnn_win_rate_balanced(
-                    self.env_params, opp, params_b, self.gen,
-                    min_episodes=per, **kw)
-                w_b += as_b * eps
-                w_a += as_a * eps
-            else:
-                wr, eps = rnn_win_rate(self.env_params, opp, params_b,
-                                       self.gen, min_episodes=per, **kw)
+            with trace.span("gate::opponent"):
+                if cfg.selfplay.swap_sides_eval:
+                    wr, as_b, as_a, eps = rnn_win_rate_balanced(
+                        self.env_params, opp, params_b, self.gen,
+                        min_episodes=per, **kw)
+                    w_b += as_b * eps
+                    w_a += as_a * eps
+                else:
+                    wr, eps = rnn_win_rate(self.env_params, opp, params_b,
+                                           self.gen, min_episodes=per, **kw)
             wins += wr * eps
             total += eps
         if cfg.selfplay.swap_sides_eval:
@@ -265,41 +271,45 @@ class DRQNSelfPlay:
         members = torch.arange(n_opp, dtype=torch.int32)
         idx_b = torch.zeros((total,), dtype=torch.int32)
         if self.cfg.selfplay.swap_sides_eval:
-            rate, as_b, as_a = eval_win_rate_balanced(
-                self.match_fn, list(opponents), [params_b],
-                members.repeat(per), idx_b, self.gen, total)
+            with trace.span("gate::opponent"):
+                rate, as_b, as_a = eval_win_rate_balanced(
+                    self.match_fn, list(opponents), [params_b],
+                    members.repeat(per), idx_b, self.gen, total)
             self.logger.log({"event": "eval_seats", "win_as_b": as_b,
                              "win_as_a": as_a})
             return rate
-        result = self.match_fn(list(opponents), [params_b],
-                               members.repeat_interleave(per), idx_b,
-                               generator=self.gen)
-        return float(result.win_b.to(torch.float32).mean())
+        with trace.span("gate::opponent"):
+            result = self.match_fn(list(opponents), [params_b],
+                                   members.repeat_interleave(per), idx_b,
+                                   generator=self.gen)
+            return trace.readback(result.win_b.to(torch.float32).mean(),
+                                  float)
 
     def _save(self, name: str, generation: int) -> str:
-        if not self.coordinator:   # rank 0 owns the checkpoint writes
-            return str(self.ckpt_dir / name)
-        st = self.state
-        payload = {
-            "params_b": qnet_rnn_to_dict(self.learner.params_b(st)),
-            "params_a": qnet_rnn_to_dict(self.params_a),
-            "epsilon": float(st.epsilon),
-            "episode": int(st.episodes),
-            "generation": generation,
-            "train_steps": int(st.train_steps),
-            "model_kind": "qnet_rnn",
-        }
-        path = save_checkpoint(self.ckpt_dir / name, payload)
-        cfg = self.cfg
-        if cfg.keep_checkpoints > 0 or cfg.keep_fault_checkpoints > 0:
-            deleted = apply_retention(
-                self.ckpt_dir, keep_promoted=cfg.keep_checkpoints,
-                keep_faults=cfg.keep_fault_checkpoints,
-                protect=[Path(cfg.init_model_path_rnn).name]
-                if cfg.init_model_path_rnn else None)
-            if deleted:
-                self.logger.log({"event": "retention", "deleted": deleted})
-        return str(path)
+        with trace.span("loop::checkpoint"):
+            if not self.coordinator:   # rank 0 owns the checkpoint writes
+                return str(self.ckpt_dir / name)
+            st = self.state
+            payload = {
+                "params_b": qnet_rnn_to_dict(self.learner.params_b(st)),
+                "params_a": qnet_rnn_to_dict(self.params_a),
+                "epsilon": float(st.epsilon),
+                "episode": int(st.episodes),
+                "generation": generation,
+                "train_steps": int(st.train_steps),
+                "model_kind": "qnet_rnn",
+            }
+            path = save_checkpoint(self.ckpt_dir / name, payload)
+            cfg = self.cfg
+            if cfg.keep_checkpoints > 0 or cfg.keep_fault_checkpoints > 0:
+                deleted = apply_retention(
+                    self.ckpt_dir, keep_promoted=cfg.keep_checkpoints,
+                    keep_faults=cfg.keep_fault_checkpoints,
+                    protect=[Path(cfg.init_model_path_rnn).name]
+                    if cfg.init_model_path_rnn else None)
+                if deleted:
+                    self.logger.log({"event": "retention", "deleted": deleted})
+            return str(path)
 
     # -- training block ------------------------------------------------------
     def _train_block(self, episodes_target: int) -> None:
@@ -309,40 +319,85 @@ class DRQNSelfPlay:
         watch = Stopwatch()
         # packed once a block from the current A and pool (kernel 3's
         # flat copy of the stack included)
-        stack, pool_size = stack_rnn_opponents(self.params_a, self.pool)
-        opp = self.learner.prepare_opponents(stack)
+        with trace.span("loop::opponents"):
+            stack, pool_size = stack_rnn_opponents(self.params_a, self.pool)
+            opp = self.learner.prepare_opponents(stack)
         env_steps = 0
         last_log_eps = self.state.episodes
-        while self.state.episodes < goal:
-            steps_before = self.state.train_steps
-            self.state, m = self.learner.train_iteration(self.state, opp,
-                                                         pool_size)
-            env_steps += m.env_steps
-            self.win_a_window.add(m.games_vs_a, m.wins_vs_a)
-            self.win_pool_window.add(m.games_vs_pool, m.wins_vs_pool)
-            if m.episodes > 0:
-                self.reward_history.append(m.episode_return_sum / m.episodes)
-            self._since_autosave += self.state.train_steps - steps_before
-            if interval > 0 and self._since_autosave >= interval:
-                self._since_autosave = 0
-                self.autosave()
-            eps_now = self.state.episodes
-            if eps_now - last_log_eps >= sp.win_rate_interval:
-                dt = watch.lap()
-                self.logger.log({
-                    "event": "interval",
-                    "episode": eps_now,
-                    "win_vs_A": self.win_a_window.rate(),
-                    "win_vs_pool": self.win_pool_window.rate(),
-                    "epsilon": m.epsilon,
-                    "loss": m.mean_loss,
-                    "env_steps_per_s": env_steps / max(dt, 1e-9),
-                    "buffer_episodes": m.buffer_episodes,
-                })
-                env_steps = 0
-                last_log_eps = eps_now
+        with trace.span("loop::train_block"):
+            while self.state.episodes < goal:
+                steps_before = self.state.train_steps
+                self.state, m = self.learner.train_iteration(
+                    self.state, opp, pool_size)
+                env_steps += m.env_steps
+                self.win_a_window.add(m.games_vs_a, m.wins_vs_a)
+                self.win_pool_window.add(m.games_vs_pool, m.wins_vs_pool)
+                if m.episodes > 0:
+                    self.reward_history.append(
+                        m.episode_return_sum / m.episodes)
+                self._since_autosave += (self.state.train_steps
+                                         - steps_before)
+                if interval > 0 and self._since_autosave >= interval:
+                    self._since_autosave = 0
+                    self.autosave()
+                eps_now = self.state.episodes
+                if eps_now - last_log_eps >= sp.win_rate_interval:
+                    dt = watch.lap()
+                    self.logger.log({
+                        "event": "interval",
+                        "episode": eps_now,
+                        "win_vs_A": self.win_a_window.rate(),
+                        "win_vs_pool": self.win_pool_window.rate(),
+                        "epsilon": m.epsilon,
+                        "loss": m.mean_loss,
+                        "env_steps_per_s": env_steps / max(dt, 1e-9),
+                        "buffer_episodes": m.buffer_episodes,
+                    })
+                    env_steps = 0
+                    last_log_eps = eps_now
 
     # -- main loop -----------------------------------------------------------
+    def _try(self, gen: int, tries: int) -> bool:
+        """One try of generation ``gen``: its train block, its gate and
+        the decision. Returns True when the generation is done (promoted,
+        or a fault after the last try)."""
+        sp = self.cfg.selfplay
+        self.logger.log({"event": "try", "generation": gen, "try": tries})
+        self._train_block(sp.episodes_per_generation)
+        with trace.timed_span("loop::gate") as gate:
+            w_a = self._eval_vs([self.params_a], sp.eval_episodes)
+            w_pool = self._eval_vs(self.pool, sp.eval_episodes)
+            w_a, w_pool = broadcast_values([w_a, w_pool], self.mesh,
+                                           self.device)
+        self.logger.log({"event": "eval", "generation": gen,
+                         "win_vs_A": w_a, "win_vs_pool": w_pool,
+                         "eval_s": gate.seconds})
+        if (w_a >= sp.curr_win_threshold
+                and w_pool >= sp.pool_win_threshold):
+            self.params_a = self.learner.params_b(self.state).cpu()
+            path = self._save(f"{self.cfg.model_id_prefix}{gen}", gen)
+            if len(self.pool) < self.cfg.pool_max:
+                self.pool.append(qnet_rnn_copy(self.params_a))
+            self.records.append(GenerationRecord(
+                gen, True, tries, w_a, w_pool, self.state.episodes, path))
+            self.logger.log({"event": "promoted", "generation": gen,
+                             "checkpoint": path})
+            self.done_generations += 1
+            return True
+        if tries >= sp.max_retries_for_generation:
+            path = self._save(f"{self.cfg.model_id_prefix}{gen}_fault", gen)
+            self.records.append(GenerationRecord(
+                gen, False, tries, w_a, w_pool, self.state.episodes, path))
+            self.logger.log({"event": "fault", "generation": gen,
+                             "checkpoint": path})
+            # fresh B from A, ring kept
+            with trace.span("loop::reset"):
+                self.state = self.learner.reset_learner(self.state,
+                                                        self.params_a)
+            self.done_generations += 1
+            return True
+        return False
+
     def run(self) -> List[GenerationRecord]:
         sp = self.cfg.selfplay
         while self.done_generations < sp.max_generations:
@@ -357,45 +412,15 @@ class DRQNSelfPlay:
                                                              self.params_a)
             gen = self.current_generation
             tries = 0
-            while True:
+            done = False
+            while not done:
                 tries += 1
-                self.logger.log({"event": "try", "generation": gen,
-                                 "try": tries})
-                self._train_block(sp.episodes_per_generation)
-                t0 = time.perf_counter()
-                w_a = self._eval_vs([self.params_a], sp.eval_episodes)
-                w_pool = self._eval_vs(self.pool, sp.eval_episodes)
-                w_a, w_pool = broadcast_values([w_a, w_pool], self.mesh,
-                                               self.device)
-                self.logger.log({"event": "eval", "generation": gen,
-                                 "win_vs_A": w_a, "win_vs_pool": w_pool,
-                                 "eval_s": time.perf_counter() - t0})
-                if (w_a >= sp.curr_win_threshold
-                        and w_pool >= sp.pool_win_threshold):
-                    self.params_a = self.learner.params_b(self.state).cpu()
-                    path = self._save(f"{self.cfg.model_id_prefix}{gen}", gen)
-                    if len(self.pool) < self.cfg.pool_max:
-                        self.pool.append(qnet_rnn_copy(self.params_a))
-                    self.records.append(GenerationRecord(
-                        gen, True, tries, w_a, w_pool, self.state.episodes,
-                        path))
-                    self.logger.log({"event": "promoted", "generation": gen,
-                                     "checkpoint": path})
-                    self.done_generations += 1
-                    break
-                if tries >= sp.max_retries_for_generation:
-                    path = self._save(
-                        f"{self.cfg.model_id_prefix}{gen}_fault", gen)
-                    self.records.append(GenerationRecord(
-                        gen, False, tries, w_a, w_pool, self.state.episodes,
-                        path))
-                    self.logger.log({"event": "fault", "generation": gen,
-                                     "checkpoint": path})
-                    # fresh B from A, ring kept
-                    self.state = self.learner.reset_learner(self.state,
-                                                            self.params_a)
-                    self.done_generations += 1
-                    break
+                with trace.span("loop::try", try_id=(gen, tries)):
+                    done = self._try(gen, tries)
+                if self.log_spans:
+                    self.logger.log({"event": "spans", "generation": gen,
+                                     "try": tries,
+                                     **trace.summarize(trace.drain())})
         if self.cfg.save_latest_checkpoint_interval_steps > 0:
             self.autosave()            # the final full state
         self.flush_autosave()

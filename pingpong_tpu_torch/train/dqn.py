@@ -121,6 +121,7 @@ from pingpong_tpu_torch.replay.per import (
     per_update_priorities,
 )
 from pingpong_tpu_torch.train.optim import adam_
+from pingpong_tpu_torch.utils import trace
 from pingpong_tpu_torch.utils.device import resolve_device
 
 ONE_SHARD_WARNING = (
@@ -326,6 +327,14 @@ def unpack_dqn_noise(noise: torch.Tensor) -> QNetNoise:
                      noise[:, 4 * h + 1:]))
 
 
+def _same_trunk(members: Sequence[QNet]) -> bool:
+    """Every member's feature trunk equal to member 0's (reads the card)."""
+    return all(torch.equal(getattr(p, layer).get_parameter(f),
+                           getattr(members[0], layer).get_parameter(f))
+               for p in members[1:] for layer in ("feat1", "feat2")
+               for f in ("w", "b"))
+
+
 def bucket_opp_idx(num_envs: int, ratio: float, pool_size: int,
                    phase: Optional[int] = None, device="cpu") -> torch.Tensor:
     """Contiguous bucket binding (``opponent_binding="bucketed"``): the
@@ -526,11 +535,7 @@ class DQNLearner(RankBlocks):
         shared-trunk invariant (exact equality of every slot's feature
         weights with slot 0's)."""
         members = [qnet_copy(p).to(self.device) for p in opp_stack]
-        shared = len(members) > 1 and all(
-            torch.equal(getattr(p, layer).get_parameter(f),
-                        getattr(members[0], layer).get_parameter(f))
-            for p in members[1:] for layer in ("feat1", "feat2")
-            for f in ("w", "b"))
+        shared = len(members) > 1 and trace.readback(members, _same_trunk)
         if self.route.rollout == "kernel":
             return PreparedOpponents(packed=pack_qnet(members, mirror=True),
                                      n_slots=len(members),
@@ -547,27 +552,30 @@ class DQNLearner(RankBlocks):
         whole batch, the counts ``[games_vs_a, wins_vs_a, games_vs_pool,
         wins_vs_pool, ...]``. Under a mesh the replicated layout pushes the
         all-gathered chunk, the sharded one this rank's own."""
-        if self.route.rollout == "kernel":
-            counts, ret_sum, tr = self._rollout_kernel(state, opp, pool_size,
-                                                       seed)
-        else:
-            counts, ret_sum, tr = self._rollout_scan(state, opp, pool_size)
-        if self.mesh is not None and not self.sharded:
-            # one rank-order all-gather of the packed (T, B_local, 17)
-            # chunk: the envs come back in the global order
-            packed = self._cat(torch.cat([
-                tr["obs"], tr["next_obs"],
-                tr["action"].to(torch.float32)[..., None],
-                tr["reward"][..., None],
-                tr["done"].to(torch.float32)[..., None]], dim=-1), dim=1)
-            tr = dict(obs=packed[..., :7], next_obs=packed[..., 7:14],
-                      action=packed[..., 14].to(torch.int32),
-                      reward=packed[..., 15], done=packed[..., 16] > 0.5)
-        per_push(state.buffer, Transition(
-            obs=tr["obs"].reshape(-1, 7), action=tr["action"].reshape(-1),
-            reward=tr["reward"].reshape(-1),
-            next_obs=tr["next_obs"].reshape(-1, 7),
-            done=tr["done"].reshape(-1)), self.cfg.per_alpha)
+        with trace.span("learner::rollout"):
+            if self.route.rollout == "kernel":
+                counts, ret_sum, tr = self._rollout_kernel(state, opp,
+                                                           pool_size, seed)
+            else:
+                counts, ret_sum, tr = self._rollout_scan(state, opp,
+                                                         pool_size)
+        with trace.span("replay::push"):
+            if self.mesh is not None and not self.sharded:
+                # one rank-order all-gather of the packed (T, B_local, 17)
+                # chunk: the envs come back in the global order
+                packed = self._cat(torch.cat([
+                    tr["obs"], tr["next_obs"],
+                    tr["action"].to(torch.float32)[..., None],
+                    tr["reward"][..., None],
+                    tr["done"].to(torch.float32)[..., None]], dim=-1), dim=1)
+                tr = dict(obs=packed[..., :7], next_obs=packed[..., 7:14],
+                          action=packed[..., 14].to(torch.int32),
+                          reward=packed[..., 15], done=packed[..., 16] > 0.5)
+            per_push(state.buffer, Transition(
+                obs=tr["obs"].reshape(-1, 7), action=tr["action"].reshape(-1),
+                reward=tr["reward"].reshape(-1),
+                next_obs=tr["next_obs"].reshape(-1, 7),
+                done=tr["done"].reshape(-1)), self.cfg.per_alpha)
         return counts, ret_sum
 
     def _rollout_kernel(self, state: DQNTrainState, opp: PreparedOpponents,
@@ -618,8 +626,8 @@ class DQNLearner(RankBlocks):
             tile_rows=tile, tile0=tile0,
             member_shared_trunk=opp.shared_trunk)
         if whole:
-            counts = [int(c) for c in counts.tolist()]
-            ret_sum = float(ret_sum)
+            counts = [int(c) for c in trace.readback(counts)]
+            ret_sum = trace.readback(ret_sum, float)
             new_env = EnvState(*(self._blk(x) for x in new_env))
             new_opp, new_ret, ended = (self._blk(x) for x in (new_opp,
                                                                 new_ret,
@@ -686,8 +694,8 @@ class DQNLearner(RankBlocks):
         state.env_state = env
         state.opp_idx = opp_idx
         state.ep_return = ep_return
-        state.epsilon = float(tally.eps)
-        state.episodes += int(tally.n_done)
+        state.epsilon = trace.readback(tally.eps, float)
+        state.episodes += trace.readback(tally.n_done, int)
         counts, ret_sum = self._sum_counts(tally.stats, tally.ret_sum)
         return counts, ret_sum, {k: torch.stack(v) for k, v in tr.items()}
 
@@ -702,28 +710,32 @@ class DQNLearner(RankBlocks):
         cfg = self.cfg
         bs, K = cfg.batch_size, cfg.updates_per_iteration
         gen = state.generator
-        if noise is None:
-            noise = pack_dqn_noise(
-                qnet_sample_noise(gen, self.template, batch=(K,)))
-        if self.sharded:
-            n = self.n_data
-            if u01 is None:
-                u01 = torch.rand((n, K, bs // n), generator=gen)
-            u01, bs = u01[self.mesh.rank], bs // n
-        elif u01 is None:
-            u01 = torch.rand((K, bs), generator=gen)
-        if state.buffer.size < bs:
+        with trace.span("learner::draws"):
+            if noise is None:
+                noise = pack_dqn_noise(
+                    qnet_sample_noise(gen, self.template, batch=(K,)))
+            if self.sharded:
+                n = self.n_data
+                if u01 is None:
+                    u01 = torch.rand((n, K, bs // n), generator=gen)
+                u01, bs = u01[self.mesh.rank], bs // n
+            elif u01 is None:
+                u01 = torch.rand((K, bs), generator=gen)
+            ready = state.buffer.size >= bs
+            if ready:
+                u01 = u01.to(self.device).contiguous()
+                noise = noise.to(self.device).contiguous()
+        if not ready:
             return 0.0, 0
-        u01 = u01.to(self.device).contiguous()
-        noise = noise.to(self.device).contiguous()
         if self.sharded:
             run = self._update_sharded
         elif self.route.update == "kernel":
             run = self._update_kernel
         else:
             run = self._update_autodiff
-        losses, _ = run(state, u01, noise)
-        return float(losses.sum()) / K, K
+        with trace.span("learner::update"):
+            losses, _ = run(state, u01, noise)
+            return trace.readback(losses.sum(), float) / K, K
 
     def _update_kernel(self, state: DQNTrainState, u01, noise):
         """K fused updates (kernel 2) over the block replay, then the
@@ -742,9 +754,10 @@ class DQNLearner(RankBlocks):
             tau=cfg.target_tau, alpha=cfg.per_alpha, per_eps=cfg.per_eps,
             beta_start=cfg.per_beta_start, beta_frames=cfg.per_beta_frames,
             heads_only=cfg.train_heads_only)
-        slots, vals = last_writer_wins(idx.reshape(-1).long(),
-                                       newp.reshape(-1))
-        buf.prios[slots] = vals
+        with trace.span("replay::priorities"):
+            slots, vals = last_writer_wins(idx.reshape(-1).long(),
+                                           newp.reshape(-1))
+            buf.prios[slots] = vals
         state.train_steps += K
         state.opt_count += K
         state.frame_idx += K
@@ -803,7 +816,8 @@ class DQNLearner(RankBlocks):
             state.frame_idx += 1
             beta = beta_schedule(state.frame_idx, cfg.per_beta_start,
                                  cfg.per_beta_frames)
-            smp = per_sample(buf, bs, beta, u01[k])
+            with trace.span("replay::sample"):
+                smp = per_sample(buf, bs, beta, u01[k])
             flat = state.params.detach().requires_grad_(True)
             td = self._double_dqn_td(flat, state.target, smp.batch, QNetNoise(
                 v=NoisyNoise(nz.v.eps_w[k], nz.v.eps_b[k]),
@@ -813,8 +827,9 @@ class DQNLearner(RankBlocks):
             state.opt_count += 1
             adam_(state.params, grad * self._grad_mask, state.opt_mu,
                   state.opt_nu, state.opt_count, cfg.lr)
-            per_update_priorities(buf, smp.indices, td.detach().abs(),
-                                  cfg.per_alpha, cfg.per_eps)
+            with trace.span("replay::priorities"):
+                per_update_priorities(buf, smp.indices, td.detach().abs(),
+                                      cfg.per_alpha, cfg.per_eps)
             state.train_steps += 1
             self._sync_target(state)
             losses.append(loss.detach())
@@ -841,7 +856,9 @@ class DQNLearner(RankBlocks):
             state.frame_idx += 1
             beta = beta_schedule(state.frame_idx, cfg.per_beta_start,
                                  cfg.per_beta_frames)
-            smp = per_sample(buf, bs_local, beta, u01[k], normalize=False)
+            with trace.span("replay::sample"):
+                smp = per_sample(buf, bs_local, beta, u01[k],
+                                 normalize=False)
             flat = state.params.detach().requires_grad_(True)
             td = self._double_dqn_td(flat, state.target, smp.batch, QNetNoise(
                 v=NoisyNoise(nz.v.eps_w[k], nz.v.eps_b[k]),
@@ -855,8 +872,9 @@ class DQNLearner(RankBlocks):
             state.opt_count += 1
             adam_(state.params, g_sum[:-1] * scale * self._grad_mask,
                   state.opt_mu, state.opt_nu, state.opt_count, cfg.lr)
-            per_update_priorities(buf, smp.indices, td.detach().abs(),
-                                  cfg.per_alpha, cfg.per_eps)
+            with trace.span("replay::priorities"):
+                per_update_priorities(buf, smp.indices, td.detach().abs(),
+                                      cfg.per_alpha, cfg.per_eps)
             state.train_steps += 1
             self._sync_target(state)
             losses.append(g_sum[-1] * scale)
@@ -871,9 +889,10 @@ class DQNLearner(RankBlocks):
         ``u01`` and ``noise`` replace the state generator's draws (the
         tests inject the JAX side's). The metrics are the whole batch's;
         ``buffer_size`` is the global fill (n local rings, sharded)."""
-        ep_before = state.episodes
-        counts, ret_sum = self._rollout(state, opp, pool_size, seed=seed)
-        mean_loss, n_ran = self._update(state, u01=u01, noise=noise)
+        with trace.span("learner::iteration"):
+            ep_before = state.episodes
+            counts, ret_sum = self._rollout(state, opp, pool_size, seed=seed)
+            mean_loss, n_ran = self._update(state, u01=u01, noise=noise)
         metrics = DQNMetrics(
             episodes=state.episodes - ep_before,
             games_vs_a=counts[0], wins_vs_a=counts[1],

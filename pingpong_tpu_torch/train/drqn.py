@@ -128,6 +128,7 @@ from pingpong_tpu_torch.train.dqn import (
     sorted_binding_draws,
 )
 from pingpong_tpu_torch.train.optim import adam_, clip_by_global_norm
+from pingpong_tpu_torch.utils import trace
 from pingpong_tpu_torch.utils.device import resolve_device
 
 BURN_IN_WARNING = (
@@ -458,30 +459,35 @@ class DRQNLearner(RankBlocks):
         all-gathered chunk into the whole ring; the sharded one pushes this
         rank's chunk into its rows and all-reduces the admissions into the
         global admitted count."""
-        if self.route.rollout == "kernel":
-            counts, ret_sum, tr = self._rollout_kernel(state, opp, pool_size,
-                                                       seed)
-        else:
-            counts, ret_sum, tr = self._rollout_scan(state, opp, pool_size)
+        with trace.span("learner::rollout"):
+            if self.route.rollout == "kernel":
+                counts, ret_sum, tr = self._rollout_kernel(state, opp,
+                                                           pool_size, seed)
+            else:
+                counts, ret_sum, tr = self._rollout_scan(state, opp,
+                                                         pool_size)
         buf = state.buffer
-        if self.mesh is not None and not self.sharded:
-            # one rank-order all-gather of the packed (T, B_local, 10) chunk
-            packed = self._cat(torch.cat([
-                tr["obs"], tr["action"].to(torch.float32)[..., None],
-                tr["reward"][..., None],
-                tr["done"].to(torch.float32)[..., None]], dim=-1), dim=1)
-            tr = dict(obs=packed[..., :7],
-                      action=packed[..., 7].to(torch.int32),
-                      reward=packed[..., 8], done=packed[..., 9] > 0.5)
-        before = buf.ep_count
-        if self.sharded:
-            buf.ep_count = 0
-        seq_push_rollout(buf, tr["obs"], tr["action"], tr["reward"],
-                         tr["done"], self.cfg.trace_length)
-        if self.sharded:
-            admitted = torch.tensor(buf.ep_count, dtype=torch.int64,
-                                    device=self.device)
-            buf.ep_count = before + int(all_reduce_(admitted, self.mesh))
+        with trace.span("replay::push"):
+            if self.mesh is not None and not self.sharded:
+                # one rank-order all-gather of the packed (T, B_local, 10)
+                # chunk
+                packed = self._cat(torch.cat([
+                    tr["obs"], tr["action"].to(torch.float32)[..., None],
+                    tr["reward"][..., None],
+                    tr["done"].to(torch.float32)[..., None]], dim=-1), dim=1)
+                tr = dict(obs=packed[..., :7],
+                          action=packed[..., 7].to(torch.int32),
+                          reward=packed[..., 8], done=packed[..., 9] > 0.5)
+            before = buf.ep_count
+            if self.sharded:
+                buf.ep_count = 0
+            seq_push_rollout(buf, tr["obs"], tr["action"], tr["reward"],
+                             tr["done"], self.cfg.trace_length)
+            if self.sharded:
+                admitted = torch.tensor(buf.ep_count, dtype=torch.int64,
+                                        device=self.device)
+                buf.ep_count = before + trace.readback(
+                    all_reduce_(admitted, self.mesh), int)
         return counts, ret_sum
 
     def _rollout_kernel(self, state: DRQNTrainState,
@@ -543,8 +549,8 @@ class DRQNLearner(RankBlocks):
             max_episode_steps=cfg.max_episode_steps, tile_rows=tile,
             tile0=tile0, opponents_flat=opp.flat)
         if whole:
-            counts = [int(c) for c in counts.tolist()]
-            ret_sum = float(ret_sum)
+            counts = [int(c) for c in trace.readback(counts)]
+            ret_sum = trace.readback(ret_sum, float)
         else:
             counts, ret_sum = self._sum_counts(counts, ret_sum)
         if perm is not None or whole:
@@ -653,8 +659,8 @@ class DRQNLearner(RankBlocks):
         state.opp_idx = opp_idx
         state.ep_return = ep_return
         state.ended = ended
-        state.epsilon = float(tally.eps)
-        state.episodes += int(tally.n_done)
+        state.epsilon = trace.readback(tally.eps, float)
+        state.episodes += trace.readback(tally.n_done, int)
         counts, ret_sum = self._sum_counts(tally.stats, tally.ret_sum)
         return counts, ret_sum, {k: torch.stack(v) for k, v in tr.items()}
 
@@ -674,32 +680,39 @@ class DRQNLearner(RankBlocks):
         gen = state.generator
         episodic = cfg.episode_uniform_sampling
         gate = bs * cfg.min_episodes_for_training_start
-        if noise is None:
-            noise = flat_noise(qnet_rnn_sample_noise(gen, self.template,
-                                                     batch=(K,)))
-        if self.sharded:
-            bs //= self.n_data
-            if candidates is None:
-                candidates = [draw_candidates(state.buffer, gen, K * bs,
-                                              cfg.trace_length)
-                              for _ in range(self.n_data)]
-            candidates = candidates[self.mesh.rank]
-        elif candidates is None:
-            draw = draw_episode_candidates if episodic else draw_candidates
-            candidates = draw(state.buffer, gen, K * bs, cfg.trace_length)
-        if not state.buffer.ep_count > gate:
+        with trace.span("learner::draws"):
+            if noise is None:
+                noise = flat_noise(qnet_rnn_sample_noise(gen, self.template,
+                                                         batch=(K,)))
+            if self.sharded:
+                bs //= self.n_data
+                if candidates is None:
+                    candidates = [draw_candidates(state.buffer, gen, K * bs,
+                                                  cfg.trace_length)
+                                  for _ in range(self.n_data)]
+                candidates = candidates[self.mesh.rank]
+            elif candidates is None:
+                draw = (draw_episode_candidates if episodic
+                        else draw_candidates)
+                candidates = draw(state.buffer, gen, K * bs,
+                                  cfg.trace_length)
+            ready = state.buffer.ep_count > gate
+            if ready:
+                noise = noise.to(self.device)
+        if not ready:
             return 0.0, 0
-        smp = seq_sample(state.buffer, K * bs, cfg.trace_length, *candidates,
-                         episode_uniform=episodic)
-        noise = noise.to(self.device)
+        with trace.span("replay::sample"):
+            smp = seq_sample(state.buffer, K * bs, cfg.trace_length,
+                             *candidates, episode_uniform=episodic)
         if self.sharded:
             run = self._update_sharded
         elif self.route.update == "kernel":
             run = self._update_kernel
         else:
             run = self._update_autodiff
-        losses = run(state, smp, noise)
-        return float(losses.sum()) / K, K
+        with trace.span("learner::update"):
+            losses = run(state, smp, noise)
+            return trace.readback(losses.sum(), float) / K, K
 
     def _update_kernel(self, state: DRQNTrainState, smp: SeqSample, noise):
         """K fused updates (kernel 4). Returns the losses ``(K,)``."""
@@ -858,10 +871,11 @@ class DRQNLearner(RankBlocks):
         """One rollout chunk, its push and one update block. ``seed``,
         ``noise`` and ``candidates`` replace the state generator's draws
         (the tests inject the JAX side's)."""
-        ep_before = state.episodes
-        counts, ret_sum = self._rollout(state, opp, pool_size, seed=seed)
-        mean_loss, n_ran = self._update(state, noise=noise,
-                                        candidates=candidates)
+        with trace.span("learner::iteration"):
+            ep_before = state.episodes
+            counts, ret_sum = self._rollout(state, opp, pool_size, seed=seed)
+            mean_loss, n_ran = self._update(state, noise=noise,
+                                            candidates=candidates)
         metrics = DRQNMetrics(
             episodes=state.episodes - ep_before,
             games_vs_a=counts[0], wins_vs_a=counts[1],

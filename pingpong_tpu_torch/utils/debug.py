@@ -29,7 +29,9 @@ def profile_trace(log_dir: str):
     """Capture a ``torch.profiler`` trace of the block (the CPU, and the
     card when there is one) and write it as a Chrome trace into
     ``log_dir`` (open with ``chrome://tracing`` or Perfetto). Yields the
-    profiler, so the caller can also read ``key_averages()``."""
+    profiler, so the caller can also read ``key_averages()``. With the
+    tracer on (``utils/trace.py``) the program's spans opened inside the
+    block appear in the trace under their names."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
