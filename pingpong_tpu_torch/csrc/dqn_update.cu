@@ -43,11 +43,22 @@
 //       the cluster's weight maximum, the loss and gradient partials over
 //       the CTA's samples, and the priority write-back: a sample writes
 //       only if no later sample of the update has its slot.
-//   B4  each CTA sums the 8 gradient partials through DSMEM in CTA order
-//       0..7 and applies the same Adam step to its own copy of the
-//       parameters, target and moments (kept in shared memory; no
-//       broadcast), and CTA r re-sums, one warp a chunk, the touched chunks
-//       of its eighth, exactly, for its next scan.
+//   B4  the parameter step is done once, by owners. The gradient entries
+//       (the 260 head mu entries, then the trunk's when it trains) are cut
+//       into 8 contiguous slices of about equal items, one item a thread:
+//       a head entry with its sigma twin, or a row of 4 trunk entries.
+//       CTA r reads only its slice of the 8 partials through DSMEM,
+//       sums them in CTA order 0..7, applies Adam to its slice (its moments
+//       are the only ones it keeps up to date) and pushes the new
+//       parameters into the other CTAs' copies; the next update's B1 makes
+//       them visible. Every read of a CTA's parameters in update k comes
+//       before its B4 arrive, so no push overwrites a value still in use,
+//       and the noisy heads, which read entries that other CTAs own, are
+//       built after B1 (during B2). The target step of update k (a hard
+//       sync or Polyak) runs on each CTA's own copy during B2 of update
+//       k + 1, or after the final cluster barrier, once all of P has
+//       landed. Then CTA r re-sums, one warp a chunk, the touched chunks of
+//       its eighth, exactly, for its next scan.
 // Every reduction runs in a fixed order and nothing uses float atomics, so
 // a run is reproducible bit for bit. The barriers are
 // barrier.cluster.arrive.release / wait.acquire: they order the global
@@ -104,6 +115,8 @@ constexpr int FEAT_END = P_WV;        // trunk parameters end here
 // per-update noise vector: v.eps_w (64) v.eps_b (1) a.eps_w (64,3) a.eps_b (3)
 constexpr int N_EV = 0, N_EVB = H, N_EA = H + 1, N_EAB = 4 * H + 1;
 constexpr int NN = 4 * H + 4;         // 260: also the head gradient entries
+static_assert(NP % CLUSTER == 0 && NN % 4 == 0 && FEAT_END % 4 == 0,
+              "owner slices at multiples of 4, write-out by eighths");
 
 __device__ __forceinline__ void cluster_arrive() {
   asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
@@ -199,6 +212,24 @@ __device__ void q_values(const float* f2, const float* wv, float bv,
   q[2] = (v + a2) - mean;
 }
 
+// First gradient entry of CTA r's owner slice. The step is latency-bound,
+// so the slices balance items, one a thread: a head entry with its sigma
+// twin (e < NN) or a row of 4 trunk parameters (e >= NN is the trunk's
+// parameter e - NN; a slice's trunk part starts at a multiple of 4).
+__device__ __forceinline__ int slice_lo(int r, int n_grad) {
+  const int t = (NN + (n_grad - NN) / 4) * r / CLUSTER;   // items before slice r
+  return t <= NN ? t : NN + 4 * (t - NN);
+}
+
+// head gradient entry e < NN: its mu parameter, its sigma twin, its noise
+__device__ __forceinline__ int3 head_entry(int e) {
+  if (e < H) return make_int3(P_WV + e, P_WVS + e, N_EV + e);
+  if (e < 4 * H) return make_int3(P_WA + e - H, P_WAS + e - H, N_EA + e - H);
+  if (e == 4 * H) return make_int3(P_BV, P_BVS, N_EVB);
+  const int a = e - 4 * H - 1;
+  return make_int3(P_BA + a, P_BAS + a, N_EAB + a);
+}
+
 __device__ __forceinline__ double warp_scan_inclusive(double v, int lane) {
   for (int o = 1; o < 32; o <<= 1) {
     const double n = __shfl_up_sync(0xffffffffu, v, o);
@@ -249,6 +280,21 @@ dqn_update_kernel(int ts0, int count0, int frame0, int size, int K, int bs,
   const int c_lo = rank * ns;
   const Smem S(smem_raw, spc, bs, nc);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // this CTA's owner slice: nh head entries from e_lo, then trunk rows of
+  // 4 parameters from tr; n_items items in all
+  const int n_grad = hp.heads_only ? NN : NN + FEAT_END;
+  const int e_lo = slice_lo(rank, n_grad), e_hi = slice_lo(rank + 1, n_grad);
+  const int nh = max(0, min(e_hi, NN) - e_lo);
+  const int tr = max(e_lo, NN) - NN;
+  const int n_items = nh + max(0, e_hi - max(e_lo, NN)) / 4;
+  // update kk's target step on [i0, i1), once all of its P is in place
+  auto target_step = [&](int kk, int i0, int i1) {
+    if (hp.tau > 0.f) {
+      for (int i = i0 + tid; i < i1; i += THREADS) S.T[i] = S.T[i] + hp.tau * (S.P[i] - S.T[i]);
+    } else if (((ts0 + kk + 1) % hp.interval) == 0) {
+      for (int i = i0 + tid; i < i1; i += THREADS) S.T[i] = S.P[i];
+    }
+  };
 
   for (int i = tid; i < NP; i += THREADS) {
     S.P[i] = params[i];
@@ -282,15 +328,8 @@ dqn_update_kernel(int ts0, int count0, int frame0, int size, int K, int bs,
     }
     __syncthreads();
     cluster_arrive();   // phase: B1 arrive
-    // meanwhile: this update's noisy heads
+    // meanwhile: this update's head noise
     for (int i = tid; i < NN; i += THREADS) S.noise[i] = noise[k * NN + i];
-    __syncthreads();
-    for (int i = tid; i < H; i += THREADS)
-      S.wv[i] = S.P[P_WV + i] + S.P[P_WVS + i] * S.noise[N_EV + i];
-    for (int i = tid; i < 3 * H; i += THREADS)
-      S.wa[i] = S.P[P_WA + i] + S.P[P_WAS + i] * S.noise[N_EA + i];
-    if (tid == 0) S.bh[0] = S.P[P_BV] + S.P[P_BVS] * S.noise[N_EVB];
-    if (tid < 3) S.bh[1 + tid] = S.P[P_BA + tid] + S.P[P_BAS + tid] * S.noise[N_EAB + tid];
     cluster_wait();     // phase: B1 wait
     if (tid < CLUSTER) S.tots[tid] = *cluster.map_shared_rank(S.tot, tid);
     __syncthreads();
@@ -310,6 +349,15 @@ dqn_update_kernel(int ts0, int count0, int frame0, int size, int K, int bs,
         *reinterpret_cast<float4*>(cluster.map_shared_rank(S.cdf, c) + c_lo + lo) = v4;
     }
     cluster_arrive();   // phase: B2 arrive
+    // meanwhile, all of update k - 1's pushes in place: its target step
+    // and this update's noisy heads
+    if (k > 0) target_step(k - 1, 0, NP);
+    for (int i = tid; i < H; i += THREADS)
+      S.wv[i] = S.P[P_WV + i] + S.P[P_WVS + i] * S.noise[N_EV + i];
+    for (int i = tid; i < 3 * H; i += THREADS)
+      S.wa[i] = S.P[P_WA + i] + S.P[P_WAS + i] * S.noise[N_EA + i];
+    if (tid == 0) S.bh[0] = S.P[P_BV] + S.P[P_BVS] * S.noise[N_EVB];
+    if (tid < 3) S.bh[1 + tid] = S.P[P_BA + tid] + S.P[P_BAS + tid] * S.noise[N_EAB + tid];
     cluster_wait();     // phase: B2 wait
 
     // ---- B2: 8 lanes a sample: search, slot prefix, gather ---------------
@@ -546,6 +594,58 @@ dqn_update_kernel(int ts0, int count0, int frame0, int size, int K, int bs,
     cluster_arrive();   // phase: B4 arrive (partials, loss, p_alpha writes)
     cluster_wait();     // phase: B4 wait
 
+    // ---- owner step: this CTA's slice summed over the cluster (CTA order)
+    // and stepped by Adam, then pushed into the other CTAs' parameters ----
+    const float step = (float)(count0 + k + 1);
+    const float bc1 = 1.0f - expf(step * hp.log_b1);
+    const float bc2 = 1.0f - expf(step * hp.log_b2);
+    auto adam = [&](int i, float g) {
+      const float mj = S.M[i] * hp.b1 + g * hp.one_m_b1;
+      const float vj = S.V[i] * hp.b2 + g * g * hp.one_m_b2;
+      S.M[i] = mj;
+      S.V[i] = vj;
+      S.P[i] = S.P[i] - hp.lr * ((mj / bc1) / (sqrtf(vj / bc2) + hp.eps));
+    };
+    for (int j = tid; j < n_items; j += THREADS) {
+      if (j < nh) {   // a head entry and its sigma twin
+        const int3 h = head_entry(e_lo + j);
+        float g = 0.f;
+#pragma unroll
+        for (int c = 0; c < CLUSTER; ++c) g += cluster.map_shared_rank(S.gp, c)[h.x];
+        adam(h.x, g);
+        adam(h.y, g * S.noise[h.z]);
+      } else {        // a row of 4 trunk entries
+        const int i = tr + 4 * (j - nh);
+        float4 g = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int c = 0; c < CLUSTER; ++c) {
+          const float4 p = *reinterpret_cast<const float4*>(cluster.map_shared_rank(S.gp, c) + i);
+          g.x += p.x; g.y += p.y; g.z += p.z; g.w += p.w;
+        }
+        adam(i, g.x); adam(i + 1, g.y); adam(i + 2, g.z); adam(i + 3, g.w);
+      }
+    }
+    // each thread pushes what it stepped: this barrier and the next only
+    // mark the phases for update_phases
+    __syncthreads();    // phase: owner step
+    for (int j = tid; j < n_items; j += THREADS) {   // peers in turn from rank + 1
+      if (j < nh) {
+        const int3 h = head_entry(e_lo + j);
+        const float p = S.P[h.x], ps = S.P[h.y];
+        for (int c = 1; c < CLUSTER; ++c) {
+          float* dst = cluster.map_shared_rank(S.P, (rank + c) % CLUSTER);
+          dst[h.x] = p;
+          dst[h.y] = ps;
+        }
+      } else {
+        const int i = tr + 4 * (j - nh);
+        const float4 row = *reinterpret_cast<const float4*>(S.P + i);
+        for (int c = 1; c < CLUSTER; ++c)
+          *reinterpret_cast<float4*>(cluster.map_shared_rank(S.P, (rank + c) % CLUSTER) + i) = row;
+      }
+    }
+    __syncthreads();    // phase: push
+
     // ---- loss; exact refresh of this CTA's touched chunks ---------------
     if (rank == 0 && tid == 0) {
       float l = 0.f;
@@ -566,47 +666,27 @@ dqn_update_kernel(int ts0, int count0, int frame0, int size, int K, int bs,
         S.cs[c - c_lo] = (float)acc;
       }
     }
-
-    // ---- gradient sum over the cluster (CTA order), Adam, target sync ----
-    const float step = (float)(count0 + k + 1);
-    const float bc1 = 1.0f - expf(step * hp.log_b1);
-    const float bc2 = 1.0f - expf(step * hp.log_b2);
-    auto adam = [&](int i, float g) {
-      const float mj = S.M[i] * hp.b1 + g * hp.one_m_b1;
-      const float vj = S.V[i] * hp.b2 + g * g * hp.one_m_b2;
-      S.M[i] = mj;
-      S.V[i] = vj;
-      S.P[i] = S.P[i] - hp.lr * ((mj / bc1) / (sqrtf(vj / bc2) + hp.eps));
-    };
-    const int n_grad = hp.heads_only ? NN : NN + FEAT_END;
-    for (int e = tid; e < n_grad; e += THREADS) {
-      int i, is = -1, ni = 0;
-      if (e < H) { i = P_WV + e; is = P_WVS + e; ni = N_EV + e; }
-      else if (e < 4 * H) { i = P_WA + e - H; is = P_WAS + e - H; ni = N_EA + e - H; }
-      else if (e == 4 * H) { i = P_BV; is = P_BVS; ni = N_EVB; }
-      else if (e < NN) { i = P_BA + e - 4 * H - 1; is = P_BAS + e - 4 * H - 1; ni = N_EAB + e - 4 * H - 1; }
-      else i = e - NN;
-      float g = 0.f;
-      for (int c = 0; c < CLUSTER; ++c) g += cluster.map_shared_rank(S.gp, c)[i];
-      adam(i, g);
-      if (is >= 0) adam(is, g * S.noise[ni]);
-    }
-    __syncthreads();
-    const bool sync = ((ts0 + k + 1) % hp.interval) == 0;
-    if (hp.tau > 0.f) {
-      for (int i = tid; i < NP; i += THREADS) S.T[i] = S.T[i] + hp.tau * (S.P[i] - S.T[i]);
-    } else if (sync) {
-      for (int i = tid; i < NP; i += THREADS) S.T[i] = S.P[i];
-    }
-    __syncthreads();
+    __syncthreads();    // S.cs before the next scan
   }
   cluster.sync();   // phase: end (no CTA leaves while another reads it)
-  if (rank == 0) {
-    for (int i = tid; i < NP; i += THREADS) {
-      params[i] = S.P[i];
-      target[i] = S.T[i];
-      m[i] = S.M[i];
-      v[i] = S.V[i];
+  // the last update's target step; each CTA writes an eighth of the
+  // parameters and target, and its slice's moments
+  const int w0 = rank * (NP / CLUSTER), w1 = w0 + NP / CLUSTER;
+  if (K > 0) target_step(K - 1, w0, w1);   // the same thread writes it out
+  for (int i = w0 + tid; i < w1; i += THREADS) {
+    params[i] = S.P[i];
+    target[i] = S.T[i];
+  }
+  for (int j = tid; j < n_items; j += THREADS) {
+    if (j < nh) {
+      const int3 h = head_entry(e_lo + j);
+      m[h.x] = S.M[h.x]; v[h.x] = S.V[h.x];
+      m[h.y] = S.M[h.y]; v[h.y] = S.V[h.y];
+    } else {
+      for (int i = tr + 4 * (j - nh), u = 0; u < 4; ++u) {
+        m[i + u] = S.M[i + u];
+        v[i + u] = S.V[i + u];
+      }
     }
   }
 }

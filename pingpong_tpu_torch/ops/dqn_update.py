@@ -4,8 +4,9 @@ launch.
 Port of ``pingpong_tpu/ops/dqn_update.py::pallas_dqn_update_block``. The
 K updates form a serial chain (each samples from the priorities the last
 one wrote and steps from its parameters), so the whole block is one
-kernel: one cluster of 8 thread blocks that split each update's samples. Per update: inverse-CDF prioritized sample from pre-drawn
-uniforms, importance weights ``(N P(i))^-beta`` max-normalized, the
+kernel: one cluster of 8 thread blocks that split each update's samples
+and its parameter step. Per update: inverse-CDF prioritized sample from
+pre-drawn uniforms, importance weights ``(N P(i))^-beta`` max-normalized, the
 Double-DQN TD error with this update's head noise on the online net and
 mu weights on the target, IS-weighted MSE, a hand-written backward
 (heads only by default), flat Adam (b1 0.9, b2 0.999, eps 1e-8), hard or

@@ -3,6 +3,7 @@ kernel and of the env-only rollout kernel on the card.
 
     python -m pingpong_tpu_torch.update_phases {drqn,dqn,rnn,pong}
         [--source FILE] [--reps N] [--envs B] [--slots N]
+        [--updates K] [--batch BS] [--full-net] [--interval N]
 
 Writes an instrumented copy of the kernel's source (default: the port's
 own ``csrc/drqn_update.cu`` or ``csrc/dqn_update.cu``) under
@@ -17,10 +18,13 @@ port's wrapper, with random weights and data from a seed:
   that arrival to the release). A site is named by a trailing ``// phase:
   NAME`` comment, or else by its line and the nearest ``// ----`` section
   header above it.
-- ``dqn`` (K 64, batch 256, replay 2^20, heads only): thread 0 of CTA 0
-  stamps after every line tagged ``// phase: NAME`` (the cluster barriers
-  and the top of the update loop); it prints the time from each tag to the
-  next, summed by pair of tags.
+- ``dqn`` (``--updates`` K 64, ``--batch`` 256, replay 2^20, heads only
+  unless ``--full-net``, target sync every ``--interval`` 1000 train steps
+  from step 0): thread 0 of CTA 0 stamps after every line tagged ``//
+  phase: NAME`` (the cluster barriers, the owner step and its push, and the
+  top of the update loop); it prints the time from each tag to the next,
+  summed by pair of tags. ``qnet.replay_heavy``'s block is ``--updates 256
+  --full-net``; ``--interval 200`` puts one hard sync inside it.
 - ``rnn`` (``configs/rnn.yaml``'s train chunk: ``--envs`` 1024 envs, 128
   steps, ``--slots`` 2 opponent slots in the learner's buckets): consumer
   thread 0 of block 0 stamps after every line tagged ``// phase: NAME``
@@ -42,9 +46,10 @@ port's wrapper, with random weights and data from a seed:
   line.
 
 Times are microseconds summed over one launch, averaged over ``--reps``
-launches, with the card's name and power limit. The committed kernels are
-not changed; the copies are not committed. ``--source`` takes another
-checkout's file, e.g. a parent commit unpacked under ``build/parent/``.
+launches (and a call's share: for ``dqn``, per update), with the card's
+name and power limit. The committed kernels are not changed; the copies
+are not committed. ``--source`` takes another checkout's file, e.g. a
+parent commit unpacked under ``build/parent/``.
 """
 
 from __future__ import annotations
@@ -272,9 +277,11 @@ def inputs_drqn(dev, seed=600):
                 interval=c.target_update_interval, tau=0.0)
 
 
-def inputs_dqn(dev, seed=7, bs=256, K=64, cap=1 << 20):
+def inputs_dqn(dev, seed=7, bs=256, K=64, cap=1 << 20, heads_only=True,
+               interval=1000):
     """K updates of ``bs`` from a full replay of ``cap`` random transitions
-    with random priorities, heads only, no target sync in the block."""
+    with random priorities, from train step 0: a hard target sync after
+    every ``interval`` updates (none in the block at the defaults)."""
     from pingpong_tpu_torch.models.qnet import (
         qnet_init,
         qnet_sample_noise,
@@ -307,8 +314,8 @@ def inputs_dqn(dev, seed=7, bs=256, K=64, cap=1 << 20):
                 params=params, target=qnet_to_flat(qnet_init(hg)).to(dev),
                 m=torch.zeros_like(params), v=torch.zeros_like(params),
                 data=buf.data, K=K, bs=bs, lr=2.5e-4, gamma=0.99,
-                interval=1000, tau=0.0, alpha=0.6, per_eps=1e-6,
-                beta_start=0.4, beta_frames=100_000, heads_only=True)
+                interval=interval, tau=0.0, alpha=0.6, per_eps=1e-6,
+                beta_start=0.4, beta_frames=100_000, heads_only=heads_only)
 
 
 def inputs_rnn(dev, B=1024, n_slots=2, seed=500):
@@ -613,6 +620,10 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--envs", type=int)
     ap.add_argument("--slots", type=int, default=2)
+    ap.add_argument("--updates", type=int, default=64)
+    ap.add_argument("--batch", type=int, default=256)
+    ap.add_argument("--full-net", action="store_true")
+    ap.add_argument("--interval", type=int, default=1000)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("update_phases: no CUDA device")
@@ -640,18 +651,22 @@ def main(argv=None) -> int:
         table, ev_ms, nb = split(lib, names, kw, args.reps)
         shape = f"K {kw['K']}, bs {kw['bs']}, T {kw['T']}, dims {kw['dims']}"
     else:
-        kw = inputs_dqn(dev)
+        kw = inputs_dqn(dev, bs=args.batch, K=args.updates,
+                        heads_only=not args.full_net, interval=args.interval)
         table, ev_ms, nb = split_dqn(lib, names, kw, args.reps)
-        shape = f"K {kw['K']}, bs {kw['bs']}, replay 2^20, heads only"
+        shape = (f"K {kw['K']}, bs {kw['bs']}, replay 2^20, "
+                 f"{'full net' if args.full_net else 'heads only'}, "
+                 f"interval {args.interval}")
     tot_c = sum(v[1] for v in table.values())
     tot_b = sum(v[2] for v in table.values())
     tag = f"[phases:{args.kernel}]"
     print(f"{tag} {source}: {shape}, {nb} blocks; launch (events, "
           f"instrumented) {', '.join(f'{x:.3f}' for x in ev_ms)} ms | {card}")
     print(f"{tag} {'site':60s} {'calls':>6s} {'compute us':>11s} "
-          f"{'barrier us':>11s}")
+          f"{'barrier us':>11s} {'us a call':>10s}")
     for key, (c, comp, bar) in table.items():
-        print(f"{tag} {key[:60]:60s} {c:6.0f} {comp:11.1f} {bar:11.1f}")
+        print(f"{tag} {key[:60]:60s} {c:6.0f} {comp:11.1f} {bar:11.1f} "
+              f"{(comp + bar) / c:10.3f}")
     print(f"{tag} {'total':60s} {'':6s} {tot_c:11.1f} {tot_b:11.1f}")
     return 0
 

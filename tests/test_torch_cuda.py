@@ -138,7 +138,7 @@ def check_actor_kernel(dev, args, kw):
                                atol=1.0)
 
 
-def update_kwargs(dev, heads_only, tau, interval, seed=2, bs=BS):
+def update_kwargs(dev, heads_only, tau, interval, seed=2, bs=BS, updates=K):
     rng = np.random.default_rng(seed)
     buf = per_init(CAP, device=dev, block=True)
     m = 2048
@@ -155,24 +155,30 @@ def update_kwargs(dev, heads_only, tau, interval, seed=2, bs=BS):
     gen = torch.Generator().manual_seed(seed)
     params = qnet_to_flat(qnet_init(gen)).to(dev)
     noise = tdu.pack_dqn_noise(qnet_sample_noise(gen, qnet_init(gen),
-                                                 batch=(K,))).to(dev)
+                                                 batch=(updates,))).to(dev)
     return dict(ts0=1, count0=0, frame0=7, size=m,
-                u01=torch.from_numpy(rng.random((K, bs)).astype(np.float32))
+                u01=torch.from_numpy(rng.random((updates, bs))
+                                     .astype(np.float32))
                 .to(dev), noise=noise, p_alpha=pa,
                 chunk_sums=pa.view(-1, 128).sum(dim=1), params=params,
                 target=params.clone(), m=torch.zeros_like(params),
-                v=torch.zeros_like(params), data=buf.data, K=K, bs=bs,
+                v=torch.zeros_like(params), data=buf.data, K=updates, bs=bs,
                 lr=2.5e-4, gamma=0.99, interval=interval, tau=tau, alpha=0.6,
                 per_eps=1e-6, beta_start=0.4, beta_frames=1000,
                 heads_only=heads_only)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("heads_only,tau,interval,bs", [
-    (True, 0.0, 2, BS), (False, 0.0, 10_000, BS), (True, 0.05, 10_000, BS),
-    (True, 0.0, 2, 512), (False, 0.0, 10_000, 512)])
-def test_update_kernel_matches_plain(cuda, heads_only, tau, interval, bs):
-    kk = update_kwargs(cuda, heads_only, tau, interval, bs=bs)
+@pytest.mark.parametrize("heads_only,tau,interval,bs,updates", [
+    (True, 0.0, 2, BS, K), (False, 0.0, 10_000, BS, K),
+    (True, 0.05, 10_000, BS, K), (True, 0.0, 2, 512, K),
+    (False, 0.0, 10_000, 512, K),
+    # qnet.replay_heavy's block: 256 full-net updates, a hard sync at k 127
+    (False, 0.0, 129, BS, 256)])
+def test_update_kernel_matches_plain(cuda, heads_only, tau, interval, bs,
+                                     updates):
+    kk = update_kwargs(cuda, heads_only, tau, interval, bs=bs,
+                       updates=updates)
     kp = {k: (v.clone() if isinstance(v, torch.Tensor) else v)
           for k, v in kk.items()}
     before = tdu.KERNEL.launches
