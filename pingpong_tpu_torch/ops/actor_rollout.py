@@ -31,6 +31,7 @@ its draws are those of the same envs in the single-device call.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple, Sequence, Union
 
@@ -132,6 +133,129 @@ def packed_flat(p: PackedQNet) -> torch.Tensor:
         raise ValueError(f"packed net has {flat.shape[-1]} floats, the "
                          f"kernel takes hidden={HIDDEN} ({NET} floats)")
     return flat.contiguous()
+
+
+# The layout's fields in order, (rows, cols) each (``w2t`` stored
+# input-major).
+_FIELDS = ((HIDDEN, 8), (HIDDEN, 1), (HIDDEN, HIDDEN), (HIDDEN, 1),
+           (8, HIDDEN), (8, 1), (8, HIDDEN), (8, 1))
+
+
+def unpack_flat(flat: torch.Tensor) -> PackedQNet:
+    """:func:`packed_flat`'s inverse: the fields of ``flat (..., NET)``,
+    laid out as :func:`pack_qnet` lays them out."""
+    lead = tuple(flat.shape[:-1])
+    fields, i = [], 0
+    for rows, cols in _FIELDS:
+        fields.append(flat[..., i:i + rows * cols]
+                      .reshape(lead + (rows, cols)).contiguous())
+        i += rows * cols
+    p = PackedQNet(*fields)
+    return p._replace(w2t=p.w2t.transpose(-1, -2).contiguous())
+
+
+class _PackMaps(NamedTuple):
+    seat: torch.Tensor       # (NET,) int64 into [flat..., 0, NEG_BIG]
+    mirror: torch.Tensor     # (NET,) int64, the same with w1t mirrored
+    sign: torch.Tensor       # (NET,) f32, the mirror's signs
+    b1: slice                # b1t's place in the layout
+    w1_y: slice              # w1t[:, 1] (feat1.w's row 1) in the flat vector
+    tail: torch.Tensor       # (2,) f32: 0, NEG_BIG
+
+
+@functools.lru_cache(maxsize=8)
+def _pack_maps(shapes: tuple, device: torch.device) -> _PackMaps:
+    """The gather maps of a QNet with these ``(name, shape)`` parameters,
+    in ``ravel_pytree`` order, made once a template and device."""
+    off, i = {}, 0
+    for name, shape in shapes:
+        off[name] = i
+        i += int(np.prod(shape))
+    dims = dict(shapes)
+    n_in, hidden = dims["feat1.w"]
+    n_act = dims["fc_a.w_mu"][1]
+    if hidden != HIDDEN or not 2 <= n_in <= 8 or not 1 <= n_act <= 8:
+        raise ValueError(f"QNet of widths {n_in} -> {hidden} -> {n_act}: "
+                         f"the kernel takes hidden={HIDDEN} ({NET} floats)")
+    zero, neg = i, i + 1
+    h = np.arange(HIDDEN)
+
+    def rows_of(name):
+        # a head's (out, hidden) transpose padded to 8 rows: entry (a, h)
+        # is the (in, out) parameter's h * n_act + a
+        out = np.full((8, HIDDEN), zero)
+        for a in range(n_act):
+            out[a] = off[name] + h * n_act + a
+        return out
+
+    def w1t(cols):
+        # (HIDDEN, 8); column j reads feat1.w's row cols[j] (None: 0)
+        out = np.full((HIDDEN, 8), zero)
+        for j, src in enumerate(cols):
+            if src is not None and src < n_in:
+                out[:, j] = off["feat1.w"] + src * HIDDEN + h
+        return out
+
+    def vec(name, fill):
+        out = np.full((8, 1), fill)
+        out[:n_act, 0] = off[name] + np.arange(n_act)
+        return out
+
+    def layout(w1t_idx, sigma):
+        return np.concatenate([x.reshape(-1) for x in (
+            w1t_idx,
+            off["feat1.b"] + h,
+            off["feat2.w"] + np.arange(HIDDEN * HIDDEN),
+            off["feat2.b"] + h,
+            rows_of("fc_a.w_mu"),
+            vec("fc_a.b_mu", neg),
+            rows_of("fc_a.w_sigma") if sigma else np.full((8, HIDDEN), zero),
+            vec("fc_a.b_sigma", zero) if sigma else np.full((8, 1), zero))])
+
+    # w1t @ _MIRROR is a signed column select: column j of the product is
+    # the one column i with _MIRROR[i, j] != 0, times that entry
+    src = [None] * 8
+    sgn = np.ones((HIDDEN, 8), np.float32)
+    for i_, j_ in zip(*np.nonzero(_MIRROR)):
+        src[j_] = i_
+        sgn[:, j_] = _MIRROR[i_, j_]
+    sign = np.ones(NET, np.float32)
+    sign[:HIDDEN * 8] = sgn.reshape(-1)
+    as_t = lambda x, dt: torch.as_tensor(x, dtype=dt).to(device)
+    b1 = HIDDEN * 8
+    return _PackMaps(
+        seat=as_t(layout(w1t(range(8)), sigma=False), torch.int64),
+        mirror=as_t(layout(w1t(src), sigma=True), torch.int64),
+        sign=as_t(sign, torch.float32),
+        b1=slice(b1, b1 + HIDDEN),
+        w1_y=slice(off["feat1.w"] + HIDDEN, off["feat1.w"] + 2 * HIDDEN),
+        tail=as_t([0.0, NEG_BIG], torch.float32))
+
+
+def _maps(flat: torch.Tensor, like: QNet) -> _PackMaps:
+    return _pack_maps(tuple((n, tuple(p.shape))
+                            for n, p in like.named_parameters()),
+                      flat.device)
+
+
+def flat_seat_pack(flat: torch.Tensor, like: QNet) -> torch.Tensor:
+    """``packed_flat(pack_qnet(net))`` with the advantage head's sigmas
+    zero (the gates' learner seat), gathered in one index from the raveled
+    net ``flat`` (``qnet_to_flat`` order, as the learner's
+    ``state.params``; ``like`` gives its shapes). ``(NET,)``."""
+    m = _maps(flat, like)
+    return torch.cat((flat, m.tail)).index_select(0, m.seat)
+
+
+def flat_mirror_pack(flat: torch.Tensor, like: QNet) -> torch.Tensor:
+    """``packed_flat(pack_qnet([net], mirror=True))`` gathered from the
+    raveled net: the mirror's column select with its signs, then
+    ``b1t + w1t[:, 1]`` as the one float add :func:`pack_qnet` makes.
+    ``(1, NET)``, one opponent slot."""
+    m = _maps(flat, like)
+    out = torch.cat((flat, m.tail)).index_select(0, m.mirror).mul_(m.sign)
+    out[m.b1] += flat[m.w1_y]
+    return out[None]
 
 
 def epsilon_to_int(epsilon: float) -> int:
@@ -305,33 +429,27 @@ KERNEL = CudaKernel(
 )
 
 
-def actor_rollout_cuda(env_params: EnvParams, state: EnvState, opp_idx,
-                       ep_return, learner: PackedQNet, opponents: PackedQNet,
-                       *, seed: int, eps_i: int, steps: int,
-                       max_episode_steps: int, tile_rows: int,
-                       emit_transitions: bool, shared_trunk: bool,
-                       tile0: int = 0):
-    """Launch the CUDA kernel; same contract as :func:`actor_rollout_plain`
-    (``opp_idx`` is returned unchanged by both)."""
-    dev = state.ball_x.device
-    B = state.ball_x.shape[0]
+def actor_rollout_launch(env_params: EnvParams, f_in, i_in, learner,
+                         opponents, *, seed: int, eps_i: int, steps: int,
+                         max_episode_steps: int, tile_rows: int,
+                         emit_transitions: bool, shared_trunk: bool,
+                         tile0: int = 0):
+    """Launch the CUDA kernel on its own operands, with no read of device
+    data: ``f_in (8, B)`` (ball x, y, vx, vy, bottom and top paddle, spin,
+    episode return), ``i_in (5, B)`` (scores A and B, bounces, t, opponent
+    slot), ``learner (NET,)`` and ``opponents (S, NET)`` in
+    :func:`packed_flat`'s layout. The caller vouches that every slot lies
+    in ``[0, S)``. Returns ``(f_out, i_out, transitions or None,
+    stats (8, B))``; ``f_out`` and ``i_out`` are the next chunk's ``f_in``
+    and ``i_in`` (the kernel writes the slot row back)."""
     if tile_rows % CUDA_ENVS:
         raise ValueError(f"tile_rows {tile_rows} must be a multiple of "
                          f"{CUDA_ENVS} on the card")
-    lw = packed_flat(learner)
-    ow = packed_flat(opponents)
-    n_slots = ow.shape[0]
-    check_cuda("learner", lw, torch.float32, (NET,))
-    check_cuda("opponents", ow, torch.float32, (n_slots, NET))
-    check_cuda("opp_idx", opp_idx, torch.int32, (B,))
-    lo, hi = torch.aminmax(opp_idx)
-    if trace.readback(lo, int) < 0 or trace.readback(hi, int) >= n_slots:
-        raise ValueError(f"opp_idx outside [0, {n_slots})")
-    f_in = torch.stack([state.ball_x, state.ball_y, state.ball_vx,
-                        state.ball_vy, state.bottom_paddle_x,
-                        state.top_paddle_x, state.spin, ep_return])
-    i_in = torch.stack([state.score_a, state.score_b, state.bounce_count,
-                        state.t, opp_idx])
+    dev = f_in.device
+    B = f_in.shape[-1]
+    check_cuda("learner", learner, torch.float32, (NET,))
+    check_cuda("opponents", opponents, torch.float32,
+               (opponents.shape[0], NET))
     check_cuda("f_in", f_in, torch.float32, (8, B))
     check_cuda("i_in", i_in, torch.int32, (5, B))
     f_out = torch.empty_like(f_in)
@@ -347,21 +465,82 @@ def actor_rollout_cuda(env_params: EnvParams, state: EnvState, opp_idx,
     else:
         tr_ptrs = [None] * 5
     consts = EnvConsts.build(env_params, max_episode_steps)
-    KERNEL.launch(ctypes.byref(consts), ptr(f_in), ptr(i_in), ptr(lw),
-                  ptr(ow), int(shared_trunk), ptr(f_out), ptr(i_out),
+    KERNEL.launch(ctypes.byref(consts), ptr(f_in), ptr(i_in), ptr(learner),
+                  ptr(opponents), int(shared_trunk), ptr(f_out), ptr(i_out),
                   *tr_ptrs, ptr(stats), B, steps, tile_rows, tile0,
                   seed & _M32, eps_i, stream_ptr(dev))
+    trans = None
+    if emit_transitions:
+        trans = {"obs": obs, "action": act, "reward": rew, "next_obs": nxt,
+                 "done": dn.bool()}
+    return f_out, i_out, trans, stats
+
+
+def actor_rollout_cuda(env_params: EnvParams, state: EnvState, opp_idx,
+                       ep_return, learner: PackedQNet, opponents: PackedQNet,
+                       *, seed: int, eps_i: int, steps: int,
+                       max_episode_steps: int, tile_rows: int,
+                       emit_transitions: bool, shared_trunk: bool,
+                       tile0: int = 0):
+    """Pack, check the slot bounds (one read of device data) and launch
+    the CUDA kernel; same contract as :func:`actor_rollout_plain`
+    (``opp_idx`` is returned unchanged by both)."""
+    dev = state.ball_x.device
+    B = state.ball_x.shape[0]
+    lw = packed_flat(learner)
+    ow = packed_flat(opponents)
+    n_slots = ow.shape[0]
+    check_cuda("opp_idx", opp_idx, torch.int32, (B,))
+    lo, hi = torch.aminmax(opp_idx)
+    if trace.readback(lo, int) < 0 or trace.readback(hi, int) >= n_slots:
+        raise ValueError(f"opp_idx outside [0, {n_slots})")
+    f_in = torch.stack([state.ball_x, state.ball_y, state.ball_vx,
+                        state.ball_vy, state.bottom_paddle_x,
+                        state.top_paddle_x, state.spin, ep_return])
+    i_in = torch.stack([state.score_a, state.score_b, state.bounce_count,
+                        state.t, opp_idx])
+    f_out, i_out, trans, stats = actor_rollout_launch(
+        env_params, f_in, i_in, lw, ow, seed=seed, eps_i=eps_i, steps=steps,
+        max_episode_steps=max_episode_steps, tile_rows=tile_rows,
+        emit_transitions=emit_transitions, shared_trunk=shared_trunk,
+        tile0=tile0)
     new_state = EnvState(
         ball_x=f_out[0], ball_y=f_out[1], ball_vx=f_out[2], ball_vy=f_out[3],
         bottom_paddle_x=f_out[4], top_paddle_x=f_out[5], spin=f_out[6],
         score_a=i_out[0], score_b=i_out[1], bounce_count=i_out[2],
         t=i_out[3], done=torch.zeros((B,), dtype=torch.bool, device=dev),
     )
-    trans = None
-    if emit_transitions:
-        trans = {"obs": obs, "action": act, "reward": rew, "next_obs": nxt,
-                 "done": dn.bool()}
     return new_state, f_out[7], trans, stats
+
+
+def actor_rollout_rows(env_params: EnvParams, f_in, i_in, learner,
+                       opponents, *, seed: int, eps_i: int, steps: int,
+                       max_episode_steps: int, tile_rows: int,
+                       shared_trunk: bool = False):
+    """One chunk without transitions on the kernel's own operands (see
+    :func:`actor_rollout_launch`): the launch for CUDA tensors, the plain
+    version on :func:`unpack_flat`'s fields for CPU tensors. Returns
+    ``(f_out, i_out, stats (8, B))``."""
+    kw = dict(seed=int(seed), eps_i=eps_i, steps=steps,
+              max_episode_steps=int(max_episode_steps), tile_rows=tile_rows,
+              emit_transitions=False, shared_trunk=bool(shared_trunk))
+    if f_in.is_cuda:
+        f_out, i_out, _, stats = actor_rollout_launch(
+            env_params, f_in, i_in, learner, opponents, **kw)
+        return f_out, i_out, stats
+    state = EnvState(
+        ball_x=f_in[0], ball_y=f_in[1], ball_vx=f_in[2], ball_vy=f_in[3],
+        bottom_paddle_x=f_in[4], top_paddle_x=f_in[5], spin=f_in[6],
+        score_a=i_in[0], score_b=i_in[1], bounce_count=i_in[2], t=i_in[3],
+        done=torch.zeros(f_in.shape[-1:], dtype=torch.bool))
+    st, ret, _, stats = actor_rollout_plain(
+        env_params, state, i_in[4], f_in[7], unpack_flat(learner),
+        unpack_flat(opponents), **kw)
+    f_out = torch.stack([st.ball_x, st.ball_y, st.ball_vx, st.ball_vy,
+                         st.bottom_paddle_x, st.top_paddle_x, st.spin, ret])
+    i_out = torch.stack([st.score_a, st.score_b, st.bounce_count, st.t,
+                         i_in[4]])
+    return f_out, i_out, stats
 
 
 def actor_rollout(env_params: EnvParams, state: EnvState, opp_idx,

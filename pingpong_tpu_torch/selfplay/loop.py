@@ -33,7 +33,9 @@ port of ``pingpong_tpu/selfplay/loop.py``.
   (``loop::try``, marked with ``(generation, try)``), its opponents
   (``loop::opponents``), its train block (``loop::train_block``, with the
   autosave stall ``loop::autosave``), its gate (``loop::gate``, one
-  ``gate::opponent`` each; ``eval_s`` is that span's length), the
+  ``gate::opponent`` each; ``eval_s`` is that span's length; counters
+  ``gate::packs`` and ``gate::pack_hits``: B is gathered from its flat
+  parameters once a gate, A and the pool packed once a lifetime), the
   checkpoint (``loop::checkpoint``) and the reset after a fault
   (``loop::reset``); with ``log_spans`` each try ends in a ``spans`` event
   that drains the tracer (``cli train --trace``).
@@ -62,8 +64,11 @@ from pingpong_tpu_torch.checkpoint.serialize import (
 from pingpong_tpu_torch.checkpoint.store import load_checkpoint, save_checkpoint
 from pingpong_tpu_torch.config.schema import DQNConfig, EnvConfig, MeshConfig
 from pingpong_tpu_torch.evaluation.fast_eval import (
+    FrozenPacks,
+    GateNet,
     fused_win_rate,
     fused_win_rate_balanced,
+    gate_net,
 )
 from pingpong_tpu_torch.evaluation.match import (
     QNET,
@@ -151,6 +156,7 @@ class QNetSelfPlay:
         # ---- opponent pool, loaded once (fault checkpoints included)
         self.pool: List[QNet] = load_pool(self.ckpt_dir, kind="qnet",
                                           limit=cfg.pool_max)
+        self._pool_packs = FrozenPacks(self.device)
         self.env_params = self.learner.env_params
         self.match_fn = make_match_fn(self.env_params, PolicySpec(QNET, None),
                                       PolicySpec(QNET, None),
@@ -236,7 +242,9 @@ class QNetSelfPlay:
         noise draw per A lifetime folded into its heads (the reference
         leaves A in train mode); else mu-greedy A. The draw is kept (and
         saved with the autosave) so a resumed run folds the same noise and
-        an interrupted generation continues against a bit-identical A."""
+        an interrupted generation continues against a bit-identical A.
+        A's gate packs go with the A they were made from."""
+        self._a_packs = FrozenPacks(self.device)
         if self.cfg.selfplay.frozen_a_stale_noise:
             if noise is None:
                 noise = qnet_sample_noise(self.gen, self.params_a)
@@ -246,17 +254,28 @@ class QNetSelfPlay:
             self._a_fold_noise = None
             self.params_a_play = self.params_a
 
-    def _eval_vs(self, opponents: List[QNet], n_games: int) -> float:
-        """B (the current learner) vs a set of opponents: through the fused
-        kernel, the quota split evenly over them, or (``use_pallas_eval=
-        false``) through the match runner, each game against a uniformly
-        drawn member."""
+    def _learner_gate_net(self) -> Optional[GateNet]:
+        """B's gate packs, gathered from the learner's flat parameters (the
+        mirror only for the side-balanced gate); None on the match
+        runner."""
+        if not self.cfg.use_pallas_eval:
+            return None
+        return gate_net(self.state.params, self.learner.template,
+                        mirror=self.cfg.selfplay.swap_sides_eval)
+
+    def _eval_vs(self, opponents: List[QNet], n_games: int,
+                 frozen: FrozenPacks, b: Optional[GateNet]) -> float:
+        """B (the current learner; ``b`` its gate packs) vs a set of
+        opponents: through the fused kernel, the quota split evenly over
+        them, each packed once for as long as ``frozen`` holds it, or
+        (``use_pallas_eval=false``) through the match runner, each game
+        against a uniformly drawn member."""
         if not opponents:
             return 1.0
         cfg = self.cfg
-        params_b = self.learner.params_b(self.state)
         if cfg.use_pallas_eval:
-            return self._fused_eval_vs(opponents, params_b, n_games)
+            return self._fused_eval_vs(opponents, frozen, b, n_games)
+        params_b = self.learner.params_b(self.state)
         n_opp = len(opponents)
         idx_opp = torch.randint(0, n_opp, (n_games,), generator=self.gen,
                                 dtype=torch.int32)
@@ -275,8 +294,8 @@ class QNetSelfPlay:
             return trace.readback(result.win_b.to(torch.float32).mean(),
                                   float)
 
-    def _fused_eval_vs(self, opponents: List[QNet], params_b: QNet,
-                       n_games: int) -> float:
+    def _fused_eval_vs(self, opponents: List[QNet], frozen: FrozenPacks,
+                       b: GateNet, n_games: int) -> float:
         cfg = self.cfg
         kw = dict(n_envs=min(cfg.num_envs, 8192),
                   tile_rows=min(cfg.pallas_tile_rows, cfg.num_envs, 8192),
@@ -288,7 +307,7 @@ class QNetSelfPlay:
             for opp in opponents:
                 with trace.span("gate::opponent"):
                     wr, as_b, as_a, eps = fused_win_rate_balanced(
-                        self.env_params, opp, params_b, self.gen,
+                        self.env_params, frozen(opp), b, self.gen,
                         min_episodes=per, **kw)
                 wins += wr * eps
                 w_b += as_b * eps
@@ -303,7 +322,7 @@ class QNetSelfPlay:
         total = 0
         for opp in opponents:
             with trace.span("gate::opponent"):
-                wr, eps = fused_win_rate(self.env_params, opp, params_b,
+                wr, eps = fused_win_rate(self.env_params, frozen(opp), b,
                                          self.gen, min_episodes=per, **kw)
             wins += wr * eps
             total += eps
@@ -391,8 +410,11 @@ class QNetSelfPlay:
         self.logger.log({"event": "try", "generation": gen, "try": tries})
         self._train_block(sp.episodes_per_generation)
         with trace.timed_span("loop::gate") as gate:
-            w_a = self._eval_vs([self.params_a_play], sp.eval_episodes)
-            w_pool = self._eval_vs(self.pool, sp.eval_episodes)
+            b = self._learner_gate_net()
+            w_a = self._eval_vs([self.params_a_play], sp.eval_episodes,
+                                self._a_packs, b)
+            w_pool = self._eval_vs(self.pool, sp.eval_episodes,
+                                   self._pool_packs, b)
             w_a, w_pool = broadcast_values([w_a, w_pool], self.mesh,
                                            self.device)
         self.logger.log({"event": "eval", "generation": gen,

@@ -1,6 +1,7 @@
 """PyTorch port on the card: each CUDA kernel vs its plain PyTorch version
-on the same inputs, the wrappers' argument checks, and one iteration of
-each learner through its two kernels. Every test needs an NVIDIA card and skips
+on the same inputs, the wrappers' argument checks, the QNet gate's own
+operands vs module packs, and one iteration of each learner through its
+two kernels. Every test needs an NVIDIA card and skips
 without one. This file imports no JAX, so it also runs on a machine that
 has only the port's dependencies:
 
@@ -18,7 +19,14 @@ import torch
 
 from pingpong_tpu_torch.config import EnvConfig, load_config
 from pingpong_tpu_torch.env.pong import EnvState, env_params_from_config, reset
+from pingpong_tpu_torch.evaluation.fast_eval import (
+    _zero_sigma,
+    fused_win_rate,
+    fused_win_rate_balanced,
+)
 from pingpong_tpu_torch.models.qnet import (
+    qnet_copy,
+    qnet_fold_noise,
     qnet_init,
     qnet_sample_noise,
     qnet_to_flat,
@@ -260,6 +268,87 @@ def test_wrappers_check_their_arguments(cuda):
         tdu.dqn_update_cuda(**{**kk, "params": kk["params"].cpu()})
     with pytest.raises(ValueError, match="batch <= 512"):
         tdu.dqn_update_cuda(**update_kwargs(cuda, True, 0.0, 2, bs=640))
+
+
+def gate_test_net(kind, gen, dev):
+    q = qnet_init(gen, device=dev)
+    if kind == "folded":
+        q = qnet_fold_noise(q, qnet_sample_noise(gen, q))
+    elif kind == "sigmas":
+        for layer in (q.fc_v, q.fc_a):
+            for p in (layer.w_sigma, layer.b_sigma):
+                p.data.copy_(torch.randn(p.shape, generator=gen))
+    return q
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["init", "folded", "sigmas"])
+def test_gate_packs_match_pack_qnet_on_the_card(cuda, kind):
+    """The gathered gate packs equal the module packs on the card."""
+    gen = torch.Generator().manual_seed(11)
+    for _ in range(3):
+        q = gate_test_net(kind, gen, cuda)
+        flat = qnet_to_flat(q)
+        assert flat.is_cuda
+        assert torch.equal(tar.flat_seat_pack(flat, q), tar.packed_flat(
+            tar.pack_qnet(_zero_sigma(q))))
+        assert torch.equal(tar.flat_mirror_pack(flat, q), tar.packed_flat(
+            tar.pack_qnet([q], mirror=True)))
+
+
+def module_pack_seat(env_params, bottom, top, gen, min_episodes, n_envs,
+                     chunk_steps, tile_rows, dev):
+    """A gate seat through module copies, ``reset`` and the training
+    rollout's wrapper (its packs and bounds read): what the gate's own
+    operands have to reproduce. Returns (bottom_wins, draws, episodes)."""
+    learner = tar.pack_qnet(_zero_sigma(bottom).to(dev))
+    opp = tar.pack_qnet([qnet_copy(top).to(dev)], mirror=True)
+    state = reset(env_params, n_envs, gen, dev)
+    opp_idx = torch.zeros((n_envs,), dtype=torch.int32, device=dev)
+    ep_ret = torch.zeros((n_envs,), dtype=torch.float32, device=dev)
+    wins = draws = episodes = 0
+    while episodes < min_episodes:
+        seed = int(torch.randint(0, 2**31 - 1, (1,), generator=gen))
+        state, opp_idx, ep_ret, _, stats, _, _ = tar.actor_rollout(
+            env_params, state, opp_idx, ep_ret, learner, opp, seed=seed,
+            epsilon=0.0, steps=chunk_steps, tile_rows=tile_rows,
+            emit_transitions=False)
+        s = stats.tolist()
+        episodes += s[0] + s[2]
+        wins += s[1] + s[3]
+        draws += s[4]
+    return wins, draws, episodes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk_steps,min_episodes", [(256, 1000),
+                                                      (8, 4000)])
+def test_gate_seats_match_module_packs_on_the_card(cuda, chunk_steps,
+                                                  min_episodes):
+    """Both gates from their own operands equal the same gates through
+    module packs and the wrapper, bit for bit, generator state included
+    (one chunk a seat, and several)."""
+    env_params = env_params_from_config(load_config(CONFIG).env)
+    gen = torch.Generator().manual_seed(5)
+    a, b = gate_test_net("folded", gen, "cpu"), gate_test_net("init", gen,
+                                                               "cpu")
+    kw = dict(n_envs=4096, chunk_steps=chunk_steps, tile_rows=512)
+    g1, g2 = (torch.Generator().manual_seed(2**33 + 5) for _ in range(2))
+    got = fused_win_rate(env_params, a, b, g1, min_episodes, device=cuda,
+                         **kw)
+    wins, _, eps = module_pack_seat(env_params, b, a, g2, min_episodes,
+                                    dev=cuda, **kw)
+    assert got == (wins / eps, eps)
+    got = fused_win_rate_balanced(env_params, a, b, g1, min_episodes,
+                                  device=cuda, **kw)
+    half = min_episodes // 2
+    wins_b, _, eps_b = module_pack_seat(env_params, b, a, g2, half,
+                                        dev=cuda, **kw)
+    wins_a, draws_a, eps_a = module_pack_seat(env_params, a, b, g2, half,
+                                              dev=cuda, **kw)
+    rate_b, rate_a = wins_b / eps_b, (eps_a - wins_a - draws_a) / eps_a
+    assert got == ((rate_b + rate_a) / 2, rate_b, rate_a, eps_b + eps_a)
+    assert torch.equal(g1.get_state(), g2.get_state())
 
 
 @pytest.mark.cuda
