@@ -137,15 +137,16 @@ def cuda_ms(fn, reps, warm=2):
 
 def actor_inputs(seed, n_slots, shared, eval_mode, B, dev):
     from pingpong_tpu_torch.env.pong import reset
-    from pingpong_tpu_torch.evaluation.fast_eval import _zero_sigma
-    from pingpong_tpu_torch.models.qnet import qnet_init
+    from pingpong_tpu_torch.models.qnet import qnet_copy, qnet_init
     from pingpong_tpu_torch.ops.actor_rollout import pack_qnet
     from pingpong_tpu_torch.train.dqn import bucket_opp_idx
 
     gen = torch.Generator().manual_seed(seed)
     learner = qnet_init(gen)
-    if eval_mode:
-        learner = _zero_sigma(learner)
+    if eval_mode:              # the gate's learner seat: zero sigmas
+        learner = qnet_copy(learner)
+        learner.fc_a.w_sigma.data.zero_()
+        learner.fc_a.b_sigma.data.zero_()
     members = [qnet_init(gen) for _ in range(n_slots)]
     if shared:
         for p in members[1:]:

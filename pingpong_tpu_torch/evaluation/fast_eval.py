@@ -1,22 +1,16 @@
 """Fused-kernel win-rate estimation for the self-play gates (port of
-``pingpong_tpu/evaluation/fast_eval.py``).
-
-Streams greedy episodes through a rollout kernel in eval mode (learner
-sigmas and epsilon zero, no transitions) and reads the win/episode
-counters: one launch per ``chunk_steps`` steps of ``n_envs`` envs, until at
-least ``min_episodes`` episodes finished (each chunk counted in the
-tracer's ``gate::chunks``, ``gate::env_steps`` and ``gate::episodes``).
-The QNet gates run the actor kernel with no step cap; the recurrent gates
-run the recurrent kernel with both LSTM streams carried across chunks and
-the DRQN config's ``max_episode_steps``. The estimator differs from
-exactly-N games only in that the episode count is >= N; the per-episode
-win distribution is the same.
-
-A QNet gate seat launches kernel 1 on its own operands: both nets as the
-kernel's flat vectors (:class:`GateNet`, gathered from the raveled
-parameters; the loop keeps a frozen net's packs in :class:`FrozenPacks`
-for the net's lifetime), the start state copied once from pinned memory,
-each chunk's output state fed to the next, and one host read a chunk.
+``pingpong_tpu/evaluation/fast_eval.py``): greedy episodes through a
+rollout kernel in eval mode (learner sigmas and epsilon zero, no
+transitions) until at least ``min_episodes`` finished, so the episode
+count is >= N where the reference plays exactly N; the per-episode win
+distribution is the same. Both families' seats run one chunk loop
+(:func:`_stream_chunks`) and one side-balanced rule; a seat gives the start
+state, the launch and its counters' layout. A QNet seat runs kernel 1 with
+no step cap on both nets as its flat vectors (:class:`GateNet`, gathered
+from the raveled parameters; the loop keeps a frozen net's packs in
+:class:`FrozenPacks` for its lifetime), the start state copied once from
+pinned memory. A recurrent seat packs both nets and runs kernel 3 with
+both LSTM streams carried across chunks and the DRQN ``max_episode_steps``.
 """
 
 from __future__ import annotations
@@ -26,7 +20,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from pingpong_tpu_torch.env.pong import EnvParams, reset, serve_from_uniforms
-from pingpong_tpu_torch.models.qnet import QNet, qnet_copy, qnet_to_flat
+from pingpong_tpu_torch.models.qnet import QNet, qnet_to_flat
 from pingpong_tpu_torch.models.qnet_rnn import QNetRNN, qnet_rnn_copy
 from pingpong_tpu_torch.ops.actor_rollout import (
     actor_rollout_rows,
@@ -40,21 +34,6 @@ from pingpong_tpu_torch.ops.recurrent_rollout import (
     rnn_kernel_flat,
 )
 from pingpong_tpu_torch.utils import trace
-
-
-def _count_chunk(env_steps: int, episodes: int) -> None:
-    """A gate chunk in the tracer's counters (``gate::chunks``,
-    ``gate::env_steps``, ``gate::episodes``)."""
-    trace.count("gate::chunks")
-    trace.count("gate::env_steps", env_steps)
-    trace.count("gate::episodes", episodes)
-
-
-def _zero_sigma(params: QNet) -> QNet:
-    out = qnet_copy(params)
-    out.fc_a.w_sigma.data.zero_()
-    out.fc_a.b_sigma.data.zero_()
-    return out
 
 
 class GateNet(NamedTuple):
@@ -116,74 +95,51 @@ def _start_rows(env_params, n_envs, generator, device) -> torch.Tensor:
     return rows.to(device, non_blocking=True)
 
 
-def _stream_seat(env_params, seat, opp, generator, min_episodes, n_envs,
-                 chunk_steps, max_chunks, tile_rows, device):
-    """Greedy episodes with the packed ``seat`` in the kernel's learner
-    seat (player B) and the one-slot ``opp`` as the bound opponent (player
-    A, mirror-folded): every env on slot 0, so the launch needs no bounds
-    read, and each chunk's state feeds the next. One read of the chunk's
-    stats a chunk. Returns (bottom_wins, draws, episodes)."""
-    if n_envs % tile_rows:
-        raise ValueError(f"batch {n_envs} must be a multiple of {tile_rows}")
-    f_in = _start_rows(env_params, n_envs, generator, device)
-    i_in = torch.zeros((5, n_envs), dtype=torch.int32, device=device)
+def _stream_chunks(launch, fields, generator, min_episodes, max_chunks,
+                   chunk_env_steps):
+    """The gates' chunk loop: a seed a chunk for ``launch(seed)``, which
+    runs the chunk and returns its counters on the device, one host read of
+    them (``fields`` index ``[games vs A, wins vs A, games vs pool, wins vs
+    pool, draws]``), the tracer's ``gate::chunks``, ``gate::env_steps`` and
+    ``gate::episodes``. Returns (bottom_wins, draws, episodes)."""
     wins = draws = episodes = 0
     for _ in range(max_chunks):
         seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
-        f_in, i_in, stats = actor_rollout_rows(
-            env_params, f_in, i_in, seat, opp, seed=seed, eps_i=0,
-            steps=chunk_steps, max_episode_steps=0, tile_rows=tile_rows)
-        # [games/wins vs A, games/wins vs pool, return sum, ended, draws]
-        t = trace.readback(stats.sum(dim=1))
-        s = [int(t[i]) for i in (0, 1, 2, 3, 6)]
-        _count_chunk(n_envs * chunk_steps, s[0] + s[2])
-        episodes += s[0] + s[2]
-        wins += s[1] + s[3]
-        draws += s[4]
+        t = trace.readback(launch(seed))
+        games_a, wins_a, games_p, wins_p, drawn = (int(t[i]) for i in fields)
+        trace.count("gate::chunks")
+        trace.count("gate::env_steps", chunk_env_steps)
+        trace.count("gate::episodes", games_a + games_p)
+        episodes += games_a + games_p
+        wins += wins_a + wins_p
+        draws += drawn
         if episodes >= min_episodes:
             break
     return wins, draws, episodes
 
 
-def fused_win_rate(env_params: EnvParams, params_a, params_b,
-                   generator: torch.Generator, min_episodes: int,
-                   n_envs: int = 4096, chunk_steps: int = 256,
-                   max_chunks: int = 32, tile_rows: int = 512,
-                   device="cuda"):
-    """B's win rate vs frozen A (``pallas_win_rate`` in the JAX package);
-    each net a QNet or its :class:`GateNet`. Returns ``(win_rate_b,
-    episodes_played)``."""
-    a, b = _as_gate_net(params_a, device), _as_gate_net(params_b, device)
-    wins, _, episodes = _stream_seat(
-        env_params, b.seat, a.mirror, generator, min_episodes, n_envs,
-        chunk_steps, max_chunks, tile_rows, device)
-    return (wins / episodes if episodes else 0.0), episodes
+def _actor_seat(bottom: GateNet, top: GateNet, min_episodes, env_params,
+                generator, n_envs, chunk_steps, max_chunks, tile_rows,
+                device):
+    """Kernel 1 with ``bottom``'s seat pack in the learner seat (player B)
+    and ``top``'s one-slot mirror as the bound opponent (player A): every
+    env on slot 0, so the launch needs no bounds read."""
+    if n_envs % tile_rows:
+        raise ValueError(f"batch {n_envs} must be a multiple of {tile_rows}")
+    f_in = _start_rows(env_params, n_envs, generator, device)
+    i_in = torch.zeros((5, n_envs), dtype=torch.int32, device=device)
 
+    def launch(seed):
+        nonlocal f_in, i_in
+        f_in, i_in, stats = actor_rollout_rows(
+            env_params, f_in, i_in, bottom.seat, top.mirror, seed=seed,
+            eps_i=0, steps=chunk_steps, max_episode_steps=0,
+            tile_rows=tile_rows)
+        return stats.sum(dim=1)
 
-def fused_win_rate_balanced(env_params: EnvParams, params_a, params_b,
-                            generator: torch.Generator, min_episodes: int,
-                            n_envs: int = 4096, chunk_steps: int = 256,
-                            max_chunks: int = 32, tile_rows: int = 512,
-                            device="cuda"):
-    """Side-balanced gate (``pallas_win_rate_balanced``): >= min/2
-    episodes per seating; seat 2 puts A in the learner seat, so B's wins
-    there are ``episodes - A wins - draws``. The two seats weigh equally.
-    Each net a QNet or its :class:`GateNet` (with its mirror). Returns
-    ``(win_rate_total, win_rate_as_b, win_rate_as_a, episodes_total)``."""
-    a, b = _as_gate_net(params_a, device), _as_gate_net(params_b, device)
-    half = max(1, min_episodes // 2)
-    wins_b, _, eps_b = _stream_seat(
-        env_params, b.seat, a.mirror, generator, half, n_envs,
-        chunk_steps, max_chunks, tile_rows, device)
-    wins_a_opp, draws_a, eps_a = _stream_seat(
-        env_params, a.seat, b.mirror, generator, half, n_envs,
-        chunk_steps, max_chunks, tile_rows, device)
-    rate_b = wins_b / max(eps_b, 1)
-    rate_a = (eps_a - wins_a_opp - draws_a) / max(eps_a, 1)
-    return (rate_b + rate_a) / 2, rate_b, rate_a, eps_b + eps_a
-
-
-# ---- recurrent (DRQN) family --------------------------------------------
+    # [games/wins vs A, games/wins vs pool, return sum, ended, draws]
+    return _stream_chunks(launch, (0, 1, 2, 3, 6), generator, min_episodes,
+                          max_chunks, n_envs * chunk_steps)
 
 
 def _zero_rnn_sigma(params: QNetRNN) -> QNetRNN:
@@ -195,13 +151,12 @@ def _zero_rnn_sigma(params: QNetRNN) -> QNetRNN:
     return out
 
 
-def _stream_seat_rnn(env_params, bottom, top, generator, min_episodes,
-                     n_envs, chunk_steps, max_chunks, tile_rows,
-                     max_episode_steps, device):
-    """Recurrent analog of :func:`_stream_seat`: greedy episodes with
-    ``bottom`` in the kernel's learner seat, hidden states carried across
-    chunks (zero-reset on episode ends in-kernel). Returns
-    (bottom_wins, draws, episodes)."""
+def _recurrent_seat(bottom: QNetRNN, top: QNetRNN, min_episodes, env_params,
+                    generator, n_envs, chunk_steps, max_chunks, tile_rows,
+                    max_episode_steps, device):
+    """Kernel 3 with ``bottom`` in the learner seat and ``top`` as the
+    one-slot opponent, both packed from copies; the hidden states carried
+    across chunks (zero-reset on episode ends in-kernel)."""
     learner = _zero_rnn_sigma(bottom).to(device)
     lw, sig = pack_qnet_rnn(learner), pack_rnn_sigma(learner)
     opp = pack_qnet_rnn([qnet_rnn_copy(top).to(device)], mirror=True)
@@ -211,22 +166,62 @@ def _stream_seat_rnn(env_params, bottom, top, generator, min_episodes,
     hid = torch.zeros((4 * H, n_envs), dtype=torch.float32, device=device)
     opp_idx = torch.zeros((n_envs,), dtype=torch.int32, device=device)
     ep_ret = torch.zeros((n_envs,), dtype=torch.float32, device=device)
-    wins = draws = episodes = 0
-    for _ in range(max_chunks):
-        seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator))
+
+    def launch(seed):
+        nonlocal state, opp_idx, ep_ret, hid
         state, opp_idx, ep_ret, hid, _, stats, _, _ = recurrent_rollout(
             env_params, state, opp_idx, ep_ret, hid, lw, sig, opp, seed=seed,
             epsilon=0.0, steps=chunk_steps,
             max_episode_steps=max_episode_steps, tile_rows=tile_rows,
             emit_transitions=False, opponents_flat=opp_flat)
-        s = trace.readback(stats)
-        _count_chunk(n_envs * chunk_steps, s[0] + s[2])
-        episodes += s[0] + s[2]
-        wins += s[1] + s[3]
-        draws += s[4]
-        if episodes >= min_episodes:
-            break
-    return wins, draws, episodes
+        return stats
+
+    return _stream_chunks(launch, (0, 1, 2, 3, 4), generator, min_episodes,
+                          max_chunks, n_envs * chunk_steps)
+
+
+def _win_rate(seat, a, b, min_episodes, *args):
+    wins, _, episodes = seat(b, a, min_episodes, *args)
+    return (wins / episodes if episodes else 0.0), episodes
+
+
+def _win_rate_balanced(seat, a, b, min_episodes, *args):
+    """>= min/2 episodes a seating, the two weighing equally; seat 2 puts A
+    in the learner seat, so B's wins there are ``episodes - A wins -
+    draws``."""
+    half = max(1, min_episodes // 2)
+    wins_b, _, eps_b = seat(b, a, half, *args)
+    wins_a_opp, draws_a, eps_a = seat(a, b, half, *args)
+    rate_b = wins_b / max(eps_b, 1)
+    rate_a = (eps_a - wins_a_opp - draws_a) / max(eps_a, 1)
+    return (rate_b + rate_a) / 2, rate_b, rate_a, eps_b + eps_a
+
+
+def fused_win_rate(env_params: EnvParams, params_a, params_b,
+                   generator: torch.Generator, min_episodes: int,
+                   n_envs: int = 4096, chunk_steps: int = 256,
+                   max_chunks: int = 32, tile_rows: int = 512,
+                   device="cuda"):
+    """B's win rate vs frozen A (``pallas_win_rate`` in the JAX package);
+    each net a QNet or its :class:`GateNet`. Returns ``(win_rate_b,
+    episodes_played)``."""
+    a, b = _as_gate_net(params_a, device), _as_gate_net(params_b, device)
+    return _win_rate(_actor_seat, a, b, min_episodes, env_params, generator,
+                     n_envs, chunk_steps, max_chunks, tile_rows, device)
+
+
+def fused_win_rate_balanced(env_params: EnvParams, params_a, params_b,
+                            generator: torch.Generator, min_episodes: int,
+                            n_envs: int = 4096, chunk_steps: int = 256,
+                            max_chunks: int = 32, tile_rows: int = 512,
+                            device="cuda"):
+    """Side-balanced gate (``pallas_win_rate_balanced``); each net a QNet
+    or its :class:`GateNet` (with its mirror). Returns ``(win_rate_total,
+    win_rate_as_b, win_rate_as_a, episodes_total)``."""
+    a, b = _as_gate_net(params_a, device), _as_gate_net(params_b, device)
+    return _win_rate_balanced(_actor_seat, a, b, min_episodes, env_params,
+                              generator, n_envs, chunk_steps, max_chunks,
+                              tile_rows, device)
 
 
 def rnn_win_rate(env_params: EnvParams, params_a: QNetRNN,
@@ -237,10 +232,9 @@ def rnn_win_rate(env_params: EnvParams, params_a: QNetRNN,
                  device="cuda"):
     """Fused single-seat gate for the recurrent family. Returns
     ``(win_rate_b, episodes_played)``."""
-    wins, _, episodes = _stream_seat_rnn(
-        env_params, params_b, params_a, generator, min_episodes, n_envs,
-        chunk_steps, max_chunks, tile_rows, max_episode_steps, device)
-    return (wins / episodes if episodes else 0.0), episodes
+    return _win_rate(_recurrent_seat, params_a, params_b, min_episodes,
+                     env_params, generator, n_envs, chunk_steps, max_chunks,
+                     tile_rows, max_episode_steps, device)
 
 
 def rnn_win_rate_balanced(env_params: EnvParams, params_a: QNetRNN,
@@ -249,17 +243,9 @@ def rnn_win_rate_balanced(env_params: EnvParams, params_a: QNetRNN,
                           chunk_steps: int = 256, max_chunks: int = 32,
                           tile_rows: int = 512, max_episode_steps: int = 1000,
                           device="cuda"):
-    """Side-balanced recurrent gate: >= min/2 episodes per seating, the
-    two seats weighted equally. Returns ``(win_rate_total, win_rate_as_b,
-    win_rate_as_a, episodes_total)``."""
-    half = max(1, min_episodes // 2)
-    kw = dict(n_envs=n_envs, chunk_steps=chunk_steps, max_chunks=max_chunks,
-              tile_rows=tile_rows, max_episode_steps=max_episode_steps,
-              device=device)
-    wins_b, _, eps_b = _stream_seat_rnn(env_params, params_b, params_a,
-                                        generator, half, **kw)
-    wins_a_opp, draws_a, eps_a = _stream_seat_rnn(
-        env_params, params_a, params_b, generator, half, **kw)
-    rate_b = wins_b / max(eps_b, 1)
-    rate_a = (eps_a - wins_a_opp - draws_a) / max(eps_a, 1)
-    return (rate_b + rate_a) / 2, rate_b, rate_a, eps_b + eps_a
+    """Side-balanced recurrent gate. Returns ``(win_rate_total,
+    win_rate_as_b, win_rate_as_a, episodes_total)``."""
+    return _win_rate_balanced(_recurrent_seat, params_a, params_b,
+                              min_episodes, env_params, generator, n_envs,
+                              chunk_steps, max_chunks, tile_rows,
+                              max_episode_steps, device)

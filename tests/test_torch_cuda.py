@@ -20,7 +20,6 @@ import torch
 from pingpong_tpu_torch.config import EnvConfig, load_config
 from pingpong_tpu_torch.env.pong import EnvState, env_params_from_config, reset
 from pingpong_tpu_torch.evaluation.fast_eval import (
-    _zero_sigma,
     fused_win_rate,
     fused_win_rate_balanced,
 )
@@ -44,6 +43,7 @@ from pingpong_tpu_torch.ops import recurrent_rollout as trr
 from pingpong_tpu_torch.replay.per import Transition, per_init, per_push
 from pingpong_tpu_torch.train.dqn import DQNLearner, bucket_opp_idx
 from pingpong_tpu_torch.train.drqn import DRQNLearner
+from tests.test_torch_gate_packs import _zero_sigma
 
 CONFIG = "configs/qnet.yaml"
 B, TILE, T = 512, 128, 16

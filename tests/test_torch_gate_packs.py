@@ -19,12 +19,13 @@ from benchmark.tests.tiny import QNET as TINY_QNET
 from pingpong_tpu_torch.config import apply_overrides, load_config
 from pingpong_tpu_torch.env.pong import env_params_from_config
 from pingpong_tpu_torch.evaluation.fast_eval import (
-    _zero_sigma,
     fused_win_rate,
     fused_win_rate_balanced,
     gate_net,
 )
 from pingpong_tpu_torch.models.qnet import (
+    QNet,
+    qnet_copy,
     qnet_fold_noise,
     qnet_from_flat,
     qnet_init,
@@ -50,6 +51,15 @@ def tracer_off():
     yield
     trace.disable()
     trace.drain()
+
+
+def _zero_sigma(params: QNet) -> QNet:
+    """A copy with the advantage head's sigmas zeroed: the learner seat's
+    net, as the module packs take it."""
+    out = qnet_copy(params)
+    out.fc_a.w_sigma.data.zero_()
+    out.fc_a.b_sigma.data.zero_()
+    return out
 
 
 def net(kind: str, seed: int):

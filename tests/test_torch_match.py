@@ -255,13 +255,13 @@ def test_loop_gates_run_through_the_match_runner(tmp_path, kind, swap,
     calls = []
     real = d.match_fn
     d.match_fn = lambda *a, **k: calls.append(len(a[2])) or real(*a, **k)
-    mod = ("pingpong_tpu_torch.selfplay.loop" if kind == "qnet"
-           else "pingpong_tpu_torch.selfplay.loop_rnn")
-    for name in (("fused_win_rate", "fused_win_rate_balanced")
-                 if kind == "qnet" else ("rnn_win_rate",
-                                         "rnn_win_rate_balanced")):
-        monkeypatch.setattr(f"{mod}.{name}", None)
+    # every fused gate of either family runs the one chunk loop
+    fused = []
+    monkeypatch.setattr(
+        "pingpong_tpu_torch.evaluation.fast_eval._stream_chunks",
+        lambda *a, **k: fused.append(a))
     records = d.run()
+    assert fused == []
     assert [r.promoted for r in records] == [True, True]
     # A in both generations; the DRQN loop adds its promotion to the pool
     # (the QNet pool is loaded once, empty here)

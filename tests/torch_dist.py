@@ -152,21 +152,20 @@ def case_loop(payload):
     ``block`` episodes and both train ``block`` more; the gathered states
     are returned."""
     from pingpong_tpu_torch.config.schema import MeshConfig
-    from pingpong_tpu_torch.selfplay import loop, loop_rnn
+    from pingpong_tpu_torch.selfplay import generations, loop, loop_rnn
     from pingpong_tpu_torch.utils.metrics import MetricsLogger
 
     env_cfg, cfg = _configs(payload)
     dqn = payload["kind"] == "dqn"
-    mod = loop if dqn else loop_rnn
-    cls = mod.QNetSelfPlay if dqn else mod.DRQNSelfPlay
+    cls = loop.QNetSelfPlay if dqn else loop_rnn.DRQNSelfPlay
     writes = []
-    real_save = mod.save_checkpoint
+    real_save = generations.save_checkpoint
 
     def counting_save(path, payload_):
         writes.append(str(path))
         return real_save(path, payload_)
 
-    mod.save_checkpoint = counting_save
+    generations.save_checkpoint = counting_save
     mk = lambda seed: cls(env_cfg, cfg, workdir=payload["workdir"],
                           seed=seed, logger=MetricsLogger(echo=False),
                           device="cpu", mesh_cfg=MeshConfig())
