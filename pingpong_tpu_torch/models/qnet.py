@@ -57,10 +57,12 @@ def qnet_init(generator, obs_dim=OBS_DIM, n_actions=N_ACTIONS,
     )
 
 
-def qnet_sample_noise(generator, params: QNet, batch=()) -> QNetNoise:
+def qnet_sample_noise(generator, params: QNet, batch=(),
+                      device=None) -> QNetNoise:
     """One fresh factorized draw for both heads (``batch`` leading dims
-    give independent draws)."""
-    dev = params.fc_a.w_mu.device
+    give independent draws), drawn on the host and put on ``device``
+    (``params``' unless given)."""
+    dev = params.fc_a.w_mu.device if device is None else device
     h, n_act = params.fc_a.w_mu.shape
     return QNetNoise(
         v=sample_noise(generator, h, params.fc_v.w_mu.shape[1], dev, batch),

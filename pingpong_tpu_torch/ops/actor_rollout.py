@@ -57,7 +57,7 @@ from pingpong_tpu_torch.ops.pong_kernel import (
     hash_u01,
     tile_seed_mix,
 )
-from pingpong_tpu_torch.utils import trace
+from pingpong_tpu_torch.utils.device import Readout
 
 NEG_BIG = -1e30
 HIDDEN = 64
@@ -156,6 +156,7 @@ def unpack_flat(flat: torch.Tensor) -> PackedQNet:
 
 class _PackMaps(NamedTuple):
     seat: torch.Tensor       # (NET,) int64 into [flat..., 0, NEG_BIG]
+    train: torch.Tensor      # (NET,) int64, the same with the sigmas
     mirror: torch.Tensor     # (NET,) int64, the same with w1t mirrored
     sign: torch.Tensor       # (NET,) f32, the mirror's signs
     b1: slice                # b1t's place in the layout
@@ -225,6 +226,7 @@ def _pack_maps(shapes: tuple, device: torch.device) -> _PackMaps:
     b1 = HIDDEN * 8
     return _PackMaps(
         seat=as_t(layout(w1t(range(8)), sigma=False), torch.int64),
+        train=as_t(layout(w1t(range(8)), sigma=True), torch.int64),
         mirror=as_t(layout(w1t(src), sigma=True), torch.int64),
         sign=as_t(sign, torch.float32),
         b1=slice(b1, b1 + HIDDEN),
@@ -245,6 +247,14 @@ def flat_seat_pack(flat: torch.Tensor, like: QNet) -> torch.Tensor:
     ``state.params``; ``like`` gives its shapes). ``(NET,)``."""
     m = _maps(flat, like)
     return torch.cat((flat, m.tail)).index_select(0, m.seat)
+
+
+def flat_train_pack(flat: torch.Tensor, like: QNet) -> torch.Tensor:
+    """``packed_flat(pack_qnet(net))``, sigmas included (the training
+    rollout's learner seat), gathered in one index from the raveled net
+    ``flat`` as :func:`flat_seat_pack` gathers it. ``(NET,)``."""
+    m = _maps(flat, like)
+    return torch.cat((flat, m.tail)).index_select(0, m.train)
 
 
 def flat_mirror_pack(flat: torch.Tensor, like: QNet) -> torch.Tensor:
@@ -476,39 +486,66 @@ def actor_rollout_launch(env_params: EnvParams, f_in, i_in, learner,
     return f_out, i_out, trans, stats
 
 
+def slot_range(opp_idx: torch.Tensor) -> torch.Tensor:
+    """``[min, max] (2,)`` of the slots, on their device."""
+    return torch.stack(torch.aminmax(opp_idx))
+
+
+def check_slot_range(lo: int, hi: int, n_slots: int) -> None:
+    """Raise unless every slot of a chunk lay in ``[0, n_slots)``."""
+    if lo < 0 or hi >= n_slots:
+        raise ValueError(f"opp_idx outside [0, {n_slots})")
+
+
+def as_flat(net) -> torch.Tensor:
+    """A :class:`PackedQNet` (or stack) in :func:`packed_flat`'s layout;
+    a tensor is taken as already in it."""
+    return net if isinstance(net, torch.Tensor) else packed_flat(net)
+
+
+def as_packed(net) -> PackedQNet:
+    """:func:`as_flat`'s counterpart for the plain version."""
+    return unpack_flat(net) if isinstance(net, torch.Tensor) else net
+
+
 def actor_rollout_cuda(env_params: EnvParams, state: EnvState, opp_idx,
-                       ep_return, learner: PackedQNet, opponents: PackedQNet,
-                       *, seed: int, eps_i: int, steps: int,
-                       max_episode_steps: int, tile_rows: int,
-                       emit_transitions: bool, shared_trunk: bool,
-                       tile0: int = 0):
-    """Pack, check the slot bounds (one read of device data) and launch
-    the CUDA kernel; same contract as :func:`actor_rollout_plain`
-    (``opp_idx`` is returned unchanged by both)."""
-    dev = state.ball_x.device
+                       ep_return, learner, opponents, *, seed: int,
+                       eps_i: int, steps: int, max_episode_steps: int,
+                       tile_rows: int, emit_transitions: bool,
+                       shared_trunk: bool, tile0: int = 0,
+                       check_slots: bool = True):
+    """Launch the CUDA kernel on the nets packed or already flat (see
+    :func:`as_flat`); same contract as :func:`actor_rollout_plain`
+    (``opp_idx`` is returned unchanged by both). The launch reads every
+    slot clamped into the stack. With ``check_slots`` the call then waits,
+    after the launch, for the copy of the slots' range only (one read of
+    device data) and raises for a slot outside the stack; without it the
+    call reads nothing and the caller checks the range
+    (:func:`slot_range`, :func:`check_slot_range`)."""
     B = state.ball_x.shape[0]
-    lw = packed_flat(learner)
-    ow = packed_flat(opponents)
+    lw, ow = as_flat(learner), as_flat(opponents)
     n_slots = ow.shape[0]
     check_cuda("opp_idx", opp_idx, torch.int32, (B,))
-    lo, hi = torch.aminmax(opp_idx)
-    if trace.readback(lo, int) < 0 or trace.readback(hi, int) >= n_slots:
-        raise ValueError(f"opp_idx outside [0, {n_slots})")
     f_in = torch.stack([state.ball_x, state.ball_y, state.ball_vx,
                         state.ball_vy, state.bottom_paddle_x,
                         state.top_paddle_x, state.spin, ep_return])
     i_in = torch.stack([state.score_a, state.score_b, state.bounce_count,
-                        state.t, opp_idx])
+                        state.t, opp_idx.clamp(0, n_slots - 1)])
+    if check_slots:
+        slots = Readout(slot_range(opp_idx))
     f_out, i_out, trans, stats = actor_rollout_launch(
         env_params, f_in, i_in, lw, ow, seed=seed, eps_i=eps_i, steps=steps,
         max_episode_steps=max_episode_steps, tile_rows=tile_rows,
         emit_transitions=emit_transitions, shared_trunk=shared_trunk,
         tile0=tile0)
+    if check_slots:
+        check_slot_range(*slots.wait()[0].tolist(), n_slots)
     new_state = EnvState(
         ball_x=f_out[0], ball_y=f_out[1], ball_vx=f_out[2], ball_vy=f_out[3],
         bottom_paddle_x=f_out[4], top_paddle_x=f_out[5], spin=f_out[6],
         score_a=i_out[0], score_b=i_out[1], bounce_count=i_out[2],
-        t=i_out[3], done=torch.zeros((B,), dtype=torch.bool, device=dev),
+        t=i_out[3], done=torch.zeros((B,), dtype=torch.bool,
+                                     device=f_out.device),
     )
     return new_state, f_out[7], trans, stats
 
@@ -544,11 +581,12 @@ def actor_rollout_rows(env_params: EnvParams, f_in, i_in, learner,
 
 
 def actor_rollout(env_params: EnvParams, state: EnvState, opp_idx,
-                  ep_return, learner: PackedQNet, opponents: PackedQNet, *,
-                  seed: int, epsilon: float, steps: int,
-                  max_episode_steps: int = 0, tile_rows: int = 512,
-                  tile0: int = 0, emit_transitions: bool = True,
-                  member_shared_trunk: bool = False):
+                  ep_return, learner, opponents, *, seed: int,
+                  epsilon: float, steps: int, max_episode_steps: int = 0,
+                  tile_rows: int = 512, tile0: int = 0,
+                  emit_transitions: bool = True,
+                  member_shared_trunk: bool = False,
+                  check_slots: bool = True):
     """One rollout chunk. ``state`` is batched ``(B,)``, ``opp_idx (B,)``
     i32 binds each env to a slot of the stacked ``opponents`` (fixed for
     the chunk; callers sort or bucket envs by slot), ``learner`` is one
@@ -556,7 +594,10 @@ def actor_rollout(env_params: EnvParams, state: EnvState, opp_idx,
     promises that every slot has slot 0's feature trunk (checked by the
     caller, ``train/dqn.py::DQNLearner.prepare_opponents``). ``tile0`` is
     the global index of the first tile (a rank's block of a data-parallel
-    batch; 0 for a whole batch).
+    batch; 0 for a whole batch). ``learner`` and ``opponents`` are
+    :class:`PackedQNet` packs or already in :func:`packed_flat`'s layout.
+    ``check_slots=False`` leaves the slots' range check on the card to the
+    caller, so that the call reads nothing (:func:`actor_rollout_cuda`).
 
     Runs the CUDA kernel for CUDA tensors and the plain version for CPU
     tensors. Returns ``(state, opp_idx, ep_return, transitions,
@@ -574,11 +615,14 @@ def actor_rollout(env_params: EnvParams, state: EnvState, opp_idx,
               shared_trunk=bool(member_shared_trunk))
     if state.ball_x.is_cuda:
         new_state, ret, trans, stats = actor_rollout_cuda(
-            env_params, state, opp_idx, ep_return, learner, opponents, **kw)
+            env_params, state, opp_idx, ep_return, learner, opponents, **kw,
+            check_slots=check_slots)
     else:
         new_state, ret, trans, stats = actor_rollout_plain(
-            env_params, state, opp_idx, ep_return, learner, opponents, **kw)
+            env_params, state, opp_idx, ep_return, as_packed(learner),
+            as_packed(opponents), **kw)
     totals = stats.sum(dim=1)
-    stat_counts = totals[[0, 1, 2, 3, 6]].to(torch.int32)
+    # rows 0-3 and 6 by slices: a list index is copied to the card, waiting
+    stat_counts = torch.cat([totals[0:4], totals[6:7]]).to(torch.int32)
     return (new_state, opp_idx, ret, trans, stat_counts, totals[4],
             stats[5] > 0.0)

@@ -30,7 +30,6 @@ from typing import NamedTuple
 
 import torch
 
-from pingpong_tpu_torch.utils import trace
 
 CHUNK = 128        # the block layout's chunk, and every chunk's upper bound
 
@@ -203,15 +202,15 @@ def per_sample(buf: PERBuffer, batch_size: int, beta, u01: torch.Tensor,
 
 
 def last_writer_wins(idx: torch.Tensor, vals: torch.Tensor):
-    """Deduplicate a chronological stream of ``(slot, value)`` writes:
-    returns the distinct slots and, for each, the value written last.
-    Selecting by the mask sizes the result on the host, so it waits for
-    the device: a ``trace.readback``."""
+    """Deduplicate a chronological stream of ``(slot, value)`` writes on
+    fixed sizes: returns every slot, sorted, each beside the value written
+    to it last (found by a search for the end of its run in the stable
+    sort), so that a scatter of the pairs leaves each slot that value
+    whichever of its duplicates lands. Reads nothing on the host."""
     srt = torch.sort(idx, stable=True).indices
-    si, sv = idx[srt], vals[srt]
-    last = torch.ones_like(si, dtype=torch.bool)
-    last[:-1] = si[:-1] != si[1:]
-    return trace.readback(last, lambda keep: (si[keep], sv[keep]))
+    si = idx[srt]
+    last = torch.searchsorted(si, si, right=True) - 1
+    return si, vals[srt[last]]
 
 
 def per_update_priorities(buf: PERBuffer, indices: torch.Tensor,

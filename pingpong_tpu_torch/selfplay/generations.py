@@ -290,7 +290,7 @@ class SelfPlayLoop(abc.ABC):
                         "event": "interval", "episode": eps_now,
                         "win_vs_A": self.win_a_window.rate(),
                         "win_vs_pool": self.win_pool_window.rate(),
-                        "epsilon": m.epsilon, "loss": m.mean_loss,
+                        "epsilon": m.epsilon, "loss": float(m.mean_loss),
                         "env_steps_per_s": env_steps / max(dt, 1e-9),
                         **self._fields("interval", m)})
                     env_steps = 0

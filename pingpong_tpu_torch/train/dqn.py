@@ -101,9 +101,12 @@ from pingpong_tpu_torch.models.qnet import (
     qnet_to_flat,
 )
 from pingpong_tpu_torch.ops.actor_rollout import (
-    PackedQNet,
     actor_rollout,
+    check_slot_range,
+    flat_train_pack,
     pack_qnet,
+    packed_flat,
+    slot_range,
 )
 from pingpong_tpu_torch.ops.dqn_update import (
     dqn_update_block,
@@ -122,7 +125,7 @@ from pingpong_tpu_torch.replay.per import (
 )
 from pingpong_tpu_torch.train.optim import adam_
 from pingpong_tpu_torch.utils import trace
-from pingpong_tpu_torch.utils.device import resolve_device
+from pingpong_tpu_torch.utils.device import Readout, resolve_device
 
 ONE_SHARD_WARNING = (
     "learner_sharding='sharded' requested but the mesh has one data shard "
@@ -176,6 +179,48 @@ class DQNTrainState:
     episodes: int
 
 
+class DeferredLoss:
+    """An update block's mean loss that the call returns without waiting
+    for the block: its sum is copied behind an event (:class:`Readout`),
+    the first read (``float()``, numpy, ``==``, ``repr``, a format) waits
+    for that event and divides by the block's ``K`` as the host read did,
+    later reads reuse the value. Pickles as a float."""
+
+    __slots__ = ("readout", "k", "_value")
+
+    def __init__(self, total: torch.Tensor, k: int):
+        self.readout = Readout(total)
+        self.k = k
+        self._value = None
+
+    def __float__(self) -> float:
+        if self._value is None:
+            self._value = float(self.readout.wait()[0]) / self.k
+            self.readout = None
+        return self._value
+
+    def __eq__(self, other):
+        try:
+            return float(self) == float(other)
+        except (TypeError, ValueError):
+            return NotImplemented
+
+    def __hash__(self):
+        return hash(float(self))
+
+    def __array__(self, dtype=None, copy=None):
+        return np.asarray(float(self), dtype=dtype)
+
+    def __repr__(self) -> str:
+        return repr(float(self))
+
+    def __format__(self, spec: str) -> str:
+        return format(float(self), spec)
+
+    def __reduce__(self):
+        return float, (float(self),)
+
+
 class DQNMetrics(NamedTuple):
     episodes: int
     games_vs_a: int
@@ -183,7 +228,7 @@ class DQNMetrics(NamedTuple):
     games_vs_pool: int
     wins_vs_pool: int
     episode_return_sum: float
-    mean_loss: float
+    mean_loss: float             # a DeferredLoss on one card (reads as one)
     updates_run: int
     epsilon: float
     train_steps: int
@@ -193,13 +238,14 @@ class DQNMetrics(NamedTuple):
 
 class PreparedOpponents(NamedTuple):
     """An opponent stack prepared once per generation block: ``packed``,
-    mirror-folded for player A's seat, for the fused rollout (None on the
-    scan route); ``raw``, every parameter stacked on a leading slot axis,
-    for the scan rollout (None on the fused route). ``shared_trunk``:
+    mirror-folded for player A's seat, in kernel 1's layout
+    (``packed_flat``, ``(n_slots, NET)``) for the fused rollout (None on
+    the scan route); ``raw``, every parameter stacked on a leading slot
+    axis, for the scan rollout (None on the fused route). ``shared_trunk``:
     every slot carries slot 0's feature trunk bit for bit (heads-only
     lineages), checked on the host."""
 
-    packed: Optional[PackedQNet]
+    packed: Optional[torch.Tensor]
     n_slots: int
     shared_trunk: bool
     raw: Optional[Dict[str, torch.Tensor]] = None
@@ -399,6 +445,8 @@ class DQNLearner(RankBlocks):
         if self.sharded:   # the sharded layout runs the row update per rank
             self.route = self.route._replace(update="autodiff")
         self.env_params: EnvParams = env_params_from_config(env_cfg)
+        # the event after the last call's update block, on one card
+        self._block_done: Optional[torch.cuda.Event] = None
         # shapes (and device) of the learner's QNet; values unused
         self.template = qnet_init(torch.Generator().manual_seed(0),
                                   device=self.device)
@@ -537,28 +585,79 @@ class DQNLearner(RankBlocks):
         members = [qnet_copy(p).to(self.device) for p in opp_stack]
         shared = len(members) > 1 and trace.readback(members, _same_trunk)
         if self.route.rollout == "kernel":
-            return PreparedOpponents(packed=pack_qnet(members, mirror=True),
-                                     n_slots=len(members),
-                                     shared_trunk=shared)
+            return PreparedOpponents(
+                packed=packed_flat(pack_qnet(members, mirror=True)),
+                n_slots=len(members), shared_trunk=shared)
         return PreparedOpponents(packed=None, n_slots=len(members),
                                  shared_trunk=shared,
                                  raw=stack_qnets(members))
 
     # -- rollout -------------------------------------------------------------
+    def _ahead(self, state: DQNTrainState) -> bool:
+        """True where a call runs ahead of the card: the kernel rollout on
+        one card (CUDA tensors, no mesh). Such a call waits once, on kernel
+        1's totals, after it has queued the push and the update block."""
+        return (self.mesh is None and self.route.rollout == "kernel"
+                and state.params.is_cuda)
+
+    def _to_device(self, *xs: torch.Tensor) -> List[torch.Tensor]:
+        """Host tensors of one dtype on the learner's device: on a card in
+        one non-blocking copy from pinned memory (the caching host
+        allocator hands a pinned block out again only once its copy has
+        run), elsewhere as they are."""
+        if self.device.type != "cuda":
+            return [x.to(self.device).contiguous() for x in xs]
+        sizes = [x.numel() for x in xs]
+        host = torch.empty((sum(sizes),), dtype=xs[0].dtype, pin_memory=True)
+        torch.cat([x.reshape(-1) for x in xs], out=host)
+        dev = host.to(self.device, non_blocking=True)
+        return [v.view(x.shape) for v, x in zip(dev.split(sizes), xs)]
+
+    def _rollout_draws(self, state: DQNTrainState, opp: PreparedOpponents,
+                       pool_size: int, seed: Optional[int]):
+        """The kernel rollout's host draws from the state's generator, in
+        order: the chunk's seed (unless given), then, with sorted binding
+        and more than one slot, every env's slot draw. ``(seed, binding)``,
+        None where nothing is drawn; ``(None, None)`` on the scan route,
+        which draws inside its chunk."""
+        if self.route.rollout != "kernel":
+            return None, None
+        gen, binding = state.generator, None
+        if seed is None:
+            seed = int(torch.randint(0, 2**31 - 1, (1,), generator=gen))
+        if opp.n_slots > 1 and self.cfg.opponent_binding == "sorted":
+            binding = sorted_binding_draws(
+                gen, self.cfg.num_envs, self.cfg.selfplay.opponent_pool_ratio,
+                pool_size)
+        return seed, binding
+
     def _rollout(self, state: DQNTrainState, opp: PreparedOpponents,
                  pool_size: int, seed: Optional[int] = None):
         """One rollout chunk on the learner's route and its PER push (in
-        place on ``state``). Returns ``(stat_counts, ret_sum)`` of the
-        whole batch, the counts ``[games_vs_a, wins_vs_a, games_vs_pool,
-        wins_vs_pool, ...]``. Under a mesh the replicated layout pushes the
-        all-gathered chunk, the sharded one this rank's own."""
+        place on ``state``), its draws taken and its counts read. Returns
+        ``(stat_counts, ret_sum)`` of the whole batch, the counts
+        ``[games_vs_a, wins_vs_a, games_vs_pool, wins_vs_pool, ...]``."""
+        with trace.span("learner::draws"):
+            draws = self._rollout_draws(state, opp, pool_size, seed)
+        return self._queue_rollout(state, opp, pool_size, *draws)()
+
+    def _queue_rollout(self, state: DQNTrainState, opp: PreparedOpponents,
+                       pool_size: int, seed: Optional[int],
+                       binding: Optional[torch.Tensor]):
+        """One rollout chunk from its draws (:meth:`_rollout_draws`) and
+        its PER push, in place on ``state``. Returns ``finish()``, which
+        reads ``(stat_counts, ret_sum)`` and settles epsilon and the
+        episode count (see :meth:`_queue_kernel_chunk`). Under a mesh the
+        replicated layout pushes the all-gathered chunk, the sharded one
+        this rank's own."""
         with trace.span("learner::rollout"):
             if self.route.rollout == "kernel":
-                counts, ret_sum, tr = self._rollout_kernel(state, opp,
-                                                           pool_size, seed)
+                finish, tr = self._queue_kernel_chunk(state, opp, pool_size,
+                                                      seed, binding)
             else:
                 counts, ret_sum, tr = self._rollout_scan(state, opp,
                                                          pool_size)
+                finish = lambda: (counts, ret_sum)   # noqa: E731
         with trace.span("replay::push"):
             if self.mesh is not None and not self.sharded:
                 # one rank-order all-gather of the packed (T, B_local, 17)
@@ -576,23 +675,43 @@ class DQNLearner(RankBlocks):
                 reward=tr["reward"].reshape(-1),
                 next_obs=tr["next_obs"].reshape(-1, 7),
                 done=tr["done"].reshape(-1)), self.cfg.per_alpha)
-        return counts, ret_sum
+        return finish
 
     def _rollout_kernel(self, state: DQNTrainState, opp: PreparedOpponents,
                         pool_size: int, seed: Optional[int]):
-        """One fused rollout chunk (kernel 1), in place on ``state``.
-        Returns ``(stat_counts (5,) ints, ret_sum, transitions)``. Under a
-        mesh the rank runs its block with ``tile0`` its first global tile,
-        unless the block does not split into whole tiles: then, as the JAX
-        learner, every rank runs the whole batch and keeps its block. Sorted
-        binding sorts the WHOLE batch by slot, as the JAX learner does, so
-        envs move between ranks."""
+        """One fused rollout chunk (kernel 1) with its draws, in place on
+        ``state``, its counts read. Returns ``(stat_counts (5,) ints,
+        ret_sum, transitions)``."""
+        with trace.span("learner::draws"):
+            draws = self._rollout_draws(state, opp, pool_size, seed)
+        finish, tr = self._queue_kernel_chunk(state, opp, pool_size, *draws)
+        return (*finish(), tr)
+
+    def _queue_kernel_chunk(self, state: DQNTrainState,
+                            opp: PreparedOpponents, pool_size: int,
+                            seed: int, binding: Optional[torch.Tensor]):
+        """One fused rollout chunk (kernel 1) from its draws, in place on
+        ``state``. Returns ``(finish, transitions)``: ``finish()`` gives
+        ``(stat_counts (5,) ints, ret_sum)`` of the whole batch and decays
+        epsilon and counts the episodes by them.
+
+        The learner seat is gathered from ``state.params``
+        (:func:`flat_train_pack`). On one card nothing is read before
+        ``finish()``: the launch reads the slots clamped into the stack,
+        and the chunk's counts, return sum and slots' range go to pinned
+        memory behind an event, which ``finish()`` waits on and checks
+        (``ValueError`` for a slot outside the stack). ``learner::ahead``
+        counts the launches queued while the previous call's update block
+        still ran.
+
+        Under a mesh the rank runs its block with ``tile0`` its first
+        global tile, unless the block does not split into whole tiles:
+        then, as the JAX learner, every rank runs the whole batch and keeps
+        its block. Sorted binding sorts the WHOLE batch by slot, as the JAX
+        learner does, so envs move between ranks."""
         cfg = self.cfg
         n = cfg.num_envs
         dev = self.device
-        gen = state.generator
-        if seed is None:
-            seed = int(torch.randint(0, 2**31 - 1, (1,), generator=gen))
         env_state, ep_return = state.env_state, state.ep_return
         ratio = cfg.selfplay.opponent_pool_ratio
         if opp.n_slots == 1:
@@ -603,7 +722,7 @@ class DQNLearner(RankBlocks):
                                               device=dev))
             opp_idx = torch.where(state.ended, target, state.opp_idx)
         else:
-            draw = sorted_binding_draws(gen, n, ratio, pool_size).to(dev)
+            (draw,) = self._to_device(binding)
             opp_idx = torch.where(self._cat(state.ended), draw,
                                   self._cat(state.opp_idx))
             perm = torch.sort(opp_idx, stable=True).indices
@@ -617,35 +736,52 @@ class DQNLearner(RankBlocks):
         if whole:
             env_state = EnvState(*(self._cat(x) for x in env_state))
             opp_idx, ep_return = self._cat(opp_idx), self._cat(ep_return)
-        lw = pack_qnet(qnet_from_flat(state.params, self.template))
+        ahead = self._ahead(state)
+        if ahead and self._block_done is not None \
+                and not self._block_done.query():
+            trace.count("learner::ahead")
         (new_env, new_opp, new_ret, tr, counts, ret_sum,
          ended) = actor_rollout(
-            self.env_params, env_state, opp_idx, ep_return, lw, opp.packed,
+            self.env_params, env_state, opp_idx, ep_return,
+            flat_train_pack(state.params, self.template), opp.packed,
             seed=seed, epsilon=state.epsilon, steps=cfg.rollout_length,
             max_episode_steps=self.env_cfg.max_episode_steps,
             tile_rows=tile, tile0=tile0,
-            member_shared_trunk=opp.shared_trunk)
-        if whole:
-            counts = [int(c) for c in trace.readback(counts)]
-            ret_sum = trace.readback(ret_sum, float)
-            new_env = EnvState(*(self._blk(x) for x in new_env))
-            new_opp, new_ret, ended = (self._blk(x) for x in (new_opp,
-                                                                new_ret,
-                                                                ended))
-            tr = {k: self._blk(v, 1) for k, v in tr.items()}
+            member_shared_trunk=opp.shared_trunk, check_slots=not ahead)
+        if ahead:
+            # read after the caller has queued the push and the update
+            readout = Readout(counts, ret_sum, slot_range(opp_idx))
+
+            def read():
+                counts, ret_sum, slots = readout.wait()
+                check_slot_range(*slots.tolist(), opp.n_slots)
+                return counts.tolist(), float(ret_sum)
         else:
-            counts, ret_sum = self._sum_counts(counts, ret_sum)
-        n_done = counts[0] + counts[2]
-        state.epsilon = float(max(
-            np.float32(cfg.min_epsilon),
-            np.float32(state.epsilon)
-            * np.float32(cfg.epsilon_decay) ** np.float32(n_done)))
+            if whole:
+                counts = [int(c) for c in trace.readback(counts)]
+                ret_sum = trace.readback(ret_sum, float)
+                new_env = EnvState(*(self._blk(x) for x in new_env))
+                new_opp, new_ret, ended = (self._blk(x) for x in (
+                    new_opp, new_ret, ended))
+                tr = {k: self._blk(v, 1) for k, v in tr.items()}
+            else:
+                counts, ret_sum = self._sum_counts(counts, ret_sum)
+            read = lambda: (counts, ret_sum)   # noqa: E731
         state.env_state = new_env
         state.opp_idx = new_opp
         state.ep_return = new_ret
         state.ended = ended
-        state.episodes += n_done
-        return counts, ret_sum, tr
+
+        def finish():
+            counts, ret_sum = read()
+            n_done = counts[0] + counts[2]
+            state.epsilon = float(max(
+                np.float32(cfg.min_epsilon),
+                np.float32(state.epsilon)
+                * np.float32(cfg.epsilon_decay) ** np.float32(n_done)))
+            state.episodes += n_done
+            return counts, ret_sum
+        return finish, tr
 
     def _rollout_scan(self, state: DQNTrainState, opp: PreparedOpponents,
                       pool_size: int):
@@ -700,33 +836,47 @@ class DQNLearner(RankBlocks):
         return counts, ret_sum, {k: torch.stack(v) for k, v in tr.items()}
 
     # -- update --------------------------------------------------------------
-    def _update(self, state: DQNTrainState, u01=None, noise=None):
-        """K updates on the learner's route (in place on ``state``) when
-        the buffer holds at least a batch. ``u01 (K, bs)`` and ``noise (K,
-        260)`` are drawn from the state's generator unless given; in the
-        sharded layout ``u01`` is ``(n, K, bs / n)``, every rank's uniforms,
-        of which this rank takes its own, and the readiness is its ring's
-        (``bs / n`` rows). Returns ``(mean_loss, updates_run)``."""
+    def _block_draws(self, gen: torch.Generator, u01=None, noise=None):
+        """The update block's host draws from ``gen``, each unless given:
+        the noise ``(K, 260)``, then the uniforms ``(K, bs)``; in the
+        sharded layout the uniforms are every rank's ``(n, K, bs / n)``, of
+        which this rank keeps its own."""
         cfg = self.cfg
         bs, K = cfg.batch_size, cfg.updates_per_iteration
-        gen = state.generator
+        if noise is None:
+            noise = pack_dqn_noise(qnet_sample_noise(
+                gen, self.template, batch=(K,), device="cpu"))
+        if self.sharded:
+            n = self.n_data
+            if u01 is None:
+                u01 = torch.rand((n, K, bs // n), generator=gen)
+            u01 = u01[self.mesh.rank]
+        elif u01 is None:
+            u01 = torch.rand((K, bs), generator=gen)
+        return u01, noise
+
+    def _update(self, state: DQNTrainState, u01=None, noise=None):
+        """K updates on the learner's route with their draws
+        (:meth:`_block_draws`), in place on ``state``; see
+        :meth:`_queue_update`."""
         with trace.span("learner::draws"):
-            if noise is None:
-                noise = pack_dqn_noise(
-                    qnet_sample_noise(gen, self.template, batch=(K,)))
-            if self.sharded:
-                n = self.n_data
-                if u01 is None:
-                    u01 = torch.rand((n, K, bs // n), generator=gen)
-                u01, bs = u01[self.mesh.rank], bs // n
-            elif u01 is None:
-                u01 = torch.rand((K, bs), generator=gen)
-            ready = state.buffer.size >= bs
-            if ready:
-                u01 = u01.to(self.device).contiguous()
-                noise = noise.to(self.device).contiguous()
-        if not ready:
+            u01, noise = self._block_draws(state.generator, u01, noise)
+        return self._queue_update(state, u01, noise)
+
+    def _queue_update(self, state: DQNTrainState, u01, noise):
+        """K updates on the learner's route from the block's draws (in
+        place on ``state``) when the buffer holds at least a batch (its
+        ring's ``bs / n`` rows, sharded). Returns ``(mean_loss,
+        updates_run)``; on one card the loss is a :class:`DeferredLoss` and
+        nothing here waits for the block."""
+        cfg = self.cfg
+        K = cfg.updates_per_iteration
+        bs = cfg.batch_size // (self.n_data if self.sharded else 1)
+        self._block_done = None
+        if state.buffer.size < bs:
             return 0.0, 0
+        with trace.span("learner::draws"):
+            u01, noise = self._to_device(u01, noise)
         if self.sharded:
             run = self._update_sharded
         elif self.route.update == "kernel":
@@ -735,7 +885,11 @@ class DQNLearner(RankBlocks):
             run = self._update_autodiff
         with trace.span("learner::update"):
             losses, _ = run(state, u01, noise)
-            return trace.readback(losses.sum(), float) / K, K
+            if not self._ahead(state):
+                return trace.readback(losses.sum(), float) / K, K
+            loss = DeferredLoss(losses.sum(), K)
+            self._block_done = loss.readout.event
+            return loss, K
 
     def _update_kernel(self, state: DQNTrainState, u01, noise):
         """K fused updates (kernel 2) over the block replay, then the
@@ -887,12 +1041,27 @@ class DQNLearner(RankBlocks):
                         u01=None, noise=None):
         """One rollout chunk, its push and one update block. ``seed``,
         ``u01`` and ``noise`` replace the state generator's draws (the
-        tests inject the JAX side's). The metrics are the whole batch's;
-        ``buffer_size`` is the global fill (n local rings, sharded)."""
+        tests inject the JAX side's), which come in this order: the seed,
+        the sorted binding's slots, the block's noise, its uniforms; the
+        kernel route takes them all before kernel 1, the scan route draws
+        its chunk's first. The chunk's counts are read last, so that on one
+        card the call's one wait, on kernel 1's totals, comes after the
+        update block is queued (:meth:`_queue_kernel_chunk`). The metrics
+        are the whole batch's; ``buffer_size`` is the global fill (n local
+        rings, sharded)."""
         with trace.span("learner::iteration"):
             ep_before = state.episodes
-            counts, ret_sum = self._rollout(state, opp, pool_size, seed=seed)
-            mean_loss, n_ran = self._update(state, u01=u01, noise=noise)
+            gen, kernel = state.generator, self.route.rollout == "kernel"
+            with trace.span("learner::draws"):
+                draws = self._rollout_draws(state, opp, pool_size, seed)
+                if kernel:
+                    u01, noise = self._block_draws(gen, u01, noise)
+            finish = self._queue_rollout(state, opp, pool_size, *draws)
+            if not kernel:
+                with trace.span("learner::draws"):
+                    u01, noise = self._block_draws(gen, u01, noise)
+            mean_loss, n_ran = self._queue_update(state, u01, noise)
+            counts, ret_sum = finish()
         metrics = DQNMetrics(
             episodes=state.episodes - ep_before,
             games_vs_a=counts[0], wins_vs_a=counts[1],

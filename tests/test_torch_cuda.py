@@ -43,6 +43,7 @@ from pingpong_tpu_torch.ops import recurrent_rollout as trr
 from pingpong_tpu_torch.replay.per import Transition, per_init, per_push
 from pingpong_tpu_torch.train.dqn import DQNLearner, bucket_opp_idx
 from pingpong_tpu_torch.train.drqn import DRQNLearner
+from pingpong_tpu_torch.utils import trace
 from tests.test_torch_gate_packs import _zero_sigma
 
 CONFIG = "configs/qnet.yaml"
@@ -367,6 +368,99 @@ def test_learner_iteration_runs_both_kernels(cuda):
     assert (tar.KERNEL.launches, tdu.KERNEL.launches) == (a0 + 1, u0 + 1)
     assert m.updates_run == K and np.isfinite(m.mean_loss)
     assert state.buffer.size == B * T and state.params.is_cuda
+
+
+def replay_heavy_learner(dev, seed=2**33 + 3):
+    """A learner at ``qnet.replay_heavy``'s shape (512 x 64, 256 full-net
+    updates of 256, a 2^20 replay), a fresh state and a two-slot stack."""
+    cfg = load_config(CONFIG)
+    dq = dataclasses.replace(cfg.dqn, num_envs=512, rollout_length=64,
+                             updates_per_iteration=256, batch_size=256,
+                             train_heads_only=False)
+    learner = DQNLearner(cfg.env, dq, device=dev)
+    state = learner.init_state(seed)
+    other = qnet_init(torch.Generator().manual_seed(seed + 1))
+    return learner, state, learner.prepare_opponents(
+        [learner.params_b(state), other])
+
+
+def state_leaves(x):
+    """Every tensor and number of a train state (the generator as its
+    state), in field order."""
+    if isinstance(x, torch.Generator):
+        return [x.get_state()]
+    if dataclasses.is_dataclass(x):
+        return [v for f in dataclasses.fields(x)
+                for v in state_leaves(getattr(x, f.name))]
+    if isinstance(x, tuple):
+        return [v for y in x for v in state_leaves(y)]
+    return [x]
+
+
+@pytest.fixture
+def tracer_off():
+    trace.disable()
+    trace.drain()
+    yield
+    trace.disable()
+    trace.drain()
+
+
+@pytest.mark.cuda
+def test_warm_learner_call_waits_once_and_never_syncs(cuda, tracer_off):
+    """A warm call at ``qnet.replay_heavy``'s shape makes no synchronizing
+    call and one host wait (``sync::readbacks``), and runs its update."""
+    learner, state, opp = replay_heavy_learner(cuda)
+    for _ in range(2):
+        state, _ = learner.train_iteration(state, opp, 1)
+    torch.cuda.synchronize()
+    trace.enable()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, m = learner.train_iteration(state, opp, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert trace.drain()["counters"] == {"sync::readbacks": 1}
+    assert m.updates_run == 256 and np.isfinite(m.mean_loss)
+
+
+@pytest.mark.cuda
+def test_learner_calls_run_ahead_bit_equal_to_synchronized_calls(
+        cuda, tracer_off):
+    """Ten calls back to back equal the same ten calls with the card
+    drained after each, state, metrics and generator bit for bit; at least
+    8 of calls 2-10 launch kernel 1 while the previous update block runs
+    (``learner::ahead``)."""
+    (learner, own, opp), (ref_learner, ref, ref_opp) = (
+        replay_heavy_learner(cuda) for _ in range(2))
+    torch.cuda.synchronize()
+    trace.enable()
+    metrics = []
+    for _ in range(10):
+        own, m = learner.train_iteration(own, opp, 1)
+        metrics.append(m)
+    counters = trace.drain()["counters"]
+    trace.disable()
+    assert counters.get("learner::ahead", 0) >= 8
+    assert counters["sync::readbacks"] == 10
+    for m in metrics:
+        ref, m_ref = ref_learner.train_iteration(ref, ref_opp, 1)
+        torch.cuda.synchronize()
+        assert m.updates_run == 256 and m == m_ref
+        assert float(m.mean_loss) == float(m_ref.mean_loss)
+    for a, b in zip(state_leaves(own), state_leaves(ref), strict=True):
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slot", [2, -1])
+def test_learner_call_refuses_a_slot_outside_the_stack(cuda, slot):
+    learner, state, opp = replay_heavy_learner(cuda)
+    opp = learner.prepare_opponents([learner.params_b(state)])
+    state.opp_idx[7] = slot
+    with pytest.raises(ValueError, match="opp_idx"):
+        learner.train_iteration(state, opp, 0)
+    torch.cuda.synchronize()
 
 
 RNN_CONFIG = "configs/rnn.yaml"

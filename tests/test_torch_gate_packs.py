@@ -35,6 +35,7 @@ from pingpong_tpu_torch.models.qnet import (
 from pingpong_tpu_torch.ops.actor_rollout import (
     flat_mirror_pack,
     flat_seat_pack,
+    flat_train_pack,
     pack_qnet,
     packed_flat,
     unpack_flat,
@@ -97,6 +98,21 @@ def test_gathered_packs_equal_the_parents(kind, seed):
     # the plain version reads the fields back as pack_qnet laid them out
     for got, want in zip(unpack_flat(mirror), pack_qnet([q], mirror=True)):
         assert torch.equal(got, want) and got.stride() == want.stride()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("kind", ["init", "folded", "sigmas"])
+def test_training_seat_gather_equals_the_module_pack(kind, seed):
+    """The training rollout's learner seat, sigmas kept, gathered from the
+    learner's flat parameters as the module pack of its own net."""
+    template = qnet_init(torch.Generator().manual_seed(0))
+    params = qnet_to_flat(net(kind, seed))
+    want = packed_flat(pack_qnet(qnet_from_flat(params, template)))
+    got = flat_train_pack(params, template)
+    assert torch.equal(got, want)
+    for a, b in zip(unpack_flat(got), pack_qnet(qnet_from_flat(params,
+                                                                template))):
+        assert torch.equal(a, b) and a.stride() == b.stride()
 
 
 def test_packs_refuse_other_widths():

@@ -8,6 +8,7 @@ promotes, whose checkpoint the JAX package loads and plays identically."""
 
 import dataclasses
 import json
+import pickle
 
 import jax
 import jax.numpy as jnp
@@ -35,10 +36,15 @@ from pingpong_tpu.selfplay.pool import load_params_any as jload_params
 from pingpong_tpu.train.dqn import bucket_opp_idx as jbucket
 from pingpong_tpu_torch import cli
 from pingpong_tpu_torch.checkpoint.serialize import qnet_from_numpy
-from pingpong_tpu_torch.config import load_config
+from pingpong_tpu_torch.config import apply_overrides, load_config
 from pingpong_tpu_torch.models.policy import qnet_act_greedy
+from pingpong_tpu_torch.models.qnet import qnet_sample_noise
+from pingpong_tpu_torch.ops.dqn_update import pack_dqn_noise
+from pingpong_tpu_torch.selfplay.loop import QNetSelfPlay
 from pingpong_tpu_torch.selfplay.pool import load_params_any
-from pingpong_tpu_torch.train.dqn import DQNLearner
+from pingpong_tpu_torch.train.dqn import DeferredLoss, DQNLearner
+from pingpong_tpu_torch.utils.metrics import MetricsLogger
+from tests.test_torch_cuda import state_leaves
 
 CONFIG = "configs/qnet.yaml"
 B, T, K, BS, CAP, TILE = 256, 16, 3, 128, 16384, 128
@@ -215,6 +221,87 @@ def test_update_skipped_until_buffer_holds_a_batch():
     assert m.updates_run == 0 and m.mean_loss == 0.0
     assert state.buffer.size == 128 and state.train_steps == 0
     assert torch.equal(state.params, before)
+
+
+@pytest.mark.parametrize("update", ["kernel", "autodiff"])
+@pytest.mark.parametrize("n_slots", [1, 3])
+def test_own_draws_equal_draws_given_in_the_documented_order(update,
+                                                             n_slots):
+    """A call that draws from the state's generator is the call given the
+    seed, the noise and the uniforms drawn by hand in the order
+    ``train_iteration`` documents: state, metrics and generator state
+    after each call, bit for bit."""
+    cfg = load_config(CONFIG)
+    dq = dataclasses.replace(cfg.dqn, **SMALL,
+                             use_pallas_update=update == "kernel")
+    learner = DQNLearner(cfg.env, dq, device="cpu")
+    rng = np.random.default_rng(5)
+    opp = learner.prepare_opponents([qnet_from_numpy(np_qnet(rng))
+                                     for _ in range(n_slots)])
+    own, given = (learner.init_state(2**33 + 7, epsilon=0.8)
+                  for _ in range(2))
+    for _ in range(2):
+        own, m_own = learner.train_iteration(own, opp, n_slots - 1)
+        gen = given.generator
+        seed = int(torch.randint(0, 2**31 - 1, (1,), generator=gen))
+        noise = pack_dqn_noise(qnet_sample_noise(gen, learner.template,
+                                                 batch=(K,)))
+        u01 = torch.rand((K, BS), generator=gen)
+        given, m_given = learner.train_iteration(
+            given, opp, n_slots - 1, seed=seed, u01=u01, noise=noise)
+        assert m_own.updates_run == K and m_own == m_given
+        for a, b in zip(state_leaves(own), state_leaves(given),
+                        strict=True):
+            assert (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                    else a == b)
+
+
+def test_a_deferred_loss_reads_as_the_float_it_stands_for(tmp_path):
+    """A call's deferred mean loss reads as the float the host read gave,
+    through ``float()``, numpy, ``==``, formats and pickling; the loop's
+    interval log writes it into its JSON as that float."""
+    losses = torch.rand((7,), generator=torch.Generator().manual_seed(3))
+    want = float(losses.sum()) / 7
+    loss = DeferredLoss(losses.sum(), 7)
+    assert float(loss) == want and loss == want and want == loss
+    assert not loss != want and loss != want + 1.0
+    assert np.asarray(loss) == want and np.isfinite(loss)
+    np.testing.assert_allclose(loss, want, rtol=0, atol=0)
+    assert f"{loss:.5g}" == f"{want:.5g}" and repr(loss) == repr(want)
+    back = pickle.loads(pickle.dumps(loss))
+    assert type(back) is float and back == want
+    assert DeferredLoss(torch.zeros(()), 4) == 0.0
+
+    loop_cfg = apply_overrides(load_config(CONFIG), [
+        "dqn.num_envs=64", "dqn.rollout_length=32",
+        "dqn.updates_per_iteration=4", "dqn.batch_size=128",
+        "dqn.memory_size=16384", "dqn.pallas_tile_rows=64",
+        "dqn.selfplay.episodes_per_generation=16",
+        "dqn.selfplay.win_rate_interval=4", "dqn.selfplay.max_generations=1",
+        "dqn.selfplay.eval_episodes=16",
+        "dqn.selfplay.curr_win_threshold=0.0",
+        "dqn.selfplay.pool_win_threshold=0.0",
+        "dqn.save_latest_checkpoint_interval_steps=0",
+        "env.max_episode_steps=256"])
+    path = tmp_path / "metrics.jsonl"
+    loop = QNetSelfPlay(loop_cfg.env, loop_cfg.dqn, workdir=str(tmp_path),
+                        seed=5, logger=MetricsLogger(str(path), echo=False),
+                        device="cpu")
+    inner, given = loop.learner.train_iteration, []
+
+    def deferred(*args, **kw):
+        state, m = inner(*args, **kw)
+        m = m._replace(mean_loss=DeferredLoss(
+            torch.tensor(m.mean_loss, dtype=torch.float64), 1))
+        given.append(float(m.mean_loss))
+        return state, m
+
+    loop.learner.train_iteration = deferred
+    loop.run()
+    logged = [json.loads(line)["loss"] for line in path.read_text()
+              .splitlines() if json.loads(line)["event"] == "interval"]
+    assert logged and any(x != 0.0 for x in logged)
+    assert all(type(x) is float and x in given for x in logged)
 
 
 def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch, tmp_path):

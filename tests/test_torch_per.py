@@ -81,3 +81,46 @@ def test_last_writer_wins_keeps_latest_value():
     slots, v = tper.last_writer_wins(idx, vals)
     got = dict(zip(slots.tolist(), v.tolist()))
     assert got == {3: 5.0, 5: 6.0, 9: 4.0}
+
+
+def mask_last_writer_wins(idx, vals):
+    """The dedup that sized its result on the host: the distinct slots and
+    each one's last value, selected by a mask."""
+    srt = torch.sort(idx, stable=True).indices
+    si, sv = idx[srt], vals[srt]
+    last = torch.ones_like(si, dtype=torch.bool)
+    last[:-1] = si[:-1] != si[1:]
+    return si[last], sv[last]
+
+
+@pytest.mark.parametrize("n,slots", [(65536, 4096), (4096, 3), (1000, 1 << 20),
+                                     (1, 8)])
+def test_fixed_size_last_writer_wins_equals_the_mask_version(n, slots):
+    """Scattered into the priorities, every slot gets the value the mask
+    version leaves it, bit for bit, with many duplicates or few; so does
+    the priority write-back of the autodiff and sharded routes."""
+    gen = torch.Generator().manual_seed(n)
+    idx = torch.randint(0, slots, (n,), generator=gen)
+    vals = torch.rand((n,), generator=gen)
+    cap = max(slots, 128)
+    got, want = torch.zeros(cap), torch.zeros(cap)
+    s, v = tper.last_writer_wins(idx, vals)
+    assert s.shape == v.shape == (n,)
+    got[s] = v
+    ws, wv = mask_last_writer_wins(idx, vals)
+    want[ws] = wv
+    assert torch.equal(got, want)
+
+    buf = tper.per_init(cap)
+    buf.prios.copy_(torch.rand((cap,), generator=gen))
+    buf.p_alpha.copy_(buf.prios ** 0.6)
+    buf.chunk_sums.copy_(buf.p_alpha.view(-1, buf.chunk).sum(dim=1))
+    ref = tper.PERBuffer(*(x.clone() for x in (buf.data, buf.prios,
+                                              buf.p_alpha, buf.chunk_sums)))
+    tper.per_update_priorities(buf, idx, vals, 0.6)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tper, "last_writer_wins", mask_last_writer_wins)
+        tper.per_update_priorities(ref, idx, vals, 0.6)
+    for a, b in zip((buf.prios, buf.p_alpha, buf.chunk_sums),
+                    (ref.prios, ref.p_alpha, ref.chunk_sums)):
+        assert torch.equal(a, b)

@@ -406,15 +406,17 @@ def test_traced_loop_span_tree_and_bit_identical_run(family, tmp_path):
             if s["try_id"] == t["try_id"]:
                 assert t["t0_ns"] <= s["t0_ns"] <= s["t1_ns"] <= t["t1_ns"]
 
-    # every train_iteration call: rollout, push, draws; an update when ran
+    # every train_iteration call: rollout, push, draws (the QNet kernel
+    # route's draws first, before kernel 1); an update when ran
     iters = [s for s in spans if s["name"] == "learner::iteration"]
     assert len(iters) == len(updates) > 0
     ids = by_id(spans)
+    first = {"qnet": ["learner::draws", "learner::rollout", "replay::push"],
+             "drqn": ["learner::rollout", "replay::push", "learner::draws"]}
     for it, n_ran in zip(iters, updates):
         assert ids[it["parent"]]["name"] == "loop::train_block"
         kids = [s["name"] for s in children(spans, it)]
-        assert kids[:3] == ["learner::rollout", "replay::push",
-                            "learner::draws"]
+        assert kids[:3] == first[family]
         assert kids.count("learner::update") == (1 if n_ran else 0)
     sample = "replay::sample" if family == "drqn" else "replay::priorities"
     assert any(s["name"] == sample for s in spans)
