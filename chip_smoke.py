@@ -11,9 +11,11 @@
    kernel at batch 512 too, update by update; kernels 1 and 3 also on a
    rank's block with ``tile0 != 0``, whose rank blocks must equal the
    whole call's bit for bit, ``[tile0:*]``), with the stated
-   tolerances (kernel 5 also bit for bit), checks kernel 5's division and
-   sine and cosine against the card's own on every float they take, and
-   checks that every kernel gives bit-identical results run to run;
+   tolerances (kernel 5 also bit for bit; kernel 6 at
+   ``configs/rainbow.yaml``'s batch and atoms, ``[c51_loss]``), checks
+   kernel 5's division and sine and cosine against the card's own on every
+   float they take, and checks that every kernel gives bit-identical
+   results run to run;
 3. drives the port's paths, each with the kernels' launch counters set
    to 0 just before it and read just after: ``cli train`` at
    ``configs/qnet.yaml``'s widths and batch, and ``cli train-rnn`` at
@@ -45,8 +47,9 @@
    on the row update with sorted binding (``[main:qnet_rows]``), the scan
    rollout (``[main:qnet_scan]``), burn-in with episode-uniform windows and
    sorted binding (``[main:drqn_burnin]``) and two LSTM layers
-   (``[main:drqn_stacked]``), each with the kernels it must and must not
-   launch; then the multi-GPU learner: 2 ranks sharing the card over gloo
+   (``[main:drqn_stacked]``), and ``cli train --config configs/rainbow.yaml``
+   (``[main:rainbow]``: kernel 6 launched, kernels 1 and 2 not), each with
+   the kernels it must and must not launch; then the multi-GPU learner: 2 ranks sharing the card over gloo
    (``--dist-worker``, this script as the rank process) run 3 iterations
    of each learner layout at the shipped configs (``[dist:*]``:
    replicated bit-equal to the single-process iteration, sharded within
@@ -880,6 +883,86 @@ def check_pong_exactness(dev):
               f"pong shortcuts differ at the {name} env")
 
 
+# ---------------------------------------------------------------------------
+# kernel 6: Rainbow's categorical projection and cross-entropy
+# ---------------------------------------------------------------------------
+
+C51_BS, C51_ATOMS = 256, 51     # configs/rainbow.yaml's batch and atoms
+
+
+def c51_inputs(seed, dev, bs=C51_BS, n_atoms=C51_ATOMS):
+    """Kernel 6's inputs: returns past both ends of the support, rows that
+    land exactly on atoms (disc 0 and an atom's value), episode ends."""
+    from pingpong_tpu_torch.ops.c51_loss import _dz
+
+    g = torch.Generator().manual_seed(seed)
+    logits = torch.randn((bs, n_atoms), generator=g) * 2.0
+    p = torch.softmax(torch.randn((bs, n_atoms), generator=g) * 2.0, dim=-1)
+    ret = (torch.rand((bs,), generator=g) * 2.0 - 1.0) * 14.0
+    disc = torch.where(torch.rand((bs,), generator=g) < 0.3, 0.0,
+                       float(np.float32(0.99 ** 3)))
+    on_atom = torch.arange(bs) % 4 == 0
+    atom = torch.randint(0, n_atoms, (bs,), generator=g).float()
+    ret = torch.where(on_atom, -10.0 + atom * _dz(n_atoms, -10.0, 10.0), ret)
+    disc = torch.where(on_atom, 0.0, disc)
+    w = torch.rand((bs,), generator=g) * 0.9 + 0.1
+    return [x.to(dev) for x in (logits, p, ret, disc, w)]
+
+
+def compare_c51(dev):
+    """Kernel 6 against its plain version at ``configs/rainbow.yaml``'s
+    batch and atoms: the loss within rtol 2e-6 / atol 2e-6 and the logit
+    gradient within rtol 1e-4 / atol 1e-9 (the projection sums in another
+    order and the kernel's exp and log are CUDA's), bit-identical run to
+    run. Returns the largest absolute error."""
+    from pingpong_tpu_torch.ops import c51_loss as k6
+
+    args = c51_inputs(61, dev)
+    loss, grad = k6.c51_loss_cuda(*args, -10.0, 10.0)
+    again = k6.c51_loss_cuda(*args, -10.0, 10.0)
+    ref_loss, ref_grad = k6.c51_loss_plain(*(x.cpu() for x in args),
+                                           -10.0, 10.0)
+    loss, grad = loss.cpu(), grad.cpu()
+    err = max(float((loss - ref_loss).abs().max()),
+              float((grad - ref_grad).abs().max()))
+    close = (bool(torch.all((loss - ref_loss).abs()
+                            <= 2e-6 + 2e-6 * ref_loss.abs()))
+             and bool(torch.all((grad - ref_grad).abs()
+                                <= 1e-9 + 1e-4 * ref_grad.abs())))
+    same = torch.equal(loss, again[0].cpu()) and torch.equal(
+        grad, again[1].cpu())
+    print(f"[c51_loss] bs {C51_BS}, {C51_ATOMS} atoms: max abs err {err:.3g} "
+          f"(loss {float((loss - ref_loss).abs().max()):.3g}, gradient "
+          f"{float((grad - ref_grad).abs().max()):.3g}); bit-identical run "
+          f"to run {same} | {CARD}", flush=True)
+    check(close, "c51_loss: kernel 6 differs from its plain version")
+    check(same, "c51_loss: kernel 6 is not bit-identical run to run")
+    return err
+
+
+def c51_bound_ms(bs=C51_BS, n_atoms=C51_ATOMS):
+    """Kernel 6's least time (``benchmark/kernels/k6.py``'s counts: the
+    function's operations, ``24 A`` a row, and its bytes)."""
+    sys.path.insert(0, str(ROOT))
+    from benchmark.kernels.k6 import cost
+
+    flops, nbytes = cost(bs, n_atoms)
+    t_ops, t_bytes = flops / F32_PEAK, nbytes / HBM_RATE
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes \
+        else "bytes"
+
+
+def rainbow_args(workdir):
+    """``configs/rainbow.yaml`` with the gate cut (one generation of 1
+    training episode, 200 match-runner games, thresholds 0)."""
+    return ["train", "--config", str(ROOT / "configs" / "rainbow.yaml"),
+            "--workdir", str(workdir), "dqn.selfplay.max_generations=1",
+            "dqn.selfplay.episodes_per_generation=1",
+            "dqn.selfplay.eval_episodes=200",
+            "dqn.selfplay.curr_win_threshold=0.0",
+            "dqn.selfplay.pool_win_threshold=0.0"]
+
+
 def sm_clock_hz():
     """The card's maximum SM clock, from nvidia-smi."""
     import subprocess
@@ -1502,7 +1585,8 @@ def drive_route(name, cli, args, kernels, expect, log, pool_from=None,
     given, copied from ``pool_from``'s promoted checkpoints, so that the
     binding has members to draw), the launch counters set to 0 just before
     and read just after; ``expect``: kernel -> must launch (True) or must
-    not (False); ``warn``: a warning the run must give."""
+    not (False); ``warn``: a warning the run must give. Returns the
+    launches."""
     import warnings
 
     from pingpong_tpu_torch.checkpoint.store import list_checkpoints
@@ -1537,6 +1621,7 @@ def drive_route(name, cli, args, kernels, expect, log, pool_from=None,
               f"{name}: {k} launched {launches[k]} times")
     check(warn is None or any(warn in str(w.message) for w in caught),
           f"{name}: no warning {warn!r}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2475,6 +2560,7 @@ def main(argv=None) -> int:
     )
     from pingpong_tpu_torch.models.qnet_rnn import init_hidden
     from pingpong_tpu_torch.ops import actor_rollout as ar
+    from pingpong_tpu_torch.ops import c51_loss as k6
     from pingpong_tpu_torch.ops import dqn_update as du
     from pingpong_tpu_torch.ops import drqn_update as dru
     from pingpong_tpu_torch.ops import pong_kernel as pk
@@ -2492,12 +2578,12 @@ def main(argv=None) -> int:
     # ---- 1. build ---------------------------------------------------------
     t0 = time.time()
     kernels = [ar.KERNEL, du.KERNEL, rr.KERNEL, dru.KERNEL, pk.KERNEL]
-    logs = build_all(kernels)
+    logs = build_all(kernels + [k6.KERNEL])
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 print(f"[build:{name}] {line.strip()}")
-    print(f"[build] {len(kernels)} kernels built for sm_90a in "
+    print(f"[build] {len(kernels) + 1} kernels built for sm_90a in "
           f"{time.time() - t0:.1f} s", flush=True)
     check_no_spills(logs, ("actor_rollout", "recurrent_rollout",
                            "pong_kernel"))
@@ -2549,6 +2635,7 @@ def main(argv=None) -> int:
                                      tau=tau)))
     pong_err, pong_hits, pong_ends, (pong_params, pong_st) = compare_pong(dev)
     check_pong_exactness(dev)
+    c51_err = compare_c51(dev)
     check_bit_reproducible(upd_inp, drqn_update_inputs(400, dev))
     check_rollouts_reproducible(
         actor_inputs(150, 17, True, False, 8192, dev),
@@ -2643,6 +2730,13 @@ def main(argv=None) -> int:
         w, 1, "drqn.lstm_layers=2"), k34,
         {"recurrent_rollout": False, "drqn_update": False},
         "train_rnn_metrics.jsonl")
+    # Rainbow's learner: scan rollout, kernel 6 in each update (eager
+    # launches and a graph's capture count; the replays launch no Python
+    # call), match-runner gates
+    rainbow_launches = drive_route(
+        "rainbow", cli, rainbow_args, k12 + [k6.KERNEL],
+        {"actor_rollout": False, "dqn_update": False, "c51_loss": True},
+        "train_rainbow_metrics.jsonl")
 
     # ---- 4. timings -------------------------------------------------------
     learner = DQNLearner(cfg.env, cfg.dqn, device="cuda")
@@ -2709,6 +2803,9 @@ def main(argv=None) -> int:
     d_ms = cuda_ms(lambda: dru.drqn_update_cuda(**fresh(dkw)), 10)
     d_plain = cuda_ms(lambda: dru.drqn_update_plain(**fresh(dkw)), 1, 1)
     p_ms = ro["pong_kernel:bench"]
+    cinp = c51_inputs(62, dev)
+    c_ms = cuda_ms(lambda: k6.c51_loss_cuda(*cinp, -10.0, 10.0), 100)
+    c_plain = cuda_ms(lambda: k6.c51_loss_plain(*cinp, -10.0, 10.0), 10)
     p_plain = cuda_ms(lambda: pk.pong_rollout_plain(
         pong_params, pong_st, PONG_STEPS, 5, tile_rows=PONG_TILE), 1, 1)
     bounds = {
@@ -2719,6 +2816,7 @@ def main(argv=None) -> int:
         "drqn_update": drqn_update_bound_ms(dkw, 0),
         "pong_kernel": pong_bound_ms(PONG_B, PONG_STEPS, pong_hits,
                                      pong_ends),
+        "c51_loss": c51_bound_ms(),
     }
     roofline_phase(bounds["dqn_update"])
     e_bound = rnn_bound_ms(RB, 256, 1, RB // rtile, emit=False)
@@ -2740,7 +2838,8 @@ def main(argv=None) -> int:
           f"drqn_update {d_ms:.4f} ms "
           f"(plain {d_plain:.2f} ms); pong_kernel {p_ms:.4f} ms (plain "
           f"{p_plain:.2f} ms, {PONG_B * PONG_STEPS / p_ms * 1e3:.4g} "
-          f"env-steps/s); bounds "
+          f"env-steps/s); c51_loss (bs {C51_BS}, {C51_ATOMS} atoms) "
+          f"{c_ms:.4f} ms (plain on the card {c_plain:.4f} ms); bounds "
           f"{ {k: round(v[0], 5) for k, v in bounds.items()} } | {CARD}",
           flush=True)
 
@@ -2765,6 +2864,10 @@ def main(argv=None) -> int:
                    "pingpong_tpu/ops/pong_kernel.py:216",
                    bench_launches["pong_kernel"], pong_err, p_ms, p_plain,
                    bounds["pong_kernel"]),
+        # no TPU twin: Rainbow has no JAX version
+        kernel_row("c51_loss", "c51_loss.cu", None,
+                   rainbow_launches["c51_loss"], c51_err, c_ms, c_plain,
+                   bounds["c51_loss"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(f"[done] smoke took {time.time() - t_start:.0f} s")

@@ -5,7 +5,10 @@ The dict schemas are the JAX package's: ``{"kind": "qnet", "feat1": {"w",
 "b"}, "feat2": {...}, "fc_v": {"w_mu", "w_sigma", "b_mu", "b_sigma"},
 "fc_a": {...}}`` with ``(in, out)`` weights, and for ``"qnet_rnn"`` the
 same plus ``"lstm": [{"w_ih", "w_hh", "b_ih", "b_hh"}, ...]`` and
-``"shared"`` (a noisy layer, or None). Optimizer state is the list
+``"shared"`` (a noisy layer, or None). The port's own ``"rainbow"`` kind
+(the JAX package has no Rainbow) holds ``feat1``, ``feat2``, the noisy
+``v1``, ``v2``, ``a1``, ``a2`` and the support's ``v_min`` and ``v_max``.
+Optimizer state is the list
 ``[count, mu, nu]`` of flat Adam over the raveled parameter vector, which
 is what the JAX learner writes.
 """
@@ -18,6 +21,7 @@ import torch
 from pingpong_tpu_torch.models.noisy import Dense, NoisyLinear
 from pingpong_tpu_torch.models.qnet import QNet
 from pingpong_tpu_torch.models.qnet_rnn import LSTMLayer, QNetRNN
+from pingpong_tpu_torch.models.rainbow import RainbowNet
 
 _DENSE = ("w", "b")
 _NOISY = ("w_mu", "w_sigma", "b_mu", "b_sigma")
@@ -118,13 +122,34 @@ def qnet_rnn_from_dict(d: dict, device="cpu") -> QNetRNN:
     return qnet_rnn_from_numpy(d, device)
 
 
+_RAINBOW = (("feat1", _DENSE), ("feat2", _DENSE), ("v1", _NOISY),
+            ("v2", _NOISY), ("a1", _NOISY), ("a2", _NOISY))
+
+
+def rainbow_to_dict(params: RainbowNet) -> dict:
+    return {"kind": "rainbow", "v_min": float(params.v_min),
+            "v_max": float(params.v_max),
+            **{name: _layer_to_numpy(getattr(params, name), fields)
+               for name, fields in _RAINBOW}}
+
+
+def rainbow_from_dict(d: dict, device="cpu") -> RainbowNet:
+    layers = {name: (Dense if fields == _DENSE else NoisyLinear)(
+        *(_tensor(_get(_get(d, name), f), device) for f in fields))
+        for name, fields in _RAINBOW}
+    return RainbowNet(**layers, v_min=float(d["v_min"]),
+                      v_max=float(d["v_max"]))
+
+
 def params_from_dict(d: dict, device="cpu"):
-    """A QNet or a QNetRNN, by the dict's ``kind`` tag."""
+    """A QNet, a QNetRNN or a RainbowNet, by the dict's ``kind`` tag."""
     kind = d.get("kind", "qnet")
     if kind == "qnet":
         return qnet_from_dict(d, device)
     if kind == "qnet_rnn":
         return qnet_rnn_from_dict(d, device)
+    if kind == "rainbow":
+        return rainbow_from_dict(d, device)
     raise ValueError(f"unknown params kind {kind!r}")
 
 

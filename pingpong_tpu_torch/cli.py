@@ -1,6 +1,7 @@
 """Command-line interface of the PyTorch port.
 
     python -m pingpong_tpu_torch.cli train        --config configs/qnet.yaml
+    python -m pingpong_tpu_torch.cli train        --config configs/rainbow.yaml
     python -m pingpong_tpu_torch.cli train-rnn    --config configs/rnn.yaml
     python -m pingpong_tpu_torch.cli round-robin  --ckpt-dir checkpoints --out results_round_robin
     python -m pingpong_tpu_torch.cli arena        --ckpt-dir checkpoints_rnn --db arena_database.json
@@ -98,12 +99,20 @@ def _plots(draw) -> None:
 
 def cmd_train(args) -> int:
     cfg = _load(args)
-    from pingpong_tpu_torch.selfplay.loop import QNetSelfPlay
+    agent = cfg.dqn.agent
+    if agent == "qnet":
+        from pingpong_tpu_torch.selfplay.loop import QNetSelfPlay as loop
+    elif agent == "rainbow":
+        from pingpong_tpu_torch.selfplay.loop_rainbow import (
+            RainbowSelfPlay as loop,
+        )
+    else:
+        raise ValueError(f"unknown dqn.agent {agent!r} (qnet or rainbow)")
 
-    ran = _run(lambda logger: QNetSelfPlay(
+    ran = _run(lambda logger: loop(
         cfg.env, cfg.dqn, workdir=args.workdir, seed=cfg.seed, logger=logger,
         device=args.device, mesh_cfg=cfg.mesh, log_spans=args.trace),
-        "train_qnet_metrics.jsonl", args)
+        f"train_{agent}_metrics.jsonl", args)
     if ran is None:
         return 0
     driver, records = ran
@@ -119,7 +128,8 @@ def cmd_train(args) -> int:
         plot_reward_history(
             driver.reward_history,
             f"{plot_dir}/training_iterative_rewards.png",
-            title="QNet self-play: mean episode reward (B)")
+            title=f"{'Rainbow' if agent == 'rainbow' else 'QNet'} "
+                  "self-play: mean episode reward (B)")
 
     _plots(draw)
     return 0
@@ -252,7 +262,8 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(prog="pingpong-tpu-torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
-    for name, fn, help_ in (("train", cmd_train, "QNet self-play training"),
+    for name, fn, help_ in (("train", cmd_train, "QNet (or, by dqn.agent, "
+                             "Rainbow) self-play training"),
                             ("train-rnn", cmd_train_rnn,
                              "DRQN (LSTM) self-play training")):
         p = sub.add_parser(name, help=help_)

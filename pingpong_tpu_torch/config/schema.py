@@ -214,6 +214,24 @@ class DQNConfig:
                                     # fidelity knob (train_iterative.py:244)
     pool_max: int = 16              # static opponent-pool capacity
 
+    # ---- Rainbow (Hessel et al. 2018, arXiv:1710.02298) ----
+    # "qnet" (default) trains the QNet above on the routes of
+    # train/dqn.py; "rainbow" trains Rainbow's distributional noisy
+    # dueling net (models/rainbow.py) with its own learner
+    # (train/rainbow.py: scan rollout, n-step rows in the row PER, the
+    # distributional Double-DQN update with kernel 6) on the same loop,
+    # env and gates (configs/rainbow.yaml). The keys below are read by the
+    # Rainbow learner alone; the QNet's use_pallas_* knobs do not apply to
+    # it.
+    agent: str = "qnet"
+    num_atoms: int = 51             # atoms of the value distribution
+    v_min: float = -10.0            # support [v_min, v_max]
+    v_max: float = 10.0
+    n_step: int = 3                 # multi-step return length
+    stream_hidden: int = 512        # units of each dueling stream
+    noisy_sigma0: float = 0.5       # noisy sigma init sigma0/sqrt(fan_in)
+    adam_eps: float = 1.5e-4        # Adam's epsilon (the QNet's is 1e-8)
+
 
 @dataclass
 class DRQNConfig:

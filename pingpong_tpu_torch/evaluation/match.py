@@ -15,7 +15,8 @@ a game still running at ``max_steps`` is decided by score (equal scores
 are a draw) and counts ``steps = max_steps``.
 
 Policies are eval-mode (mu weights, no exploration). A side is a QNet
-stack, a QNetRNN stack (hidden state carried across steps) or the
+stack, a QNetRNN stack (hidden state carried across steps), a Rainbow
+stack (greedy on the expected value of its distribution) or the
 ball-follower bot; each game indexes its side's stack (``idx``), so one
 batch holds games against many opponents. The serves of the games' first
 resets come from a ``torch.Generator`` (``env/pong.py::reset``), or the
@@ -40,12 +41,14 @@ from pingpong_tpu_torch.env.pong import (
 from pingpong_tpu_torch.models.policy import ball_follower_action
 from pingpong_tpu_torch.models.qnet import argmax3, qnet_apply
 from pingpong_tpu_torch.models.qnet_rnn import Hidden, init_hidden, qnet_rnn_step
+from pingpong_tpu_torch.models.rainbow import rainbow_q
 from pingpong_tpu_torch.utils.device import resolve_device
 
 # policy kinds
 QNET = 0
 RNN = 1
 BOT = 2
+RAINBOW = 3
 
 
 class PolicySpec(NamedTuple):
@@ -99,6 +102,9 @@ def _policy_actions(spec: PolicySpec, idx, obs, hidden: Optional[Hidden],
         c = torch.stack([hid.c for _, hid in outs]).transpose(1, 2)
         return _pick(acts, idx), Hidden(h=_pick(h, idx).transpose(0, 1),
                                         c=_pick(c, idx).transpose(0, 1))
+    if spec.kind == RAINBOW:
+        acts = torch.stack([argmax3(rainbow_q(p, obs)) for p in spec.params])
+        return _pick(acts, idx), hidden
     raise ValueError(f"unknown policy kind {spec.kind}")
 
 

@@ -113,6 +113,27 @@ def decode_rows(rows: torch.Tensor, d: int) -> Transition:
                       done=rows[:, 2 * d + 2] > 0.5)
 
 
+class NStepRows(NamedTuple):
+    """Rows of an n-step replay (the Rainbow learner's): the same row
+    layout, with the n-step return ``ret`` in the reward field and the
+    bootstrap discount ``disc`` (``gamma^n``, 0 where the episode ended
+    inside the n steps) in the done field; ``next_obs`` is the
+    observation n steps on (or the terminal one)."""
+
+    obs: torch.Tensor        # (M, obs_dim) f32
+    action: torch.Tensor     # (M,) i32
+    ret: torch.Tensor        # (M,) f32
+    next_obs: torch.Tensor   # (M, obs_dim) f32
+    disc: torch.Tensor       # (M,) f32
+
+
+def decode_nstep_rows(rows: torch.Tensor, d: int) -> NStepRows:
+    """``(M, 2d+3)`` packed n-step rows -> NStepRows."""
+    return NStepRows(obs=rows[:, :d], action=rows[:, 2 * d].to(torch.int32),
+                     ret=rows[:, 2 * d + 1], next_obs=rows[:, d:2 * d],
+                     disc=rows[:, 2 * d + 2])
+
+
 def pack_block_fields(batch: Transition) -> torch.Tensor:
     """``(M, ...)`` Transition -> ``(M, 2d+2)`` block field rows."""
     ad = batch.action.to(torch.float32) + 4.0 * batch.done.to(torch.float32)
@@ -171,10 +192,14 @@ def exact_cumsum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
 
 
 def per_sample(buf: PERBuffer, batch_size: int, beta, u01: torch.Tensor,
-               normalize: bool = True) -> PERSample:
+               normalize: bool = True, decode=None,
+               size: torch.Tensor = None) -> PERSample:
     """Two-level prioritized sample from pre-drawn uniforms ``u01 (bs,)``
     with importance weights ``(N P(i))^-beta`` (max-normalized unless
-    ``normalize=False``), in either layout."""
+    ``normalize=False``), in either layout; ``decode`` reads the sampled
+    rows of the row layout (:func:`decode_rows` unless given). ``size``, a
+    device tensor, stands for ``buf.size`` (so that the sample reads no
+    host value, as a CUDA graph replays it)."""
     ch = buf.chunk
     n_chunks = buf.capacity // ch
     chunk_cdf = exact_cumsum(buf.chunk_sums)
@@ -187,9 +212,14 @@ def per_sample(buf: PERBuffer, batch_size: int, beta, u01: torch.Tensor,
     rows = buf.p_alpha.view(n_chunks, ch)[cidx]
     row_cdf = exact_cumsum(rows, dim=1)
     offset = torch.clamp((row_cdf < residual[:, None]).sum(dim=1), 0, ch - 1)
-    idx = torch.clamp(cidx * ch + offset, 0, max(buf.size - 1, 0))
+    if size is None:
+        idx = torch.clamp(cidx * ch + offset, 0, max(buf.size - 1, 0))
+        n = float(buf.size)
+    else:
+        idx = torch.minimum(torch.clamp(cidx * ch + offset, min=0),
+                            torch.clamp(size - 1, min=0))
+        n = size.to(torch.float32)
     probs = buf.p_alpha[idx] / torch.clamp(total, min=1e-30)
-    n = float(buf.size)
     weights = (n * torch.clamp(probs, min=1e-30)) ** (-beta)
     if normalize:
         weights = weights / torch.clamp(weights.max(), min=1e-30)
@@ -197,7 +227,7 @@ def per_sample(buf: PERBuffer, batch_size: int, beta, u01: torch.Tensor,
     if buf.is_block:
         batch = decode_block_fields(buf.data[idx // CHUNK, :, idx % CHUNK], d)
     else:
-        batch = decode_rows(buf.data[idx], d)
+        batch = (decode or decode_rows)(buf.data[idx], d)
     return PERSample(batch=batch, indices=idx, weights=weights)
 
 

@@ -1,9 +1,10 @@
 """Opponent-pool loading (port of ``pingpong_tpu/selfplay/pool.py``).
 
 As in the reference trainers, the QNet trainer loads every checkpoint in
-the directory at start-up, ``_fault`` ones included, and the DRQN trainer
-(``kind="qnet_rnn", skip_fault=True``) skips fault checkpoints;
-``latest*`` full-state autosaves are skipped by both."""
+the directory at start-up, ``_fault`` ones included (so does the Rainbow
+trainer, ``kind="rainbow"``), and the DRQN trainer (``kind="qnet_rnn",
+skip_fault=True``) skips fault checkpoints; ``latest*`` full-state
+autosaves are skipped by all."""
 
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from pingpong_tpu_torch.checkpoint.store import (
     load_checkpoint,
 )
 from pingpong_tpu_torch.models.qnet_rnn import QNetRNN
+from pingpong_tpu_torch.models.rainbow import RainbowNet
 
 
 def load_params_any(ckpt_path, prefer=("params_b", "params_a", "params"),
@@ -30,10 +32,10 @@ def load_params_any(ckpt_path, prefer=("params_b", "params_a", "params"),
 def load_pool(ckpt_dir, kind: str = "qnet", skip_fault: bool = False,
               limit: Optional[int] = None, exclude_names=("latest",),
               device="cpu") -> List:
-    """All checkpoints of ``kind`` ("qnet" or "qnet_rnn") in ``ckpt_dir``
-    (sorted by name) as pool members; checkpoints of another kind are
-    skipped."""
-    if kind not in ("qnet", "qnet_rnn"):
+    """All checkpoints of ``kind`` ("qnet", "qnet_rnn" or "rainbow") in
+    ``ckpt_dir`` (sorted by name) as pool members; checkpoints of another
+    kind are skipped."""
+    if kind not in ("qnet", "qnet_rnn", "rainbow"):
         raise ValueError(f"unknown pool kind {kind!r}")
     members = []
     for path in list_checkpoints(ckpt_dir):
@@ -45,7 +47,8 @@ def load_pool(ckpt_dir, kind: str = "qnet", skip_fault: bool = False,
             params = load_params_any(path, device=device)
         except (KeyError, ValueError):
             continue
-        actual = "qnet_rnn" if isinstance(params, QNetRNN) else "qnet"
+        actual = ("qnet_rnn" if isinstance(params, QNetRNN) else
+                  "rainbow" if isinstance(params, RainbowNet) else "qnet")
         if actual != kind:
             continue
         members.append(params)

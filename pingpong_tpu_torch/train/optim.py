@@ -18,10 +18,13 @@ B1, B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
 
 def adam_(params: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
-          v: torch.Tensor, step: int, lr: float) -> None:
-    """One Adam step ``step`` (the count after this update, from 1) on
-    ``params``, ``m`` and ``v`` in place."""
-    t = torch.tensor(float(step), device=params.device)
+          v: torch.Tensor, step, lr: float,
+          eps: float = ADAM_EPS) -> None:
+    """One Adam step ``step`` (the count after this update, from 1; an int
+    or a device tensor) on ``params``, ``m`` and ``v`` in place; ``eps``
+    is optax's default unless given (Rainbow's learner gives its own)."""
+    t = (step.to(torch.float32) if isinstance(step, torch.Tensor)
+         else torch.tensor(float(step), device=params.device))
     bc1 = 1.0 - torch.exp(t * math.log(B1))
     bc2 = 1.0 - torch.exp(t * math.log(B2))
     mj = m * B1 + g * (1.0 - B1)
@@ -29,7 +32,7 @@ def adam_(params: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     m.copy_(mj)
     v.copy_(vj)
     params.copy_(params - lr * ((mj / bc1) / (torch.sqrt(vj / bc2)
-                                              + ADAM_EPS)))
+                                              + eps)))
 
 
 def clip_by_global_norm(g: torch.Tensor, clip: float) -> torch.Tensor:

@@ -859,3 +859,115 @@ def test_pong_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="2\\^24"):
         tpk.pong_rollout_cuda(params, state, (1 << 24) + 1, 0, tile_rows=1)
     assert tpk.KERNEL.launches == before
+
+
+def c51_inputs(bs, n_atoms, seed, device):
+    """Kernel 6's inputs: returns past both ends of the support, rows that
+    land exactly on atoms (disc 0 and an atom's value), episode ends."""
+    from pingpong_tpu_torch.ops.c51_loss import _dz
+
+    g = torch.Generator().manual_seed(seed)
+    logits = torch.randn((bs, n_atoms), generator=g) * 2.0
+    p = torch.softmax(torch.randn((bs, n_atoms), generator=g) * 2.0, dim=-1)
+    ret = (torch.rand((bs,), generator=g) * 2.0 - 1.0) * 14.0
+    disc = torch.where(torch.rand((bs,), generator=g) < 0.3, 0.0,
+                       float(np.float32(0.99 ** 3)))
+    on_atom = torch.arange(bs) % 4 == 0
+    atom = torch.randint(0, n_atoms, (bs,), generator=g).float()
+    ret = torch.where(on_atom, -10.0 + atom * _dz(n_atoms, -10.0, 10.0), ret)
+    disc = torch.where(on_atom, 0.0, disc)
+    w = torch.rand((bs,), generator=g) * 0.9 + 0.1
+    return [x.to(device) for x in (logits, p, ret, disc, w)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs,n_atoms", [(256, 51), (37, 11), (8, 64)])
+def test_c51_kernel_matches_plain(cuda, bs, n_atoms):
+    """Kernel 6 against its plain version (the batch of rainbow.ladder,
+    a ragged batch, the most atoms a warp takes): the projection sums in
+    another order and the kernel's exp and log are CUDA's, so loss and
+    gradient agree to float32 rounding of sums of 51 terms."""
+    from pingpong_tpu_torch.ops import c51_loss as k6
+
+    args = c51_inputs(bs, n_atoms, 7, cuda)
+    before = k6.KERNEL.launches
+    loss, grad = k6.c51_loss(*args, -10.0, 10.0)
+    torch.cuda.synchronize()
+    assert k6.KERNEL.launches == before + 1
+    ref_loss, ref_grad = k6.c51_loss_plain(*(x.cpu() for x in args),
+                                           -10.0, 10.0)
+    torch.testing.assert_close(loss.cpu(), ref_loss, rtol=2e-6, atol=2e-6)
+    torch.testing.assert_close(grad.cpu(), ref_grad, rtol=1e-4, atol=1e-9)
+    again = k6.c51_loss(*args, -10.0, 10.0)
+    assert bit_equal(loss, again[0]) and bit_equal(grad, again[1])
+
+
+@pytest.mark.cuda
+def test_adam_default_eps_is_unchanged_on_the_card(cuda):
+    """The QNet's and the DRQN's autodiff Adam (no eps given) is the
+    frozen copy's bit for bit, and an eps of optax's default is the same
+    call; Rainbow's eps moves the step."""
+    from benchmark.reference.frozen import optim as frozen
+    from pingpong_tpu_torch.train.optim import ADAM_EPS, adam_
+
+    g = torch.Generator().manual_seed(3)
+    x, grad, m, v = (torch.randn((5192,), generator=g).to(cuda)
+                     for _ in range(4))
+    v = v.abs()
+    runs = []
+    for fn, kw in ((adam_, {}), (adam_, {"eps": ADAM_EPS}),
+                   (frozen.adam_, {}), (adam_, {"eps": 1.5e-4})):
+        xs, ms, vs = x.clone(), m.clone(), v.clone()
+        fn(xs, grad, ms, vs, 7, 2.5e-4, **kw)
+        runs.append((xs, ms, vs))
+    for other in runs[1:3]:
+        assert all(bit_equal(a, b) for a, b in zip(runs[0], other))
+    assert not bit_equal(runs[0][0], runs[3][0])
+
+
+@pytest.mark.cuda
+def test_rainbow_update_graph_is_bit_equal_to_eager(cuda):
+    """Rainbow's learner on the card: the rollout chunk and the update
+    block replayed as CUDA graphs (from the second call on the same
+    tensors) compute the bits the eager calls compute, over five calls at
+    a reduced width with a fault's reset before the fourth, which keeps
+    the graphs."""
+    from pingpong_tpu_torch.config import apply_overrides
+    from pingpong_tpu_torch.train.rainbow import RainbowLearner
+
+    cfg = apply_overrides(load_config("configs/rainbow.yaml"), [
+        "dqn.num_envs=64", "dqn.rollout_length=16", "dqn.batch_size=64",
+        "dqn.memory_size=16384", "dqn.updates_per_iteration=8",
+        "dqn.target_update_interval=12"])
+    runs = []
+    for graphs in (True, False):
+        learner = RainbowLearner(cfg.env, cfg.dqn, cuda)
+        learner.graphs = graphs
+        state = learner.init_state(2**33 + 9)
+        init = learner.params_b(state)
+        opp = learner.prepare_opponents([init])
+        losses, captured = [], []
+        for i in range(5):
+            if i == 3:   # a fault's reset keeps the graphs
+                captured = [learner._block.graph, learner._chunk_buf
+                            and learner._chunk_buf.graph]
+                state = learner.reset_learner(state, init)
+            state, m = learner.train_iteration(state, opp, 0)
+            losses.append(m.mean_loss)
+        assert (learner._block.graph is not None) == graphs
+        assert captured == [learner._block.graph, learner._chunk_buf
+                            and learner._chunk_buf.graph]
+        assert (learner._chunk_buf is not None
+                and learner._chunk_buf.graph is not None) == graphs
+        runs.append((state, losses + [m.episodes, m.wins_vs_a, m.epsilon]))
+    (a, la), (b, lb) = runs
+    assert la == lb
+    for x, y in ((a.params, b.params), (a.target, b.target),
+                 (a.env_state.ball_x, b.env_state.ball_x),
+                 (a.env_state.score_b, b.env_state.score_b),
+                 (a.ep_return, b.ep_return), (a.carry.obs, b.carry.obs),
+                 (a.buffer.data, b.buffer.data),
+                 (a.opt_mu, b.opt_mu), (a.opt_nu, b.opt_nu),
+                 (a.buffer.prios, b.buffer.prios),
+                 (a.buffer.chunk_sums, b.buffer.chunk_sums)):
+        assert bit_equal(x, y)
